@@ -1,0 +1,118 @@
+"""Build and load the package's CUDA kernels.
+
+The sources under ``csrc/`` are compiled with nvcc for ``sm_90a`` into one
+shared library with a plain C interface, bound with ctypes.  Each source
+compiles in its own nvcc process, all started together, then one link.
+The library is built at first use into ``_build/`` (git-ignored), named by
+a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads the library already there.
+
+Nothing here runs at import: the CPU tests import every module, and a
+machine without nvcc never builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from typing import List, Optional, Tuple
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+SOURCES = ("emformer_stack.cu", "emission_append.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib: Optional[ctypes.CDLL] = None      # the process's loaded library
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def _library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(CSRC_DIR)):
+        if name.endswith((".cu", ".cuh")):
+            with open(os.path.join(CSRC_DIR, name), "rb") as f:
+                h.update(name.encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libasr_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> Tuple[str, float, str]:
+    """Compile the sources (in parallel) and link the library.  Returns
+    (path, build seconds, compiler output with the ptxas -v report);
+    (path, 0.0, "") when the library for these sources already exists.
+    Raises with the compiler output when nvcc fails."""
+    target = _library_path()
+    if os.path.exists(target):
+        return target, 0.0, ""
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs, objs = [], []
+        for src in SOURCES:
+            obj = os.path.join(tmp, src.replace(".cu", ".o"))
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC_DIR, src),
+                 "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs: List[str] = []
+        failed = []
+        for src, p in procs:
+            out, _ = p.communicate()
+            logs.append(f"== {src}\n{out}")
+            if p.returncode != 0:
+                failed.append(src)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
+        tmp_lib = os.path.join(tmp, "lib.so")
+        link = subprocess.run(
+            [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+             "-o", tmp_lib, *objs],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append(f"== link\n{link.stdout}")
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + "\n".join(logs))
+        os.replace(tmp_lib, target)
+    return target, time.perf_counter() - t0, "\n".join(logs)
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(build()[0])
+        handle.asr_emformer_stack.argtypes = [ctypes.c_void_p]
+        handle.asr_emformer_stack.restype = ctypes.c_int
+        handle.asr_emission_append.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
+        handle.asr_emission_append.restype = ctypes.c_int
+        handle.asr_cuda_error_string.argtypes = [ctypes.c_int]
+        handle.asr_cuda_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise when a launch returned a non-zero CUDA (or argument) code."""
+    if code != 0:
+        msg = lib().asr_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what} failed: {msg} (code {code})")

@@ -1,0 +1,26 @@
+"""Vocabulary loading.
+
+Copied from asr_streaming_tpu/text/vocab.py (load_vocab,
+placeholder_vocab).  vocab: one token per line; index 0 = blank '-',
+index 1 = silence '|'.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+
+def load_vocab(path: str) -> List[str]:
+    with open(path, encoding="utf-8") as f:
+        return f.read().split("\n")
+
+
+def placeholder_vocab(size: int = 803) -> List[str]:
+    """Structurally-valid stand-in vocab when no real corpus is configured
+    (random-weight serving, tests): '-', '|', then synthetic subwords."""
+    toks = ["-", "|"]
+    i = 0
+    while len(toks) < size:
+        toks.append(f"t{i}")
+        i += 1
+    return toks[:size]

@@ -1,0 +1,59 @@
+"""Per-stage timers and counters.
+
+Copied from asr_streaming_tpu/utils/observability.py (StageTimers).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import time
+from collections import defaultdict
+from typing import Dict
+
+import numpy as np
+
+
+class StageTimers:
+    """Per-stage latency tracking with percentile snapshots."""
+
+    def __init__(self, window: int = 512):
+        self.window = window
+        self._samples: Dict[str, list] = defaultdict(list)
+        self._counts: Dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def track(self, stage: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.observe(stage, time.perf_counter() - t0)
+
+    def observe(self, stage: str, seconds: float) -> None:
+        buf = self._samples[stage]
+        buf.append(seconds)
+        if len(buf) > self.window:
+            del buf[:len(buf) - self.window]
+        self._counts[stage] += 1
+
+    def increment(self, counter: str, by: int = 1) -> None:
+        self._counts[counter] += by
+
+    def snapshot(self) -> dict:
+        out = {"counters": dict(self._counts), "stages": {}}
+        for stage, buf in self._samples.items():
+            if not buf:
+                continue
+            arr = np.asarray(buf)
+            out["stages"][stage] = {
+                "p50_ms": round(float(np.percentile(arr, 50)) * 1e3, 2),
+                "p95_ms": round(float(np.percentile(arr, 95)) * 1e3, 2),
+                "p99_ms": round(float(np.percentile(arr, 99)) * 1e3, 2),
+                "mean_ms": round(float(arr.mean()) * 1e3, 2),
+                "n": len(buf),
+            }
+        return out
+
+    def to_json(self) -> str:
+        return json.dumps(self.snapshot())
