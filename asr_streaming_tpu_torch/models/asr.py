@@ -9,11 +9,13 @@ same step over chunk windows framed exactly like the server's ring buffer.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from asr_streaming_tpu_torch import resolve_device
 from asr_streaming_tpu_torch.models.emformer import (
     EmformerConfig, EmformerState,
 )
@@ -49,6 +51,33 @@ class ASRConfig:
                                          emformer=emf))
 
 
+# ASR_PALLAS_MODE values -> EmformerConfig.route
+_MODE_ROUTES = {"stack": "stack", "layer": "layer", "off": "eager"}
+
+
+def with_kernel_route(cfg: ASRConfig, mode: str = "stack",
+                      quant: str = "none") -> ASRConfig:
+    """Choose the Emformer's kernels (models/asr.py::with_pallas_layer).
+
+    mode "stack" (default): kernel A, all layers in one call; "layer":
+    kernel C, one call per layer; "off": the eager route.  quant "int8"
+    runs the five projection/FFN products W8A8, "int8_ffn" only the FFN
+    two (the stack only; the layer route honours "int8" alone, the eager
+    route neither).  The environment overrides both, as operators set it
+    for the JAX server: ASR_PALLAS_MODE=stack|layer|off and
+    ASR_PALLAS_QUANT=none|int8|int8_ffn.  There is no backend test: the
+    route is a field of the config, and a CUDA tensor always takes the
+    kernel."""
+    mode = os.environ.get("ASR_PALLAS_MODE", mode)
+    quant = os.environ.get("ASR_PALLAS_QUANT", quant)
+    if mode not in _MODE_ROUTES:
+        raise ValueError(f"mode {mode!r} not in {tuple(_MODE_ROUTES)}")
+    emf = dataclasses.replace(cfg.encoder.emformer, route=_MODE_ROUTES[mode],
+                              quant="none" if mode == "off" else quant)
+    return dataclasses.replace(
+        cfg, encoder=dataclasses.replace(cfg.encoder, emformer=emf))
+
+
 class StepOutput(NamedTuple):
     log_probs: torch.Tensor   # [B, U, V] f32
     argmax: torch.Tensor      # [B, U] int32 per-frame best token
@@ -57,7 +86,10 @@ class StepOutput(NamedTuple):
 
 
 def init_asr_params(gen: torch.Generator, cfg: ASRConfig,
-                    device="cpu") -> dict:
+                    device=None) -> dict:
+    """Frontend buffers and random encoder weights on ``device`` (default
+    CUDA; raises without it)."""
+    device = resolve_device(device)
     return {
         "frontend": make_mel_params(cfg.mel, device),
         "encoder": init_encoder_params(gen, cfg.encoder, device),
@@ -65,8 +97,9 @@ def init_asr_params(gen: torch.Generator, cfg: ASRConfig,
 
 
 def init_asr_state(cfg: ASRConfig, batch_size: int,
-                   device="cpu") -> EmformerState:
-    return init_encoder_state(cfg.encoder, batch_size, device)
+                   device=None) -> EmformerState:
+    return init_encoder_state(cfg.encoder, batch_size,
+                              resolve_device(device))
 
 
 def asr_stream_step(params: dict, cfg: ASRConfig, wave: torch.Tensor,

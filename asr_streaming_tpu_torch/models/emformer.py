@@ -15,12 +15,24 @@ context, Lc=32 left context, M=4 memory slots, D=512, H=8, F=2048,
               left-context K/V <- the utterance keys/values just computed
   next layer's input memory row = tanh(summary attention output)
 
-``emformer_stream_step`` runs the whole stack through
-``ops/emformer_stack.py`` (the CUDA kernel for CUDA tensors, its plain
-version on the CPU).  ``emformer_stream_step_eager`` is the eager twin of
-the JAX package's XLA path (``_layer_step`` / ``_finish_layer_step`` with
-global reset/advance selects), line by line — the oracle the kernel's
-plain version is held against.
+``emformer_stream_step`` takes the route ``EmformerConfig.route`` names
+(each kernel wrapper launches its CUDA kernel for CUDA tensors and runs
+its plain version on the CPU):
+
+  "stack" (default): all layers in one call of ``ops/emformer_stack.py``
+      (kernel A; the JAX package's ``use_pallas_stack``);
+  "layer": one call of ``ops/emformer_layer.py`` per layer (kernel C;
+      ``use_pallas_layer``), reset/advance applied inside each call, the
+      memory row carried between layers;
+  "eager": ``emformer_stream_step_eager``, the eager twin of the JAX
+      package's XLA path (``_layer_step`` / ``_finish_layer_step`` with
+      global reset/advance selects), line by line — the oracle the
+      kernels' plain versions are held against.  With ``fused_attention``
+      its attention core is ``ops/emformer_attention.py`` (kernel D;
+      ``use_pallas_attention``).
+
+``quant`` is honoured as the JAX package honours it: the stack takes
+"int8" and "int8_ffn", the layer route "int8" only, the eager route none.
 """
 
 from __future__ import annotations
@@ -32,7 +44,15 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from asr_streaming_tpu_torch.ops.emformer_stack import emformer_stack
+from asr_streaming_tpu_torch import resolve_device
+from asr_streaming_tpu_torch.ops.emformer_attention import emformer_attention
+from asr_streaming_tpu_torch.ops.emformer_layer import emformer_layer
+from asr_streaming_tpu_torch.ops.emformer_stack import (
+    _kernel_quant_names, emformer_stack, quantized_weights,
+)
+
+ROUTES = ("stack", "layer", "eager")
+QUANTS = ("none", "int8", "int8_ffn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +70,18 @@ class EmformerConfig:
     negative_inf: float = -1e8
     weight_init_scale_strategy: Optional[str] = "depthwise"
     compute_dtype: torch.dtype = torch.float32
+    # which kernels run the step: "stack" | "layer" | "eager" (module doc)
+    route: str = "stack"
+    # eager route: the attention core through kernel D
+    fused_attention: bool = False
+    # W8A8 products: "none" | "int8" (all five) | "int8_ffn" (the FFN two)
+    quant: str = "none"
+
+    def __post_init__(self):
+        if self.route not in ROUTES:
+            raise ValueError(f"route {self.route!r} not in {ROUTES}")
+        if self.quant not in QUANTS:
+            raise ValueError(f"quant {self.quant!r} not in {QUANTS}")
 
     @property
     def use_mem(self) -> bool:
@@ -75,7 +107,9 @@ class EmformerState(NamedTuple):
 
 
 def init_emformer_state(cfg: EmformerConfig, batch_size: int,
-                        device="cpu") -> EmformerState:
+                        device=None) -> EmformerState:
+    """Zero state on ``device`` (default CUDA; raises without it)."""
+    device = resolve_device(device)
     L, B, D = cfg.num_layers, batch_size, cfg.d_model
     dt = cfg.compute_dtype
     return EmformerState(
@@ -108,9 +142,11 @@ def _linear_init(gen, in_dim, out_dim):
 
 
 def init_emformer_params(gen: torch.Generator, cfg: EmformerConfig,
-                         device="cpu") -> dict:
+                         device=None) -> dict:
     """Per-layer parameters stacked along dim 0 ([L, ...]), f32, drawn on
-    the CPU from ``gen`` (same distributions as the JAX package's init)."""
+    the CPU from ``gen`` (same distributions as the JAX package's init),
+    placed on ``device`` (default CUDA; raises without it)."""
+    device = resolve_device(device)
     D, Fd, L = cfg.d_model, cfg.ffn_dim, cfg.num_layers
     if cfg.weight_init_scale_strategy == "depthwise":
         gains = [1.0 / math.sqrt(i + 1) for i in range(L)]
@@ -146,25 +182,57 @@ def emformer_stream_step(
     advance: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, EmformerState]:
     """One streaming step over all layers (x [B, U+R, D]: utterance then
-    right context).  reset zeroes a slot's state before stepping; advance
-    commits the stepped state (else the post-reset previous state is
-    kept).  Returns (y [B, U, D] f32, new_state)."""
-    U = cfg.segment_length
+    right context), by ``cfg.route`` (module doc).  reset zeroes a slot's
+    state before stepping; advance commits the stepped state (else the
+    post-reset previous state is kept).  Returns (y [B, U, D] f32,
+    new_state)."""
+    if cfg.route == "eager":
+        return emformer_stream_step_eager(params, cfg, x, state, reset,
+                                          advance)
+    U, R = cfg.segment_length, cfg.right_context_length
     length = state.length
     if reset is not None:
         length = torch.where(reset, torch.zeros_like(length), length)
-    y, mem, lc_k, lc_v = emformer_stack(
-        params, x[:, :U + cfg.right_context_length].to(torch.float32),
-        state.mem, state.lc_k, state.lc_v, length, reset, advance,
-        U=U, R=cfg.right_context_length, M=cfg.max_memory_size,
-        Lc=cfg.left_context_length, H=cfg.num_heads, use_mem=cfg.use_mem,
-        tanh_on_mem=cfg.tanh_on_mem, neg_inf=cfg.negative_inf,
-        activation=cfg.activation, cdt=cfg.compute_dtype)
+    kw = dict(U=U, R=R, M=cfg.max_memory_size, Lc=cfg.left_context_length,
+              H=cfg.num_heads, use_mem=cfg.use_mem,
+              tanh_on_mem=cfg.tanh_on_mem, neg_inf=cfg.negative_inf,
+              activation=cfg.activation, cdt=cfg.compute_dtype)
+    if cfg.route == "stack":
+        y, mem, lc_k, lc_v = emformer_stack(
+            params, x[:, :U + R].to(torch.float32), state.mem, state.lc_k,
+            state.lc_v, length, reset, advance, quant=cfg.quant, **kw)
+    else:
+        y, mem, lc_k, lc_v = _layer_route(params, cfg, x, state, length,
+                                          reset, advance, kw)
     new_length = length + U
     if advance is not None:
         new_length = torch.where(advance, new_length, length)
     return y, EmformerState(mem=mem, lc_k=lc_k, lc_v=lc_v,
                             length=new_length.to(torch.int32))
+
+
+def _layer_route(params, cfg, x, state, length, reset, advance, kw):
+    """One kernel-C call per layer (emformer.py:435-464 with
+    use_pallas_layer): the masks go into every call, no global selects;
+    the first layer's memory row is the mean of the raw utterance."""
+    U, R = cfg.segment_length, cfg.right_context_length
+    utt, rc = x[:, :U].to(torch.float32), x[:, U:U + R].to(torch.float32)
+    quant = cfg.quant == "int8"           # "int8_ffn" quantises nothing here
+    qall = quantized_weights(params, _kernel_quant_names(quant))
+    mem_row = None
+    mems, lcks, lcvs = [], [], []
+    for l in range(cfg.num_layers):
+        p = {k: v[l] for k, v in params.items()}
+        utt, rc, mem_row, nm, nk, nv = emformer_layer(
+            p, utt, rc, mem_row, state.mem[l], state.lc_k[l], state.lc_v[l],
+            length, reset, advance, quant=quant,
+            qweights={n: tuple(None if t is None else t[l] for t in q)
+                      for n, q in qall.items()},
+            mem_row_from_utt=l == 0 and cfg.use_mem, **kw)
+        mems.append(nm)
+        lcks.append(nk)
+        lcvs.append(nv)
+    return utt, torch.stack(mems), torch.stack(lcks), torch.stack(lcvs)
 
 
 # ------------------------------------------------ eager twin of the XLA path
@@ -226,7 +294,17 @@ def _layer_step(cfg: EmformerConfig, p: dict, utt, rc, mem_row, mem_state,
         mem_idx = torch.arange(M, device=utt.device)
         valid_mem = mem_idx[None, :] >= (M - m_m)[:, None]
     else:
+        m_m = torch.zeros_like(length)
         valid_mem = torch.ones((B, 0), dtype=torch.bool, device=utt.device)
+
+    if cfg.fused_attention:
+        attn = emformer_attention(
+            q.float(), full_k.float(), full_v.float(), m_m, m_kv,
+            num_heads=H, M=M, R=R, Lc=Lc, U=U, use_mem=cfg.use_mem,
+            neg_inf=cfg.negative_inf).to(cdt)
+        out = _dot(attn, p["w_out"], cdt) + p["b_out"].to(cdt)
+        return _finish_layer_step(cfg, p, out, utt, rc, mem_row, mem_state,
+                                  lc_k, lc_v, next_k, next_v)
     valid_keys = torch.cat(
         [valid_mem, torch.ones((B, R), dtype=torch.bool, device=utt.device),
          valid_lc, torch.ones((B, U), dtype=torch.bool, device=utt.device)],
@@ -291,7 +369,8 @@ def emformer_stream_step_eager(
     advance: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, EmformerState]:
     """emformer_stream_step on the XLA path's spelling: global pre-select
-    of the reset state, a Python loop over layers, global post-select."""
+    of the reset state, a Python loop over layers, global post-select.
+    ``cfg.quant`` is ignored here, as on the XLA path."""
     U = cfg.segment_length
     R = cfg.right_context_length
     utt, rc = x[:, :U].float(), x[:, U:U + R].float()

@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from asr_streaming_tpu_torch import resolve_device
 from asr_streaming_tpu_torch.models.emformer import (
     EmformerConfig, EmformerState, _linear_init, emformer_forward,
     emformer_stream_step, init_emformer_params, init_emformer_state,
@@ -46,7 +47,10 @@ class EncoderConfig:
 
 
 def init_encoder_params(gen: torch.Generator, cfg: EncoderConfig,
-                        device="cpu") -> dict:
+                        device=None) -> dict:
+    """Random weights from ``gen`` on ``device`` (default CUDA; raises
+    without it)."""
+    device = resolve_device(device)
     reduced_dim = cfg.d_model // cfg.stride
     w_in, _ = _linear_init(gen, cfg.input_dim, reduced_dim)
     ctc_w1, ctc_b1 = _linear_init(gen, cfg.d_model, cfg.ctc_hidden_dim)
@@ -60,8 +64,9 @@ def init_encoder_params(gen: torch.Generator, cfg: EncoderConfig,
 
 
 def init_encoder_state(cfg: EncoderConfig, batch_size: int,
-                       device="cpu") -> EmformerState:
-    return init_emformer_state(cfg.emformer, batch_size, device)
+                       device=None) -> EmformerState:
+    return init_emformer_state(cfg.emformer, batch_size,
+                               resolve_device(device))
 
 
 def _time_reduction(x: torch.Tensor, stride: int) -> torch.Tensor:

@@ -117,6 +117,17 @@ def init_emission_buffer(cfg: ServingConfig, max_slots: int,
                        device=resolve_device(device))
 
 
+def emission_width(cfg: ServingConfig) -> int:
+    """Per-frame width of the emission buffer: V, the CTC vocabulary.
+
+    The JAX package stores float16 rows as packed f32 bit-pairs (Mosaic
+    has no f16 lanes) and unpacks them on the host (``_emission_packed``,
+    ``_unpack_f16_rows``).  This buffer is native float16 and holds V
+    columns, so neither has a counterpart here."""
+    _check_kind(cfg)
+    return cfg.asr.encoder.vocab_size
+
+
 def make_emission_fetcher(cfg: ServingConfig):
     """fetch(buf, slot, length) -> np [length, V] float32."""
     def fetch(buf: torch.Tensor, slot: int, length: int) -> np.ndarray:

@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from asr_streaming_tpu_torch import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class SileroConfig:
@@ -44,8 +46,10 @@ class SileroConfig:
 
 def init_silero_params(gen: torch.Generator,
                        cfg: SileroConfig = SileroConfig(),
-                       device="cpu") -> dict:
-    """Random parameters in the v5 graph's shapes (fixed STFT basis)."""
+                       device=None) -> dict:
+    """Random parameters in the v5 graph's shapes (fixed STFT basis), on
+    ``device`` (default CUDA; raises without it)."""
+    device = resolve_device(device)
     Fq, H = cfg.n_freqs, cfg.lstm_hidden
 
     def u(shape, fan_in):

@@ -5,7 +5,9 @@ shared library with a plain C interface, bound with ctypes.  Each source
 compiles in its own nvcc process, all started together, then one link.
 The library is built at first use into ``_build/`` (git-ignored), named by
 a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads the library already there.
+unchanged one loads the library already there.  The build holds a file
+lock, so a device-worker child and its parent never run nvcc into the
+same directory at once.
 
 Nothing here runs at import: the CPU tests import every module, and a
 machine without nvcc never builds.
@@ -14,7 +16,9 @@ machine without nvcc never builds.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
@@ -25,7 +29,16 @@ from typing import List, Optional, Tuple
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("emformer_stack.cu", "emission_append.cu")
+SOURCES = ("emformer_stack.cu", "emission_append.cu", "emformer_attention.cu")
+# the wrapper modules whose LAUNCHES counters make up launch_counts():
+# {row name: (module, counter attribute)}
+COUNTERS = {
+    "emformer_stack": ("emformer_stack", "LAUNCHES"),
+    "emformer_stack_int8": ("emformer_stack", "LAUNCHES_INT8"),
+    "emission_append": ("emission_append", "LAUNCHES"),
+    "emformer_layer": ("emformer_layer", "LAUNCHES"),
+    "emformer_attention": ("emformer_attention", "LAUNCHES"),
+}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -62,6 +75,14 @@ def build() -> Tuple[str, float, str]:
         return target, 0.0, ""
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)      # released when the file closes
+        if os.path.exists(target):            # another process built it
+            return target, 0.0, ""
+        return _build_locked(nvcc, target)
+
+
+def _build_locked(nvcc: str, target: str) -> Tuple[str, float, str]:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs, objs = [], []
@@ -98,8 +119,16 @@ def lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         handle = ctypes.CDLL(build()[0])
-        handle.asr_emformer_stack.argtypes = [ctypes.c_void_p]
-        handle.asr_emformer_stack.restype = ctypes.c_int
+        for name in ("asr_emformer_stack", "asr_emformer_layer"):
+            getattr(handle, name).argtypes = [ctypes.c_void_p]
+            getattr(handle, name).restype = ctypes.c_int
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        handle.asr_w8a8_linear.argtypes = [i32, i32] + [ptr] * 7 + [i32] * 4 \
+            + [ptr]
+        handle.asr_w8a8_linear.restype = i32
+        handle.asr_emformer_attention.argtypes = [ptr] * 6 + [i32] * 9 + [
+            ctypes.c_float, ptr]
+        handle.asr_emformer_attention.restype = i32
         handle.asr_emission_append.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -116,3 +145,15 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = lib().asr_cuda_error_string(code).decode()
         raise RuntimeError(f"{what} failed: {msg} (code {code})")
+
+
+def launch_counts(reset: bool = False) -> dict:
+    """Each kernel's launch count in this process ({row name: count});
+    ``reset`` sets them to 0 after reading."""
+    out = {}
+    for row, (mod_name, attr) in COUNTERS.items():
+        mod = importlib.import_module(f"asr_streaming_tpu_torch.ops.{mod_name}")
+        out[row] = getattr(mod, attr)
+        if reset:
+            setattr(mod, attr, 0)
+    return out

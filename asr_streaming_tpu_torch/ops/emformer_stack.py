@@ -1,11 +1,18 @@
 """All-layer streaming Emformer step: CUDA kernel wrapper + plain version.
 
-Counterpart of asr_streaming_tpu/ops/pallas_emformer.py::fused_emformer_stack.
-``emformer_stack`` takes the JAX layouts: stacked params ``[L, ...]``
-(weights ``[in, out]``), x ``[B, U+R, D]`` (utterance then right context),
-state mem ``[L,B,M,D]`` and lc_k/lc_v ``[L,B,Lc,D]`` in the compute type,
-the RESET-EFFECTIVE length ``[B]`` and optional reset/advance ``[B]``
-masks.  Returns (y ``[B,U,D]`` f32, new_mem, new_lc_k, new_lc_v).
+Counterpart of asr_streaming_tpu/ops/pallas_emformer.py::fused_emformer_stack,
+with its W8A8 mode and helpers (``_quantize_weight``, ``_qdot``,
+``_kernel_quant_names``).  ``emformer_stack`` takes the JAX layouts:
+stacked params ``[L, ...]`` (weights ``[in, out]``), x ``[B, U+R, D]``
+(utterance then right context), state mem ``[L,B,M,D]`` and lc_k/lc_v
+``[L,B,Lc,D]`` in the compute type, the RESET-EFFECTIVE length ``[B]`` and
+optional reset/advance ``[B]`` masks.  Returns (y ``[B,U,D]`` f32,
+new_mem, new_lc_k, new_lc_v).
+
+``quant``: ``"none"``; ``"int8"`` runs all five projection/FFN products
+W8A8 (per-output-channel int8 weights quantised from the f32 params,
+per-row dynamic int8 activations, exact int32 products, f32 dequant);
+``"int8_ffn"`` only the two FFN products.
 
 On a CUDA tensor it launches ``csrc/emformer_stack.cu``; on a CPU tensor
 it runs ``emformer_stack_plain``, which follows the Pallas kernel's
@@ -16,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import weakref
 from typing import Optional, Tuple
 
 import torch
@@ -23,14 +31,93 @@ import torch.nn.functional as F
 
 from asr_streaming_tpu_torch.ops import _cuda
 
-# launches of the CUDA kernel (one per call that reaches the card)
+# launches of the CUDA kernel (one per call that reaches the card), in
+# bf16/f32 mode and in W8A8 mode
 LAUNCHES = 0
+LAUNCHES_INT8 = 0
 
 _MAT = ("w_q", "w_kv", "w_out", "ff_w1", "ff_w2")
 _BIAS = ("b_q", "b_kv", "b_out", "ff_b1", "ff_b2")
 _LN = ("ln_in_scale", "ln_in_bias", "ff_ln_scale", "ff_ln_bias",
        "ln_out_scale", "ln_out_bias")
 _ACTS = {"relu": 1, "gelu": 2, "silu": 3}
+# the kernel's W8A8 bit of each product (csrc/emformer_stack.cu QuantBits)
+_QBITS = {"w_q": 1, "w_kv": 2, "w_out": 4, "ff_w1": 8, "ff_w2": 16}
+
+
+# ------------------------------------------------------------------ W8A8
+
+def _kernel_quant_names(quant) -> tuple:
+    """The products a quant spec runs W8A8 (pallas_emformer.py:65-73):
+    False/"none" -> (); True/"int8" -> all five; "int8_ffn" -> the two
+    FFN products."""
+    if quant in (True, "int8"):
+        return _MAT
+    if quant == "int8_ffn":
+        return ("ff_w1", "ff_w2")
+    return ()
+
+
+def _quantize_weight(w: torch.Tensor, axis: int = -2):
+    """Per-output-channel symmetric int8, w ~= w8 * scale; ``axis`` is the
+    contraction axis.  As pallas_emformer.py::_quantize_weight: the scale
+    is amax / 127 by a true division (a tensor divisor: PyTorch turns a
+    division by a Python scalar into a product with its reciprocal on the
+    card), and w / scale rounds half to even."""
+    w = w.to(torch.float32)
+    amax = torch.clamp(w.abs().amax(axis, keepdim=True), min=1e-8)
+    scale = amax / torch.full_like(amax, 127.0)
+    return torch.round(w / scale).to(torch.int8), scale
+
+
+def _int_product(xq: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """xq [rows, K] int8 . w8 [K, N] int8, exact, as f32.  The sums reach
+    127^2 * K (3.3e7 at K = 2048, past f32's 2^24), so they are taken in
+    int64 on the CPU and in float64 on the card (exact below 2^53)."""
+    if xq.device.type == "cpu":
+        acc = torch.matmul(xq.to(torch.int64), w8.to(torch.int64))
+    else:
+        acc = torch.matmul(xq.to(torch.float64), w8.to(torch.float64))
+    return acc.to(torch.float32)
+
+
+def _qdot(x2d: torch.Tensor, w8: torch.Tensor, wscale: torch.Tensor
+          ) -> torch.Tensor:
+    """W8A8 product (pallas_emformer.py::_qdot): per-row dynamic symmetric
+    activation quant, an exact int8 product, f32 dequant.  x2d [rows, K]
+    f32, w8 [K, N] int8, wscale [1, N] f32 -> [rows, N] f32."""
+    amax = x2d.abs().amax(-1, keepdim=True)
+    s = torch.clamp(amax, min=1e-8) * (1.0 / 127.0)
+    xq = torch.round(x2d * torch.reciprocal(s)).to(torch.int8)
+    return _int_product(xq, w8) * s * wscale
+
+
+# quantised weights per f32 weight tensor, by id: {id: (weakref to the
+# tensor, its version, w8, scale, w8 transposed [..., N, K] or None)};
+# an entry goes with its tensor
+_QCACHE: dict = {}
+
+
+def quantized_weights(params: dict, names) -> dict:
+    """{name: (w8 [..., K, N] int8, scale [..., 1, N] f32, w8t)} for the
+    named f32 weights of ``params`` (stacked or one layer's).  Quantisation
+    is deterministic, so the result is cached per weight tensor (dropped
+    with it, and redone if the tensor is changed in place); ``w8t`` is the
+    contiguous [..., N, K] copy the CUDA kernel reads (None on the CPU)."""
+    out = {}
+    for name in names:
+        w = params[name]
+        hit = _QCACHE.get(id(w))
+        if hit is None or hit[0]() is not w or hit[1] != w._version:
+            w8, scale = _quantize_weight(w, axis=-2)
+            w8t = (w8.transpose(-1, -2).contiguous()
+                   if w.device.type == "cuda" else None)
+            key = id(w)
+            ref = weakref.ref(w, lambda _, key=key: _QCACHE.pop(key, None))
+            hit = (ref, w._version, w8, scale, w8t)
+            _QCACHE[key] = hit
+        out[name] = hit[2:]
+    return out
 
 
 # ----------------------------------------------------------- plain version
@@ -56,9 +143,18 @@ def _act(name):
 
 def _layer_plain(utt, rc, mem_row, mem_state_in, lc_k_in, lc_v_in, length,
                  reset, advance, w, *, U, R, M, Lc, H, use_mem, tanh_on_mem,
-                 neg_inf, activation, cdt):
-    """One layer: pallas_emformer.py::_layer_math in PyTorch."""
+                 neg_inf, activation, cdt, qw=None):
+    """One layer: pallas_emformer.py::_layer_math in PyTorch.  ``qw``:
+    {name: (w8, scale, ...)} of this layer's W8A8 products."""
     B, _, D = utt.shape
+    qw = qw or {}
+
+    def proj(x2d, name):
+        if name in qw:
+            return _qdot(x2d.to(torch.float32), qw[name][0],
+                         qw[name][1]).to(cdt)
+        return _mm(x2d, w[name], cdt)
+
     Dh = D // H
     K = M + R + Lc + U
     Q = R + U + (1 if use_mem else 0)
@@ -73,7 +169,7 @@ def _layer_plain(utt, rc, mem_row, mem_state_in, lc_k_in, lc_v_in, length,
     else:
         q_in = torch.cat([ln_rc, ln_utt], 1)
 
-    q = (_mm(q_in.reshape(B * Q, D), w["w_q"], cdt)
+    q = (proj(q_in.reshape(B * Q, D), "w_q")
          + w["b_q"].to(cdt)).reshape(B, Q, D)
 
     mem_state = torch.where(reset3, torch.zeros_like(mem_state_in),
@@ -82,7 +178,7 @@ def _layer_plain(utt, rc, mem_row, mem_state_in, lc_k_in, lc_v_in, length,
                                                         ln_utt.to(cdt)]
     kv_in = torch.cat(parts, 1)
     n_kv = kv_in.shape[1]
-    kv = (_mm(kv_in.reshape(B * n_kv, D), w["w_kv"], cdt)
+    kv = (proj(kv_in.reshape(B * n_kv, D), "w_kv")
           + w["b_kv"].to(cdt)).reshape(B, n_kv, 2 * D)
     k_part, v_part = kv[:, :, :D], kv[:, :, D:]
     next_k, next_v = k_part[:, M + R:], v_part[:, M + R:]
@@ -118,7 +214,7 @@ def _layer_plain(utt, rc, mem_row, mem_state_in, lc_k_in, lc_v_in, length,
     attn = torch.matmul(probs.float(), vh.float())                 # f32
     attn = attn.transpose(1, 2).reshape(B, Q, D).to(cdt)
 
-    out = (_mm(attn.reshape(B * Q, D), w["w_out"], cdt)
+    out = (proj(attn.reshape(B * Q, D), "w_out")
            + w["b_out"].to(cdt)).reshape(B, Q, D)
 
     rc_utt_out = out[:, :R + U].float()
@@ -131,9 +227,9 @@ def _layer_plain(utt, rc, mem_row, mem_state_in, lc_k_in, lc_v_in, length,
     residual = rc_utt_out + torch.cat([rc, utt], 1)
     ff = _ln(residual, w["ff_ln_scale"], w["ff_ln_bias"])
     T = R + U
-    h1 = _act(activation)(_mm(ff.reshape(B * T, D), w["ff_w1"], cdt)
+    h1 = _act(activation)(proj(ff.reshape(B * T, D), "ff_w1")
                           + w["ff_b1"].to(cdt))
-    h2 = (_mm(h1, w["ff_w2"], cdt) + w["ff_b2"].to(cdt)).reshape(B, T, D)
+    h2 = (proj(h1, "ff_w2") + w["ff_b2"].to(cdt)).reshape(B, T, D)
     result = _ln(residual + h2.float(), w["ln_out_scale"], w["ln_out_bias"])
     new_rc, new_utt = result[:, :R], result[:, R:]
 
@@ -157,9 +253,10 @@ def _layer_plain(utt, rc, mem_row, mem_state_in, lc_k_in, lc_v_in, length,
 
 def emformer_stack_plain(params, x, mem, lc_k, lc_v, length, reset, advance,
                          *, U, R, M, Lc, H, use_mem, tanh_on_mem, neg_inf,
-                         activation, cdt):
+                         activation, cdt, quant="none"):
     """The plain PyTorch version of the kernel (any device)."""
     L = params["w_q"].shape[0]
+    qall = quantized_weights(params, _kernel_quant_names(quant))
     xf = x.to(torch.float32)
     utt, rc = xf[:, :U], xf[:, U:U + R]
     mem_row = utt.mean(1, keepdim=True) if use_mem else None
@@ -170,7 +267,7 @@ def emformer_stack_plain(params, x, mem, lc_k, lc_v, length, reset, advance,
             utt, rc, mem_row, mem[l], lc_k[l], lc_v[l], length, reset,
             advance, w, U=U, R=R, M=M, Lc=Lc, H=H, use_mem=use_mem,
             tanh_on_mem=tanh_on_mem, neg_inf=neg_inf, activation=activation,
-            cdt=cdt)
+            cdt=cdt, qw={n: (t[0][l], t[1][l]) for n, t in qall.items()})
         mem_row = new_row
         mems.append(nm)
         lcks.append(nk)
@@ -185,7 +282,8 @@ class _Args(ctypes.Structure):
     _fields_ = ([("struct_size", ctypes.c_int64), ("dtype", ctypes.c_int32)]
                 + [(n, ctypes.c_int32) for n in (
                     "B", "L", "D", "H", "F", "U", "R", "M", "Lc",
-                    "use_mem", "tanh_on_mem", "activation")]
+                    "use_mem", "tanh_on_mem", "activation", "quant",
+                    "init_memrow")]
                 + [("neg_inf", ctypes.c_float)]
                 + [(n, ctypes.c_void_p) for n in (
                     "x", "length", "reset", "advance",
@@ -193,37 +291,69 @@ class _Args(ctypes.Structure):
                     "wq", "bq", "wkv", "bkv", "wout", "bout",
                     "lnin_s", "lnin_b", "ffln_s", "ffln_b",
                     "w1", "b1", "w2", "b2", "lnout_s", "lnout_b",
+                    "wq8", "wq_s", "wkv8", "wkv_s", "wout8", "wout_s",
+                    "w18", "w1_s", "w28", "w2_s",
                     "y", "mem_out", "lck_out", "lcv_out",
                     "q_in", "kv_in", "q", "kv", "attn", "out", "ff_in",
-                    "h1", "h2", "hin", "hres", "memrow", "stream")])
+                    "h1", "h2", "hin", "hres", "memrow",
+                    "aq", "a_scale", "q_in32", "ff_in32", "stream")])
 
 
-def _kernel_weights(params: dict, cdt: torch.dtype) -> dict:
-    """Stacked weights as the kernel reads them: products and biases in
-    the compute type, LN vectors in f32, contiguous (a no-op when the
-    params already are; f32 -> bf16 costs ~0.1 ms per step at VI width)."""
-    w = {n: params[n].to(cdt).contiguous() for n in _MAT + _BIAS}
+# the int8 weight / scale fields of each product
+_QFIELDS = {"w_q": ("wq8", "wq_s"), "w_kv": ("wkv8", "wkv_s"),
+            "w_out": ("wout8", "wout_s"), "ff_w1": ("w18", "w1_s"),
+            "ff_w2": ("w28", "w2_s")}
+_WFIELDS = {"w_q": "wq", "b_q": "bq", "w_kv": "wkv", "b_kv": "bkv",
+            "w_out": "wout", "b_out": "bout", "ln_in_scale": "lnin_s",
+            "ln_in_bias": "lnin_b", "ff_ln_scale": "ffln_s",
+            "ff_ln_bias": "ffln_b", "ff_w1": "w1", "ff_b1": "b1",
+            "ff_w2": "w2", "ff_b2": "b2", "ln_out_scale": "lnout_s",
+            "ln_out_bias": "lnout_b"}
+
+
+def _kernel_weights(params: dict, cdt: torch.dtype, skip=()) -> dict:
+    """Weights as the kernel reads them: products and biases in the
+    compute type, LN vectors in f32, contiguous (a no-op when the params
+    already are; f32 -> bf16 costs ~0.1 ms per step at VI width).  The
+    products in ``skip`` run W8A8 and are not cast."""
+    w = {n: params[n].to(cdt).contiguous() for n in _MAT + _BIAS
+         if n not in skip}
     w.update({n: params[n].float().contiguous() for n in _LN})
     return w
 
 
-def _emformer_stack_cuda(params, x, mem, lc_k, lc_v, length, reset, advance,
-                         *, U, R, M, Lc, H, use_mem, tanh_on_mem, neg_inf,
-                         activation, cdt):
-    global LAUNCHES
+def _ptr(t):
+    return t.data_ptr() if t is not None and t.numel() else None
+
+
+def run_chain(entry: str, w: dict, qw: dict, x, length, reset, advance, mem,
+              lc_k, lc_v, memrow, *, U, R, M, Lc, H, use_mem, tanh_on_mem,
+              neg_inf, activation, cdt, init_memrow=0):
+    """Launch the layer chain of csrc/emformer_stack.cu through ``entry``
+    (``asr_emformer_stack`` or ``asr_emformer_layer``), on the card.
+
+    w: kernel weights (``_kernel_weights``, stacked ``[L, ...]``); qw:
+    {name: (w8, scale, w8t)} of the W8A8 products; x [B, U+R, D]
+    (utterance then right context); mem/lc_k/lc_v [L, B, rows, D] in the
+    compute type; memrow [B, D] f32, read and written (the memory row).
+    Returns (y [B,U,D] f32, new_mem, new_lc_k, new_lc_v, hin [B,R+U,D]
+    f32: the last layer's output rows [rc; utt])."""
     dev = x.device
-    L, D, _ = params["w_q"].shape
+    L, D = w["ln_in_scale"].shape
     B = x.shape[0]
-    Fd = params["ff_w1"].shape[-1]
+    Fd = w["ff_b1"].shape[-1]
     if cdt not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"emformer_stack kernel: unsupported dtype {cdt}")
+        raise ValueError(f"emformer kernel: unsupported dtype {cdt}")
     if activation not in _ACTS:
-        raise ValueError(f"emformer_stack kernel: activation {activation}")
+        raise ValueError(f"emformer kernel: activation {activation}")
     if D > 1024 or D % H:
-        raise ValueError(f"emformer_stack kernel: D={D}, H={H}")
+        raise ValueError(f"emformer kernel: D={D}, H={H}")
     if cdt == torch.bfloat16 and (D % 8 or Fd % 8):
-        raise ValueError(f"emformer_stack kernel: bf16 needs D and F "
-                         f"multiples of 8 (D={D}, F={Fd})")
+        raise ValueError(f"emformer kernel: bf16 needs D and F multiples of "
+                         f"8 (D={D}, F={Fd})")
+    if qw and (D % 16 or Fd % 16):
+        raise ValueError(f"emformer kernel: W8A8 needs D and F multiples of "
+                         f"16 (D={D}, F={Fd})")
     if tuple(x.shape) != (B, U + R, D):
         raise ValueError(f"x shape {tuple(x.shape)} != {(B, U + R, D)}")
     for name, t, rows in (("mem", mem, M), ("lc_k", lc_k, Lc),
@@ -236,7 +366,6 @@ def _emformer_stack_cuda(params, x, mem, lc_k, lc_v, length, reset, advance,
     if use_mem and M == 0:
         raise ValueError("use_mem requires M > 0")
 
-    w = _kernel_weights(params, cdt)
     x = x.to(torch.float32).contiguous()
     mem, lc_k, lc_v = mem.contiguous(), lc_k.contiguous(), lc_v.contiguous()
     length = length.to(device=dev, dtype=torch.int32).contiguous()
@@ -260,34 +389,91 @@ def _emformer_stack_cuda(params, x, mem, lc_k, lc_v, length, reset, advance,
          "ff_in": scratch(B, T, D), "h1": scratch(B, T, Fd),
          "h2": scratch(B, T, D),
          "hin": scratch(B, T, D, dtype=torch.float32),
-         "hres": scratch(B, T, D, dtype=torch.float32),
-         "memrow": scratch(B, D, dtype=torch.float32)}
-
-    def ptr(t):
-        return t.data_ptr() if t.numel() else None
+         "hres": scratch(B, T, D, dtype=torch.float32)}
+    q = {}
+    if qw:
+        rows = B * max(Q, NKV, T)
+        q = {"aq": scratch(rows * max(D, Fd), dtype=torch.int8),
+             "a_scale": scratch(rows, dtype=torch.float32),
+             "q_in32": scratch(B, Q, D, dtype=torch.float32),
+             "ff_in32": scratch(B, T, D, dtype=torch.float32)}
+        for name, (w8, scale, w8t) in qw.items():
+            if w8t is None or w8t.device != dev:
+                raise ValueError(f"{name}: W8A8 weights not on {dev}")
+            f8, fs = _QFIELDS[name]
+            q[f8], q[fs] = w8t, scale.contiguous()
+    quant = sum(_QBITS[n] for n in qw)
 
     args = _Args(
         struct_size=ctypes.sizeof(_Args),
         dtype=1 if cdt == torch.bfloat16 else 0,
         B=B, L=L, D=D, H=H, F=Fd, U=U, R=R, M=M, Lc=Lc,
         use_mem=int(use_mem), tanh_on_mem=int(tanh_on_mem),
-        activation=_ACTS[activation], neg_inf=float(neg_inf),
-        x=ptr(x), length=ptr(length), reset=ptr(reset), advance=ptr(advance),
-        mem_in=ptr(mem), lck_in=ptr(lc_k), lcv_in=ptr(lc_v),
-        wq=ptr(w["w_q"]), bq=ptr(w["b_q"]), wkv=ptr(w["w_kv"]),
-        bkv=ptr(w["b_kv"]), wout=ptr(w["w_out"]), bout=ptr(w["b_out"]),
-        lnin_s=ptr(w["ln_in_scale"]), lnin_b=ptr(w["ln_in_bias"]),
-        ffln_s=ptr(w["ff_ln_scale"]), ffln_b=ptr(w["ff_ln_bias"]),
-        w1=ptr(w["ff_w1"]), b1=ptr(w["ff_b1"]), w2=ptr(w["ff_w2"]),
-        b2=ptr(w["ff_b2"]), lnout_s=ptr(w["ln_out_scale"]),
-        lnout_b=ptr(w["ln_out_bias"]),
-        y=ptr(y), mem_out=ptr(new_mem), lck_out=ptr(new_lck),
-        lcv_out=ptr(new_lcv),
-        **{k: ptr(v) for k, v in s.items()},
+        activation=_ACTS[activation], quant=quant,
+        init_memrow=int(init_memrow), neg_inf=float(neg_inf),
+        x=_ptr(x), length=_ptr(length), reset=_ptr(reset),
+        advance=_ptr(advance), mem_in=_ptr(mem), lck_in=_ptr(lc_k),
+        lcv_in=_ptr(lc_v),
+        **{_WFIELDS[n]: _ptr(t) for n, t in w.items()},
+        y=_ptr(y), mem_out=_ptr(new_mem), lck_out=_ptr(new_lck),
+        lcv_out=_ptr(new_lcv), memrow=_ptr(memrow),
+        **{k: _ptr(v) for k, v in s.items()},
+        **{k: _ptr(v) for k, v in q.items()},
         stream=torch.cuda.current_stream(dev).cuda_stream)
-    _cuda.check(_cuda.lib().asr_emformer_stack(ctypes.byref(args)),
-                "emformer_stack")
-    LAUNCHES += 1
+    _cuda.check(getattr(_cuda.lib(), entry)(ctypes.byref(args)), entry)
+    return y, new_mem, new_lck, new_lcv, s["hin"]
+
+
+def w8a8_linear(x2d: torch.Tensor, q: tuple, bias: torch.Tensor,
+                cdt: torch.dtype, activation: Optional[str] = None
+                ) -> torch.Tensor:
+    """One W8A8 product with the kernel's epilogue,
+    act(_qdot(x2d, w8, scale).to(cdt) + bias.to(cdt)), for tests and
+    timing.  x2d [rows, K] f32 or cdt; q = (w8, scale, w8t) from
+    ``quantized_weights``.  CUDA tensor -> the row quantiser and the int8
+    GEMM of csrc/emformer_stack.cu, CPU tensor -> plain version."""
+    if x2d.device.type == "cpu":
+        y = _qdot(x2d.to(torch.float32), q[0], q[1]).to(cdt) + bias.to(cdt)
+        return _act(activation)(y) if activation else y
+    if x2d.device.type != "cuda":
+        raise ValueError(f"w8a8_linear: unsupported device {x2d.device}")
+    w8t, scale = q[2], q[1].contiguous()
+    M, K = x2d.shape
+    N = w8t.shape[0]
+    if cdt not in (torch.bfloat16, torch.float32) or K % 16 or \
+            tuple(w8t.shape) != (N, K):
+        raise ValueError(f"w8a8_linear: x {tuple(x2d.shape)}, w8t "
+                         f"{tuple(w8t.shape)}, {cdt}")
+    x_f32 = x2d.dtype == torch.float32 or cdt == torch.float32
+    x2d = x2d.to(torch.float32 if x_f32 else cdt).contiguous()
+    bias = bias.to(cdt).contiguous()
+    aq = torch.empty((M, K), dtype=torch.int8, device=x2d.device)
+    a_scale = torch.empty(M, dtype=torch.float32, device=x2d.device)
+    y = torch.empty((M, N), dtype=cdt, device=x2d.device)
+    _cuda.check(_cuda.lib().asr_w8a8_linear(
+        1 if cdt == torch.bfloat16 else 0, int(x_f32), x2d.data_ptr(),
+        aq.data_ptr(), a_scale.data_ptr(), w8t.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), y.data_ptr(), M, N, K,
+        _ACTS[activation] if activation else 0,
+        torch.cuda.current_stream(x2d.device).cuda_stream), "w8a8_linear")
+    return y
+
+
+def _emformer_stack_cuda(params, x, mem, lc_k, lc_v, length, reset, advance,
+                         *, quant, **kw):
+    global LAUNCHES, LAUNCHES_INT8
+    names = _kernel_quant_names(quant)
+    w = _kernel_weights(params, kw["cdt"], skip=names)
+    qw = quantized_weights(params, names)
+    memrow = torch.empty((x.shape[0], x.shape[2]), dtype=torch.float32,
+                         device=x.device)
+    y, new_mem, new_lck, new_lcv, _ = run_chain(
+        "asr_emformer_stack", w, qw, x, length, reset, advance, mem, lc_k,
+        lc_v, memrow, **kw)
+    if names:
+        LAUNCHES_INT8 += 1
+    else:
+        LAUNCHES += 1
     return y, new_mem, new_lck, new_lcv
 
 
@@ -298,7 +484,7 @@ def emformer_stack(params: dict, x: torch.Tensor, mem: torch.Tensor,
                    advance: Optional[torch.Tensor] = None, *,
                    U: int, R: int, M: int, Lc: int, H: int, use_mem: bool,
                    tanh_on_mem: bool, neg_inf: float, activation: str,
-                   cdt: torch.dtype
+                   cdt: torch.dtype, quant="none"
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                               torch.Tensor]:
     """All-layer Emformer step (see module doc).  CUDA tensor -> kernel,
@@ -313,8 +499,9 @@ def emformer_stack(params: dict, x: torch.Tensor, mem: torch.Tensor,
               activation=activation, cdt=cdt)
     if x.device.type == "cuda":
         return _emformer_stack_cuda(params, x, mem, lc_k, lc_v, length,
-                                    reset, advance, **kw)
+                                    reset, advance, quant=quant, **kw)
     if x.device.type == "cpu":
         return emformer_stack_plain(params, x, mem, lc_k, lc_v, length,
-                                    reset.bool(), advance.bool(), **kw)
+                                    reset.bool(), advance.bool(),
+                                    quant=quant, **kw)
     raise ValueError(f"emformer_stack: unsupported device {x.device}")

@@ -27,6 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from asr_streaming_tpu_torch import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class MelConfig:
@@ -98,10 +100,12 @@ def mel_filterbank(cfg: MelConfig) -> np.ndarray:
     return np.maximum(0.0, np.minimum(down, up)).astype(np.float32)
 
 
-def make_mel_params(cfg: MelConfig, device="cpu") -> dict:
+def make_mel_params(cfg: MelConfig, device=None) -> dict:
     """The fused window+DFT basis and the mel matrix, as the JAX package
     stores them: dft_kernel [2F, 1, n_fft] (cos rows then sin rows),
-    mel_fb [n_freqs, n_mels]."""
+    mel_fb [n_freqs, n_mels]; on ``device`` (default CUDA; raises without
+    it)."""
+    device = resolve_device(device)
     n_fft, win = cfg.n_fft, cfg.win_length
     window = _hann_window(win)
     if win < n_fft:
@@ -154,8 +158,10 @@ def log_mel(params: dict, cfg: MelConfig, waveform: torch.Tensor,
     return out
 
 
-def load_global_stats(path: str, device="cpu"):
-    """torchaudio-style global stats JSON {mean, invstddev}."""
+def load_global_stats(path: str, device=None):
+    """torchaudio-style global stats JSON {mean, invstddev}, on ``device``
+    (default CUDA; raises without it)."""
+    device = resolve_device(device)
     with open(path) as f:
         blob = json.load(f)
     return (torch.tensor(blob["mean"], dtype=torch.float32, device=device),

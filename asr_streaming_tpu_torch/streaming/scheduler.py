@@ -1,27 +1,35 @@
 """Continuous-batching scheduler: N streams -> one fixed-shape step per tick.
 
-Counterpart of asr_streaming_tpu/streaming/scheduler.py for the CTC path,
-in process, one batch in flight, harvested synchronously.  Streams occupy
-fixed slots of a ``[max_slots, ...]`` device-resident state.  Each tick:
+Counterpart of asr_streaming_tpu/streaming/scheduler.py for the CTC path.
+Streams occupy fixed slots of a ``[max_slots, ...]`` device-resident
+state.  Each tick:
 
-  1. gather one ready chunk per stream and encode it (mu-law LUT or
-     int16) into a pinned host staging array, with the four per-slot
-     flags in its last columns;
-  2. one non-blocking host->device copy of that array;
-  3. run the serving step (models/serving.py) on the device;
-  4. read the ``[B, 5 + U]`` pack back and scatter it to the ``Stream``
-     state machines, which produce partial and final ``StreamEvent``s.
+  1. gather one ready chunk per stream (from streams with no chunk in
+     flight when ``pipeline_depth`` > 1), encode it (mu-law LUT or int16)
+     into a staging buffer and start its host->device copy;
+  2. harvest the OLDEST in-flight batch (its ``[B, 5 + U]`` pack) and
+     scatter it to the ``Stream`` state machines, which produce partial
+     and final ``StreamEvent``s;
+  3. dispatch the new batch: per-slot flags, the serving step
+     (models/serving.py), and the pack's device->host copy started at
+     once.
 
-The JAX scheduler surfaces a chunk's events one tick after its gather;
-here they surface in the same tick.  The sequence of events ``drain()``
-returns is the same.  Grouped scheduling, meshes, the device worker,
-pipelining and the English beam are not ported yet and raise if asked.
+A chunk's events surface one tick after its gather, as in the JAX
+package.  The pack is waited for on a harvest thread unless
+``ASR_NO_ASYNC_HARVEST`` is set.  With ``device_worker`` (or a ``worker``
+view) the serving step runs in a spawned child process
+(streaming/device_worker.py) and this object keeps the host half.
+``GroupedScheduler`` ticks several such schedulers round-robin.  Meshes
+and the English beam are not ported yet and raise if asked.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -38,9 +46,6 @@ from asr_streaming_tpu_torch.streaming.stream import FinalSegment, Stream
 from asr_streaming_tpu_torch.utils.checkpoint import params_from_numpy
 from asr_streaming_tpu_torch.utils.observability import StageTimers
 
-# staging columns after the segment: per-slot flags
-_FLAG_CONTAIN, _FLAG_ACTIVE, _FLAG_NEW, _FLAG_RESET = range(4)
-
 
 @dataclasses.dataclass
 class StreamEvent:
@@ -56,6 +61,25 @@ class StreamEvent:
     dispatched_at: float = 0.0
 
 
+def start_pack_copy(pack: torch.Tensor):
+    """Start the pack's device->host copy without waiting: returns (host
+    tensor, CUDA event or None).  On the CPU the pack is already there."""
+    if pack.device.type != "cuda":
+        return pack, None
+    host = torch.empty(pack.shape, dtype=pack.dtype, pin_memory=True)
+    host.copy_(pack, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(pack.device))
+    return host, event
+
+
+def wait_pack(host: torch.Tensor, event) -> np.ndarray:
+    """Block until a started pack copy has landed; a numpy copy of it."""
+    if event is not None:
+        event.synchronize()
+    return host.numpy().copy()
+
+
 class Scheduler:
     def __init__(self, params: dict, cfg: ServingConfig,
                  vocab: Sequence[str], max_slots: int = 8,
@@ -68,18 +92,20 @@ class Scheduler:
                  pipeline_depth: int = 1,
                  mesh=None,
                  device_worker: Optional[dict] = None,
+                 worker=None,
                  en_beam_partials: bool = False):
-        for name, given in (("pipeline_depth > 1", pipeline_depth != 1),
-                            ("mesh", mesh is not None),
-                            ("device_worker", device_worker is not None),
+        """``device_worker``: keyword arguments of
+        ``DeviceWorkerClient`` (seed, checkpoint, vad_weights, device): the
+        serving step runs in a child process that rebuilds the params from
+        them, and ``params`` / ``device`` are not used here.  ``worker``:
+        a ready client or ``PipelinedWorkerClient`` group view."""
+        for name, given in (("mesh", mesh is not None),
                             ("en_beam_partials", en_beam_partials)):
             if given:
                 raise NotImplementedError(
-                    f"{name} is not ported yet (in-process, depth-1, CTC "
-                    "scheduling only)")
-        self.device = resolve_device(device)
+                    f"{name} is not ported yet (CTC scheduling on one "
+                    "device only)")
         self.step_fn = make_serving_step(cfg)
-        self.params = params_from_numpy(params, self.device)
         self.cfg = cfg
         self.vocab = list(vocab)
         self.max_slots = max_slots
@@ -88,26 +114,64 @@ class Scheduler:
         self.ngram_cost = ngram_cost
         self.rulesets = rulesets
         self.mapping_rule = mapping_rule
+        self.pipeline_depth = max(1, pipeline_depth)
 
-        self.device_state = init_serving_state(cfg, max_slots, self.device)
-        self.emission_buf = init_emission_buffer(cfg, max_slots, self.device)
-        self.audio_ctx = init_audio_context(cfg, max_slots, self.device)
-        self._fetch_emission = make_emission_fetcher(cfg)
+        self.worker = worker
+        if device_worker is not None and worker is None:
+            from asr_streaming_tpu_torch.streaming.device_worker import (
+                DeviceWorkerClient,
+            )
+            self.worker = DeviceWorkerClient(
+                cfg, max_slots, pipeline_depth=self.pipeline_depth,
+                **device_worker)
+
+        # staging: depth + 1 buffers [B, segment_length], because the
+        # upload of an in-flight batch may still read its buffer while
+        # later ticks stage; flags [B, 4] beside them, written at dispatch
+        self._mulaw = cfg.upload_encoding == "mulaw"
+        self._seg_len = cfg.asr.audio.segment_length
+        n_stage = self.pipeline_depth + 1
+        if self.worker is None:
+            self.device = resolve_device(device)
+            self.params = params_from_numpy(params, self.device)
+            self.device_state = init_serving_state(cfg, max_slots,
+                                                   self.device)
+            self.emission_buf = init_emission_buffer(cfg, max_slots,
+                                                     self.device)
+            self.audio_ctx = init_audio_context(cfg, max_slots, self.device)
+            self._fetch_emission = make_emission_fetcher(cfg)
+            pin = self.device.type == "cuda"
+            self._staging = torch.zeros(
+                (n_stage, max_slots, self._seg_len),
+                dtype=torch.uint8 if self._mulaw else torch.int16,
+                pin_memory=pin)
+            self._segment = self._staging.numpy()
+            self._flags = torch.zeros((n_stage, max_slots, 4),
+                                      dtype=torch.bool, pin_memory=pin)
+            self._flags_np = self._flags.numpy()
+        else:
+            self.device = None
+            self.params = params
+            self.device_state = self.emission_buf = self.audio_ctx = None
+            self._fetch_emission = \
+                lambda _buf, slot, ln: self.worker.fetch_emission(slot, ln)
+            self._segment = self.worker.staging
+        self._staging_idx = 0
+        self._seg_dev = None            # this tick's uploaded segment
 
         self.streams: Dict[int, Stream] = {}     # slot -> stream
         self._free = list(range(max_slots))[::-1]
         self._needs_reset = np.zeros(max_slots, bool)
         self._new_stream = np.zeros(max_slots, bool)
 
-        # pinned staging: [B, segment_length + 4] (segment, then flags);
-        # one non-blocking copy per tick moves all of it
-        self._mulaw = cfg.upload_encoding == "mulaw"
-        self._seg_len = cfg.asr.audio.segment_length
-        seg_dtype = torch.uint8 if self._mulaw else torch.int16
-        self._staging = torch.zeros(
-            (max_slots, self._seg_len + 4), dtype=seg_dtype,
-            pin_memory=self.device.type == "cuda")
-        self._staging_np = self._staging.numpy()
+        # in-flight batches, oldest first: (pack host copy, its event,
+        # ready list, dispatch time, harvest future)
+        self._pending: deque = deque()
+        self.pending_slots: set = set()
+        # the pack is waited for on a thread, submitted at dispatch, so a
+        # GroupedScheduler's other groups tick while it is in flight
+        self._async_harvest = not os.environ.get("ASR_NO_ASYNC_HARVEST")
+        self._harvest_pool: Optional[ThreadPoolExecutor] = None
 
         self.timers = StageTimers()
         self.last_tick_seconds = 0.0
@@ -144,27 +208,38 @@ class Scheduler:
             self._free.append(slot)
 
     def close(self) -> None:
-        """Nothing to shut down in process; kept for the JAX surface."""
+        """Stop the harvest thread and the device worker, if any."""
+        if self._harvest_pool is not None:
+            self._harvest_pool.shutdown(wait=True)
+            self._harvest_pool = None
+        if self.worker is not None:
+            self.worker.close()
 
     def warmup(self) -> float:
         """Run one all-idle step (builds the CUDA kernels on first use)
         and return its seconds.  Idle slots' state, context and emissions
         are unchanged by it."""
+        if self.worker is not None:
+            return self.worker.warmup()
         t0 = time.perf_counter()
-        self._staging_np[:] = 0
-        self._run_step(self._staging.to(self.device, non_blocking=True))
+        seg = torch.zeros(self._staging.shape[1:], dtype=self._staging.dtype,
+                          device=self.device)
+        idle = torch.zeros(self.max_slots, dtype=torch.bool,
+                           device=self.device)
+        self._run_step(seg, idle, idle, idle, idle)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
 
-    def _run_step(self, staged: torch.Tensor):
-        seg = staged[:, :self._seg_len]
-        flags = staged[:, self._seg_len:] != 0
-        out = self.step_fn(self.params, self.cfg, seg,
-                           flags[:, _FLAG_CONTAIN], flags[:, _FLAG_ACTIVE],
-                           flags[:, _FLAG_NEW], flags[:, _FLAG_RESET],
-                           self.device_state, self.audio_ctx,
-                           self.emission_buf)
+    def _upload(self, host: torch.Tensor) -> torch.Tensor:
+        if self.device.type == "cuda":
+            return host.to(self.device, non_blocking=True)
+        return host.clone()             # the staging buffer is reused
+
+    def _run_step(self, seg, contain, active, new_stream, reset):
+        out = self.step_fn(self.params, self.cfg, seg, contain, active,
+                           new_stream, reset, self.device_state,
+                           self.audio_ctx, self.emission_buf)
         self.device_state = out.state
         self.audio_ctx = out.ctx
         self.emission_buf = out.emission
@@ -173,44 +248,113 @@ class Scheduler:
     # ------------------------------------------------------------------ tick
 
     def has_work(self) -> bool:
-        return any(s.has_chunk() for s in self.streams.values())
+        return bool(self._pending) or \
+            any(s.has_chunk() for s in self.streams.values())
+
+    def harvest_ready(self) -> bool:
+        """True when the OLDEST in-flight batch's pack is already on the
+        host, so a tick now surfaces its events without blocking."""
+        if not self._pending:
+            return False
+        _, event, _, _, fut = self._pending[0]
+        if fut is not None:
+            return fut.done()
+        if self.worker is not None:
+            return False
+        return event is None or event.query()
+
+    def is_pending(self, stream: Stream) -> bool:
+        """Is this stream's chunk in an in-flight batch?"""
+        return getattr(stream, "_slot", None) in self.pending_slots
 
     def tick(self) -> List[StreamEvent]:
-        """Gather, upload, step, harvest, scatter."""
+        """One pipelined cycle: gather + encode + start the upload of the
+        new batch; harvest the oldest in-flight batch (always at depth 1,
+        at deeper pipelines once the queue is full or nothing is new) and
+        scatter it; dispatch the new batch.  A chunk's events surface one
+        tick after its gather (depth 1)."""
         t0 = time.perf_counter()
-        ready = [(slot, s) for slot, s in self.streams.items()
-                 if s.has_chunk()]
-        if not ready:
-            self.ticks += 1
-            self.last_tick_seconds = time.perf_counter() - t0
-            return []
 
-        # encode only the ready rows; idle rows keep stale bytes, which
-        # the step ignores (not active: no decode, no context update)
-        slots = np.array([slot for slot, _ in ready])
-        audio = np.stack([s.pop_chunk() for _, s in ready])
-        if self._mulaw:
-            encoded = mulaw_encode_host(audio)
+        # ---- phase 1: gather + encode + upload.  Depth 1 gathers every
+        # ready stream (its flags are read at dispatch, after this tick's
+        # harvest settled them); deeper pipelines skip streams with a
+        # chunk in flight.
+        if self.pipeline_depth == 1:
+            ready = [(slot, s) for slot, s in self.streams.items()
+                     if s.has_chunk()]
         else:
-            encoded = np.clip(audio * 32767.0, -32768, 32767).astype(np.int16)
-        self._staging_np[slots, :self._seg_len] = encoded
-        flags = self._staging_np[:, self._seg_len:]
-        flags[:] = 0
-        for slot, s in ready:
-            flags[slot, _FLAG_ACTIVE] = 1
-            flags[slot, _FLAG_CONTAIN] = s.is_contain_token
-        flags[:, _FLAG_NEW] = self._new_stream
-        flags[:, _FLAG_RESET] = self._needs_reset
-        self.timers.observe("gather_encode", time.perf_counter() - t0)
+            ready = [(slot, s) for slot, s in self.streams.items()
+                     if s.has_chunk() and slot not in self.pending_slots]
+        staged_idx = self._staging_idx
+        if ready:
+            self._staging_idx = (staged_idx + 1) % len(self._segment)
+            # encode only the ready rows; idle rows keep stale bytes,
+            # which the step ignores (not active: no decode, no context)
+            slots = np.array([slot for slot, _ in ready])
+            audio = np.stack([s.pop_chunk() for _, s in ready])
+            if self._mulaw:
+                encoded = mulaw_encode_host(audio)
+            else:
+                encoded = np.clip(audio * 32767.0, -32768,
+                                  32767).astype(np.int16)
+            self._segment[staged_idx][slots] = encoded
+            self.timers.observe("gather_encode", time.perf_counter() - t0)
+            if self.worker is None:
+                self._seg_dev = self._upload(self._staging[staged_idx])
+            else:
+                self.worker.stage(staged_idx)   # the child starts the copy
+            self.timers.observe("gather_upload", time.perf_counter() - t0)
 
-        t_dispatch = time.perf_counter()
-        staged = self._staging.to(self.device, non_blocking=True)
-        out = self._run_step(staged)
-        self._needs_reset[:] = False
-        self._new_stream[:] = False
-        pack = out.pack.cpu().numpy()          # synchronous harvest
-        self.timers.observe("device_step", time.perf_counter() - t_dispatch)
-        events = self._scatter(pack, ready, dispatched_at=t_dispatch)
+        # ---- phase 2: harvest the oldest in-flight batch
+        events: List[StreamEvent] = []
+        if self._pending and (len(self._pending) >= self.pipeline_depth
+                              or not ready):
+            host, event, ready_prev, t_dispatch, fut = \
+                self._pending.popleft()
+            if fut is not None:
+                pack = fut.result()
+            elif self.worker is not None:
+                pack = self.worker.harvest()
+            else:
+                pack = wait_pack(host, event)
+            self.pending_slots = {slot for _, _, batch, _, _ in self._pending
+                                  for slot, _ in batch}
+            self.timers.observe("device_step",
+                                time.perf_counter() - t_dispatch)
+            events = self._scatter(pack, ready_prev,
+                                   dispatched_at=t_dispatch)
+
+        # ---- phase 3: dispatch the new batch
+        if ready:
+            active = np.zeros(self.max_slots, bool)
+            contain = np.zeros(self.max_slots, bool)
+            for slot, s in ready:
+                active[slot] = True
+                contain[slot] = s.is_contain_token
+            t_dispatch = time.perf_counter()
+            host = event = fut = None
+            if self.worker is not None:
+                self.worker.dispatch(staged_idx, contain, active,
+                                     self._new_stream, self._needs_reset)
+                if self._async_harvest and self.worker.supports_pipelining:
+                    fut = self.worker.harvest_async()
+            else:
+                flags = self._flags_np[staged_idx]
+                flags[:, 0], flags[:, 1] = contain, active
+                flags[:, 2], flags[:, 3] = self._new_stream, self._needs_reset
+                f = self._upload(self._flags[staged_idx])
+                out = self._run_step(self._seg_dev, f[:, 0], f[:, 1],
+                                     f[:, 2], f[:, 3])
+                host, event = start_pack_copy(out.pack)
+                if self._async_harvest:
+                    if self._harvest_pool is None:
+                        self._harvest_pool = ThreadPoolExecutor(
+                            max_workers=1, thread_name_prefix="pack-harvest")
+                    fut = self._harvest_pool.submit(wait_pack, host, event)
+            self._needs_reset[:] = False
+            self._new_stream[:] = False
+            self._pending.append((host, event, ready, t_dispatch, fut))
+            self.pending_slots |= {slot for slot, _ in ready}
 
         self.ticks += 1
         self.last_tick_seconds = time.perf_counter() - t0
@@ -263,3 +407,127 @@ class Scheduler:
                 break
             events.extend(self.tick())
         return events
+
+
+class GroupedScheduler:
+    """N slot groups ticked round-robin: the latency-oriented serving mode
+    (the JAX package's GroupedScheduler).
+
+    Each group is a Scheduler with its own device state, all sharing one
+    step shape; a chunk waits at most one small group-tick to be gathered,
+    and the groups' host work and device steps interleave on one card.
+    With ``device_worker`` all groups share ONE child process
+    (``PipelinedWorkerClient``), which keeps one batch in flight per group
+    and pushes packs back through a shared-memory ring.
+    """
+
+    def __init__(self, params: dict, cfg: ServingConfig,
+                 vocab: Sequence[str], max_slots: int = 512,
+                 groups: int = 4, **kwargs):
+        if kwargs.get("mesh") is not None or kwargs.get("en_beam_partials"):
+            raise NotImplementedError(
+                "mesh / en_beam_partials are not ported yet")
+        groups = max(1, min(groups, max_slots))
+        per = -(-max_slots // groups)          # ceil; capacity >= max_slots
+        device_worker = kwargs.pop("device_worker", None)
+        self.client = None
+        if device_worker is not None:
+            from asr_streaming_tpu_torch.streaming.device_worker import (
+                PipelinedWorkerClient,
+            )
+            self.client = PipelinedWorkerClient(
+                cfg, per, groups,
+                pipeline_depth=kwargs.get("pipeline_depth", 1),
+                **device_worker)
+            self.groups = [Scheduler(params, cfg, vocab, max_slots=per,
+                                     worker=self.client.group_view(g),
+                                     **kwargs)
+                           for g in range(groups)]
+        else:
+            if kwargs.get("worker") is None:
+                # one device copy of the weights for every group
+                params = params_from_numpy(
+                    params, resolve_device(kwargs.get("device")))
+            self.groups = [Scheduler(params, cfg, vocab, max_slots=per,
+                                     **kwargs) for _ in range(groups)]
+        self.cfg = cfg
+        self.vocab = self.groups[0].vocab
+        self.language = self.groups[0].language
+        self.max_slots = per * groups
+        self._next = 0
+
+    @property
+    def num_active(self) -> int:
+        return sum(g.num_active for g in self.groups)
+
+    @property
+    def ticks(self) -> int:
+        return sum(g.ticks for g in self.groups)
+
+    @property
+    def timers(self):
+        outer = self
+
+        class _Merged:
+            def snapshot(self):
+                snaps = [g.timers.snapshot() for g in outer.groups]
+                out = snaps[0]
+                for s in snaps[1:]:
+                    for k, v in s["counters"].items():
+                        out["counters"][k] = out["counters"].get(k, 0) + v
+                return out
+
+        return _Merged()
+
+    def warmup(self) -> float:
+        return sum(g.warmup() for g in self.groups)
+
+    def admit(self, stream_id: str) -> Optional[Stream]:
+        # the least-loaded group keeps batches balanced
+        for g in sorted(self.groups, key=lambda g: g.num_active):
+            s = g.admit(stream_id)
+            if s is not None:
+                s._group = g
+                return s
+        return None
+
+    def release(self, stream: Stream) -> None:
+        getattr(stream, "_group", self.groups[0]).release(stream)
+
+    def is_pending(self, stream: Stream) -> bool:
+        g = getattr(stream, "_group", None)
+        return g.is_pending(stream) if g is not None else False
+
+    def has_work(self) -> bool:
+        return any(g.has_work() for g in self.groups)
+
+    def tick(self) -> List[StreamEvent]:
+        """Tick ONE group: first a group whose in-flight pack is already
+        on the host (its events surface now), else the next round-robin
+        group with work."""
+        n = len(self.groups)
+        for k in range(n):
+            g = self.groups[(self._next + k) % n]
+            if g.harvest_ready():
+                self._next = (self._next + k + 1) % n
+                return g.tick()
+        for k in range(n):
+            g = self.groups[(self._next + k) % n]
+            if g.has_work():
+                self._next = (self._next + k + 1) % n
+                return g.tick()
+        g = self.groups[self._next]
+        self._next = (self._next + 1) % n
+        return g.tick()
+
+    def drain(self, max_ticks: int = 10_000) -> List[StreamEvent]:
+        events: List[StreamEvent] = []
+        for _ in range(max_ticks):
+            if not self.has_work():
+                break
+            events.extend(self.tick())
+        return events
+
+    def close(self) -> None:
+        for g in self.groups:
+            g.close()

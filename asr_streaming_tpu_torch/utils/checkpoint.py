@@ -84,3 +84,25 @@ def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
+
+
+def overlay_params(params: dict, tree: dict) -> dict:
+    """``params`` with every leaf that ``tree`` (nested numpy arrays, as
+    ``load_params`` returns them) also holds replaced by that array, cast
+    to the replaced leaf's dtype and device; shapes must agree.  Keys of
+    ``tree`` that ``params`` lacks are an error; leaves it lacks stay (a
+    partial checkpoint, such as a fixture's frontend and encoder)."""
+    out = dict(params)
+    for k, v in tree.items():
+        if k not in params:
+            raise KeyError(f"checkpoint key {k!r} is not a parameter")
+        leaf = params[k]
+        if isinstance(v, dict):
+            out[k] = overlay_params(leaf, v)
+            continue
+        if tuple(np.shape(v)) != tuple(leaf.shape):
+            raise ValueError(f"{k}: checkpoint shape {np.shape(v)} != "
+                             f"{tuple(leaf.shape)}")
+        out[k] = torch.from_numpy(np.array(v)).to(device=leaf.device,
+                                                  dtype=leaf.dtype)
+    return out

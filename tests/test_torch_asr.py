@@ -73,7 +73,7 @@ def test_stream_step_matches_jax():
     rng = np.random.default_rng(0)
     B = 3
     jstate = ja.init_asr_state(cfg_j, B)
-    tstate = ta.init_asr_state(cfg_t, B)
+    tstate = ta.init_asr_state(cfg_t, B, device="cpu")
     for step in range(3):
         wave = (rng.standard_normal((B, cfg_t.audio.chunk_length))
                 * 0.3).astype(np.float32)

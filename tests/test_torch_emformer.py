@@ -55,7 +55,7 @@ def _run_jax(cfg, params, xs, resets, advances):
 
 
 def _run_torch(step, cfg, params, xs, resets, advances):
-    state = te.init_emformer_state(cfg, xs.shape[1])
+    state = te.init_emformer_state(cfg, xs.shape[1], device="cpu")
     ys, states = [], []
     for x, r, a in zip(xs, resets, advances):
         y, state = step(params, cfg, torch.from_numpy(x), state,

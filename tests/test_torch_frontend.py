@@ -29,7 +29,7 @@ def test_log_mel_matches_jax_conv_spelling(lang):
             else tf.MelConfig.for_english())
     wave = _wave(3, 13440 if lang == "vi" else 5120, seed=1)
     jp = jf.make_mel_params(jcfg)
-    tp = tf.make_mel_params(tcfg)
+    tp = tf.make_mel_params(tcfg, device="cpu")
     np.testing.assert_array_equal(tp["mel_fb"].numpy(),
                                   np.asarray(jp["mel_fb"]))
     np.testing.assert_array_equal(tp["dft_kernel"].numpy(),
@@ -50,11 +50,11 @@ def test_piecewise_log_with_global_stats(tmp_path):
     path.write_text(json.dumps(stats))
     jcfg, tcfg = jf.MelConfig.for_english(), tf.MelConfig.for_english()
     jm, ji = jf.load_global_stats(str(path))
-    tm, ti = tf.load_global_stats(str(path))
+    tm, ti = tf.load_global_stats(str(path), device="cpu")
     wave = _wave(2, 2560, seed=4)
     want = np.asarray(jf.log_mel(jf.make_mel_params(jcfg), jcfg,
                                  jnp.asarray(wave), mean=jm, invstddev=ji,
                                  fast_dft=False))
-    got = tf.log_mel(tf.make_mel_params(tcfg), tcfg, torch.from_numpy(wave),
+    got = tf.log_mel(tf.make_mel_params(tcfg, device="cpu"), tcfg, torch.from_numpy(wave),
                      mean=tm, invstddev=ti).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)

@@ -45,3 +45,28 @@ def test_sources_name_no_jax_import():
                                 or mod == "asr_streaming_tpu"
                                 or mod.startswith("asr_streaming_tpu.")), \
                         f"{p}:{i}: {s}"
+
+
+_WORKER_PROBE = r"""
+from asr_streaming_tpu_torch.models.asr import ASRConfig
+from asr_streaming_tpu_torch.models.serving import ServingConfig
+from asr_streaming_tpu_torch.streaming.device_worker import DeviceWorkerClient
+cfg = ServingConfig(asr=ASRConfig.tiny(), use_silero=False)
+client = DeviceWorkerClient(cfg, 2, device="cpu")
+try:
+    client.warmup(timeout=120)
+    stats = client.stats()
+finally:
+    client.close()
+print(stats["foreign_modules"])
+assert stats["foreign_modules"] == [], stats["foreign_modules"]
+"""
+
+
+def test_device_worker_child_imports_neither():
+    """The spawned worker child reports its loaded modules: none of jax or
+    the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _WORKER_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr

@@ -85,3 +85,130 @@ def test_emission_append_kernel_matches_plain_exactly():
     assert ea.LAUNCHES == n0 + 1
     want = ea.emission_append_plain(buf.clone(), rows, pos, decode)
     assert torch.equal(got, want)
+
+
+def _routes(geo, dtype, dev, quant="none"):
+    """The stack and layer routes of one config on the card, and the
+    params they share."""
+    base = te.EmformerConfig(**geo, compute_dtype=dtype, quant=quant)
+    params = te.init_emformer_params(torch.Generator().manual_seed(4), base,
+                                     dev)
+    return base, params
+
+
+def _step_both(cfg_a, cfg_b, params, dev, n_steps=3, B=6, seed=5):
+    """Chained steps of two routes from one state stream; yields
+    (tensors of a, tensors of b) per step."""
+    rng = np.random.default_rng(seed)
+    T = cfg_a.segment_length + cfg_a.right_context_length
+    st_a = te.init_emformer_state(cfg_a, B, dev)
+    st_b = te.init_emformer_state(cfg_b, B, dev)
+    for _ in range(n_steps):
+        x = torch.from_numpy(rng.standard_normal((B, T, cfg_a.d_model)).astype(
+            np.float32)).to(dev)
+        r = torch.from_numpy(rng.random(B) < 0.3).to(dev)
+        a = torch.from_numpy(rng.random(B) < 0.7).to(dev)
+        ya, st_a = te.emformer_stream_step(params, cfg_a, x, st_a, r, a)
+        yb, st_b = te.emformer_stream_step(params, cfg_b, x, st_b, r, a)
+        yield (ya, *st_a), (yb, *st_b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geo", [VI, EN], ids=["vi_mem", "en_nomem"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_layer_route_equals_stack_route_on_the_card(geo, dtype, quant):
+    """Kernel C is one layer of kernel A's chain: bit for bit."""
+    import dataclasses
+    from asr_streaming_tpu_torch.ops import emformer_layer as el
+    dev = _cuda()
+    stack, params = _routes(geo, dtype, dev, quant)
+    layer = dataclasses.replace(stack, route="layer")
+    n0 = el.LAUNCHES
+    for got, want in _step_both(layer, stack, params, dev):
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert el.LAUNCHES == n0 + 3 * geo["num_layers"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geo", [VI, EN], ids=["vi_mem", "en_nomem"])
+@pytest.mark.parametrize("quant", ["int8", "int8_ffn"])
+def test_emformer_stack_int8_kernel_matches_plain(geo, quant):
+    """A's W8A8 mode vs its plain version: an int8 value flips where the
+    kernel's and the plain version's f32 LN rows differ in the last bit
+    and land on a rounding boundary, so the bound is the bf16 one, 3e-2."""
+    dev = _cuda()
+    cfg = te.EmformerConfig(**geo, compute_dtype=torch.bfloat16, quant=quant)
+    params = te.init_emformer_params(torch.Generator().manual_seed(6), cfg,
+                                     dev)
+    rng = np.random.default_rng(7)
+    B, T = 6, cfg.segment_length + cfg.right_context_length
+    state = te.init_emformer_state(cfg, B, dev)
+    kw = dict(U=cfg.segment_length, R=cfg.right_context_length,
+              M=cfg.max_memory_size, Lc=cfg.left_context_length,
+              H=cfg.num_heads, use_mem=cfg.use_mem,
+              tanh_on_mem=cfg.tanh_on_mem, neg_inf=cfg.negative_inf,
+              activation=cfg.activation, cdt=cfg.compute_dtype, quant=quant)
+    for _ in range(3):
+        x = torch.from_numpy(rng.standard_normal((B, T, cfg.d_model)).astype(
+            np.float32)).to(dev)
+        r = torch.from_numpy(rng.random(B) < 0.3).to(dev)
+        a = torch.from_numpy(rng.random(B) < 0.7).to(dev)
+        eff = torch.where(r, torch.zeros_like(state.length), state.length)
+        n0 = es.LAUNCHES_INT8
+        got = es.emformer_stack(params, x, state.mem, state.lc_k, state.lc_v,
+                                eff, r, a, **kw)
+        assert es.LAUNCHES_INT8 == n0 + 1
+        want = es.emformer_stack_plain(params, x, state.mem, state.lc_k,
+                                       state.lc_v, eff, r, a, **kw)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.float(), w.float(), rtol=3e-2,
+                                       atol=3e-2)
+        state = te.EmformerState(
+            want[1], want[2], want[3],
+            torch.where(a, eff + cfg.segment_length, eff).to(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("x_f32", [True, False], ids=["x_f32", "x_cdt"])
+def test_w8a8_product_matches_plain_exactly(dtype, x_f32):
+    """The row quantiser and the int8 GEMM reproduce _qdot exactly: the
+    same f32 operations in the same order, and an exact integer sum."""
+    dev = _cuda()
+    rng = np.random.default_rng(8)
+    M, K, N = 300, 512, 192
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(dev)
+    if not x_f32:
+        x = x.to(dtype)
+    w = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(dev)
+    q = es.quantized_weights({"w": w}, ["w"])["w"]
+    got = es.w8a8_linear(x, q, bias, dtype)
+    want = es._qdot(x.float(), q[0], q[1]).to(dtype) + bias.to(dtype)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_mem", [True, False])
+def test_emformer_attention_kernel_matches_plain(use_mem):
+    from asr_streaming_tpu_torch.ops import emformer_attention as ek
+    dev = _cuda()
+    rng = np.random.default_rng(9)
+    B, D, H, U, R, Lc = 5, 64, 4, 8, 2, 16
+    M = 4 if use_mem else 0
+    Q, K = R + U + (1 if use_mem else 0), M + R + Lc + U
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        dev) for s in ((B, Q, D), (B, K, D), (B, K, D)))
+    length = torch.from_numpy(rng.integers(0, 40, B).astype(np.int32)).to(dev)
+    m_kv = torch.clamp(length, max=Lc)
+    m_m = torch.clamp(length // U, max=M) if use_mem else torch.zeros_like(length)
+    kw = dict(num_heads=H, M=M, R=R, Lc=Lc, U=U, use_mem=use_mem)
+    n0 = ek.LAUNCHES
+    got = ek.emformer_attention(q, k, v, m_m, m_kv, **kw)
+    assert ek.LAUNCHES == n0 + 1
+    want = ek.emformer_attention_plain(q, k, v, m_m, m_kv, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

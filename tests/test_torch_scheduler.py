@@ -133,8 +133,7 @@ def test_unported_options_raise_and_cuda_is_the_default():
     cfg = ServingConfig(asr=ASRConfig.tiny(vocab_size=len(VOCAB)),
                         use_silero=False)
     params = init_serving_params(0, cfg, device="cpu")
-    for kw in ({"pipeline_depth": 2}, {"mesh": object()},
-               {"device_worker": {}}, {"en_beam_partials": True}):
+    for kw in ({"mesh": object()}, {"en_beam_partials": True}):
         with pytest.raises(NotImplementedError):
             Scheduler(params, cfg, VOCAB, device="cpu", **kw)
     if torch.cuda.is_available():
