@@ -6,9 +6,10 @@ mirrors its module layout (``utils/``, ``ops/``, ``models/``, ``decode/``,
 function here is compared with its JAX counterpart on the same inputs.
 It imports torch and numpy only — never jax, never ``asr_streaming_tpu``.
 
-The two TPU kernels of the Vietnamese CTC serving path are hand-written
-CUDA C++ for ``sm_90a`` under ``csrc/``, built with nvcc at first use and
-bound with ctypes (``ops/_cuda.py``).
+Every TPU kernel of the JAX package (the Emformer stack and layer, the
+attention core, the emission append, the row top-k) is hand-written CUDA
+C++ for ``sm_90a`` under ``csrc/``, built with nvcc at first use and bound
+with ctypes (``ops/_cuda.py``).
 """
 
 from __future__ import annotations

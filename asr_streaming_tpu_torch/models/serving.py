@@ -1,8 +1,8 @@
-"""The per-tick serving step (CTC / Vietnamese path).
+"""The per-tick serving steps: Vietnamese CTC and English RNNT.
 
-Counterpart of asr_streaming_tpu/models/serving.py::serving_step.  Every
-stage runs for every slot in one fixed-shape step, and the routing
-decision is computed on the device:
+Counterpart of asr_streaming_tpu/models/serving.py.  Every stage runs for
+every slot in one fixed-shape step, and the routing decision is computed
+on the device:
 
     decode[b] = active[b] & (contain_token[b] | (gate[b] & silero[b]))
 
@@ -16,13 +16,22 @@ decision is computed on the device:
      then one packed ``[B, 5 + U]`` float32 result.
 
 Encoder state advances only where decode; slots flagged ``reset`` start
-from zero state.  The English transducer tick waits for a later slice.
+from zero state.
+
+The English ticks (``model_kind="rnnt"``) share stages 1 and 2, then run
+the EN log-mel and the Emformer-RNNT transcriber (kernel A at M=0), and
+decode on the device: ``serving_step_rnnt`` greedily (models/rnnt.py),
+``serving_step_rnnt_beam`` with the device-batched beam
+(models/rnnt_beam.py, whose row top-k is the CUDA kernel
+``csrc/row_topk.cu``) when ``en_beam_width_device`` is set.  Both append
+the transcriber encodings to a float16 ring buffer (kernel B) for the
+finals' host rescorer.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -31,12 +40,24 @@ from asr_streaming_tpu_torch import resolve_device
 from asr_streaming_tpu_torch.models.asr import (
     ASRConfig, asr_stream_step, init_asr_params, init_asr_state,
 )
-from asr_streaming_tpu_torch.models.emformer import EmformerState
+from asr_streaming_tpu_torch.models.emformer import (
+    EmformerState, init_emformer_state,
+)
+from asr_streaming_tpu_torch.models.rnnt import (
+    PredictorState, RNNTConfig, RNNTStreamState, _hold_encoder, init_rnnt_params,
+    init_rnnt_state, rnnt_greedy_stream_step, transcriber_step,
+)
+from asr_streaming_tpu_torch.models.rnnt_beam import (
+    BeamState, init_beam_state, rnnt_beam_chunk_step,
+)
 from asr_streaming_tpu_torch.models.vad import (
     SileroConfig, energy_gate, init_silero_params, silence_runs,
     silero_chunk_probs,
 )
 from asr_streaming_tpu_torch.ops.emission_append import emission_append
+from asr_streaming_tpu_torch.ops.frontend import (
+    MelConfig, load_global_stats, log_mel, make_mel_params,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,14 +69,26 @@ class ServingConfig:
     use_energy_gate: bool = True
     # neural VAD for the second stage; False substitutes per-window energy
     use_silero: bool = True
-    # "ctc" only in this package so far ("rnnt" raises)
+    # "ctc" (the Vietnamese path) or "rnnt" (the English Emformer-RNNT)
     model_kind: str = "ctc"
+    rnnt: Optional[RNNTConfig] = None
     # device-resident emission ring buffer length (frames); 1024 frames =
     # 40.96 s > the 40 s hard endpoint flush
     max_emission_frames: int = 1024
     emission_dtype: str = "float16"
     # host->device audio encoding: "int16" PCM or 8-bit "mulaw"
     upload_encoding: str = "int16"
+    # path of the EN pipeline's global-stats JSON ({mean, invstddev}): when
+    # set, the en_frontend params carry them and the featurizer applies
+    # (x - mean) * invstddev after the piecewise-linear log
+    en_global_stats: Optional[str] = None
+    # device-batched per-chunk RNNT beam (models/rnnt_beam.py): the beam
+    # width, or None for greedy partials + beam-rescored finals.  When set
+    # the pack carries the best hypothesis's token buffer.
+    en_beam_width_device: Optional[int] = None
+    # per-segment token-buffer capacity of the device beam; overflow drops
+    # tokens at the buffer's tail
+    en_beam_cap: int = 256
 
 
 # Host-pack layout: one [B, 5 + n] float32 array per tick.
@@ -63,18 +96,38 @@ PACK_DECODED, PACK_GATE, PACK_SILERO, PACK_LEAD, PACK_TRAIL, PACK_DATA = \
     0, 1, 2, 3, 4, 5
 
 
+class BeamServingState(NamedTuple):
+    """EN beam-partials device state: the encoder's stream state and the
+    carried B x W hypothesis beam (the greedy path's predictor and
+    last_token live inside the beam's hypotheses instead)."""
+    encoder: EmformerState
+    beam: BeamState
+
+
+ServingState = Union[EmformerState, RNNTStreamState, BeamServingState]
+
+
 class ServingTickOutput(NamedTuple):
     pack: torch.Tensor              # [B, 5+n] f32 (flags, lead, trail, data)
-    state: EmformerState
-    emission: torch.Tensor          # [B, MAX_T, V] float16, updated in place
+    state: ServingState
+    # [B, MAX_T, V or E] float16, updated in place (None: no buffer given)
+    emission: Optional[torch.Tensor]
     ctx: torch.Tensor               # [B, buffer_length] carried audio
 
 
 def _check_kind(cfg: ServingConfig) -> None:
-    if cfg.model_kind != "ctc":
-        raise NotImplementedError(
-            f"model_kind={cfg.model_kind!r}: only the CTC serving tick is "
-            "ported so far")
+    if cfg.model_kind not in ("ctc", "rnnt"):
+        raise ValueError(f"model_kind={cfg.model_kind!r}")
+    if cfg.model_kind == "rnnt" and cfg.rnnt is None:
+        raise ValueError("model_kind='rnnt' needs ServingConfig.rnnt")
+
+
+def _en_mel(cfg: ServingConfig) -> MelConfig:
+    """The EN featurizer's geometry (n_mels follows a tiny test model)."""
+    mel = MelConfig.for_english()
+    if cfg.rnnt.n_mels != mel.n_mels:
+        mel = dataclasses.replace(mel, n_mels=cfg.rnnt.n_mels)
+    return mel
 
 
 def _generator(seed) -> torch.Generator:
@@ -89,14 +142,31 @@ def init_serving_params(seed, cfg: ServingConfig, device=None) -> dict:
     _check_kind(cfg)
     dev = resolve_device(device)
     gen = _generator(seed)
+    if cfg.model_kind == "rnnt":
+        en_frontend = make_mel_params(_en_mel(cfg), dev)
+        if cfg.en_global_stats:
+            en_frontend["mean"], en_frontend["invstddev"] = \
+                load_global_stats(cfg.en_global_stats, dev)
+        return {**init_rnnt_params(gen, cfg.rnnt, dev),
+                "en_frontend": en_frontend,
+                "vad": init_silero_params(gen, cfg.silero, dev)}
     return {**init_asr_params(gen, cfg.asr, dev),
             "vad": init_silero_params(gen, cfg.silero, dev)}
 
 
 def init_serving_state(cfg: ServingConfig, max_slots: int,
-                       device=None) -> EmformerState:
+                       device=None) -> ServingState:
     _check_kind(cfg)
-    return init_asr_state(cfg.asr, max_slots, resolve_device(device))
+    dev = resolve_device(device)
+    if cfg.model_kind == "rnnt":
+        if cfg.en_beam_width_device:
+            return BeamServingState(
+                encoder=init_emformer_state(cfg.rnnt.emformer, max_slots, dev),
+                beam=init_beam_state(cfg.rnnt, max_slots,
+                                     cfg.en_beam_width_device,
+                                     cap=cfg.en_beam_cap, device=dev))
+        return init_rnnt_state(cfg.rnnt, max_slots, dev)
+    return init_asr_state(cfg.asr, max_slots, dev)
 
 
 def init_audio_context(cfg: ServingConfig, max_slots: int,
@@ -108,24 +178,28 @@ def init_audio_context(cfg: ServingConfig, max_slots: int,
 
 def init_emission_buffer(cfg: ServingConfig, max_slots: int,
                          device=None) -> torch.Tensor:
-    """Per-slot CTC log-prob buffer [B, MAX_T, V], native float16."""
+    """Per-slot device-resident buffer, native float16: CTC log-probs
+    [B, MAX_T, V] (CTC) or transcriber encodings [B, MAX_T, E] (RNNT, read
+    by the host beam rescorer at finals)."""
     if cfg.emission_dtype != "float16":
         raise ValueError("the emission buffer is float16 "
                          f"(got {cfg.emission_dtype!r})")
     return torch.zeros((max_slots, cfg.max_emission_frames,
-                        cfg.asr.encoder.vocab_size), dtype=torch.float16,
+                        emission_width(cfg)), dtype=torch.float16,
                        device=resolve_device(device))
 
 
 def emission_width(cfg: ServingConfig) -> int:
-    """Per-frame width of the emission buffer: V, the CTC vocabulary.
+    """Per-frame width of the emission buffer: V, the CTC vocabulary, or
+    E, the RNNT encoding dim.
 
     The JAX package stores float16 rows as packed f32 bit-pairs (Mosaic
     has no f16 lanes) and unpacks them on the host (``_emission_packed``,
     ``_unpack_f16_rows``).  This buffer is native float16 and holds V
     columns, so neither has a counterpart here."""
     _check_kind(cfg)
-    return cfg.asr.encoder.vocab_size
+    return (cfg.rnnt.encoding_dim if cfg.model_kind == "rnnt"
+            else cfg.asr.encoder.vocab_size)
 
 
 def make_emission_fetcher(cfg: ServingConfig):
@@ -246,7 +320,122 @@ def serving_step(params: dict, cfg: ServingConfig, segment: torch.Tensor,
                              emission=emission_buf, ctx=new_ctx)
 
 
+def _reset_encoder(reset: torch.Tensor, state: EmformerState
+                   ) -> EmformerState:
+    """Zero state where reset (the RNNT ticks reset outside the step)."""
+    m4 = reset.view(1, -1, 1, 1)
+    return EmformerState(
+        mem=torch.where(m4, torch.zeros_like(state.mem), state.mem),
+        lc_k=torch.where(m4, torch.zeros_like(state.lc_k), state.lc_k),
+        lc_v=torch.where(m4, torch.zeros_like(state.lc_v), state.lc_v),
+        length=torch.where(reset, torch.zeros_like(state.length),
+                           state.length))
+
+
+def _rnnt_feats(params: dict, cfg: ServingConfig,
+                wave: torch.Tensor) -> torch.Tensor:
+    """EN log-mel of the chunk window, trimmed to (segment + rc) * 4
+    frames so it reduces to segment + rc (center=True yields one more)."""
+    fe = params["en_frontend"]
+    feats = log_mel(fe, _en_mel(cfg), wave, mean=fe.get("mean"),
+                    invstddev=fe.get("invstddev"))
+    em = cfg.rnnt.emformer
+    return feats[:, :(em.segment_length + em.right_context_length) * 4]
+
+
+def _append_encodings(emission_buf, enc, pre_length, decode):
+    """Append the chunk's encodings at each slot's PRE-step length, clipped
+    to the last whole segment of the buffer."""
+    U = enc.shape[1]
+    max_t = emission_buf.shape[1]
+    pos = torch.clamp(pre_length, 0, max_t - max_t % U - U)
+    return _append(emission_buf, enc, pos, decode)
+
+
+def serving_step_rnnt(params: dict, cfg: ServingConfig,
+                      segment: torch.Tensor, contain_token: torch.Tensor,
+                      active: torch.Tensor, new_stream: torch.Tensor,
+                      reset: torch.Tensor, state: RNNTStreamState,
+                      ctx: torch.Tensor,
+                      emission_buf: Optional[torch.Tensor] = None
+                      ) -> ServingTickOutput:
+    """English tick, greedy partials: VAD + batched greedy RNNT decode on
+    the device (the host beam rescoring the finals).  The pack's data
+    columns are the chunk's [segment * max_symbols] tokens (blank = none).
+    """
+    wave, new_ctx = _assemble_wave(cfg, segment, ctx, active, new_stream)
+    rnnt = cfg.rnnt
+    zero = init_rnnt_state(rnnt, wave.shape[0], wave.device)
+    r3 = reset.view(1, -1, 1)
+    state = RNNTStreamState(
+        encoder=_reset_encoder(reset, state.encoder),
+        predictor=PredictorState(
+            h=torch.where(r3, zero.predictor.h, state.predictor.h),
+            c=torch.where(r3, zero.predictor.c, state.predictor.c)),
+        last_token=torch.where(reset, zero.last_token, state.last_token))
+
+    audio_cfg = cfg.asr.audio
+    gate, silero_speech, lead, trail = _vad_stage(
+        params, cfg, wave, audio_cfg.buffer_length, audio_cfg.sample_rate)
+    decode = active & (contain_token | (gate & silero_speech))
+
+    out = rnnt_greedy_stream_step(params, rnnt, _rnnt_feats(params, cfg, wave),
+                                  state, active=decode)
+    if emission_buf is not None:
+        emission_buf = _append_encodings(emission_buf, out.encodings,
+                                         state.encoder.length, decode)
+    pack = _pack(decode, gate, silero_speech, lead, trail,
+                 out.tokens.to(torch.float32))
+    return ServingTickOutput(pack=pack, state=out.state,
+                             emission=emission_buf, ctx=new_ctx)
+
+
+def serving_step_rnnt_beam(params: dict, cfg: ServingConfig,
+                           segment: torch.Tensor,
+                           contain_token: torch.Tensor, active: torch.Tensor,
+                           new_stream: torch.Tensor, reset: torch.Tensor,
+                           state: BeamServingState, ctx: torch.Tensor,
+                           emission_buf: Optional[torch.Tensor] = None
+                           ) -> ServingTickOutput:
+    """English tick, beam partials: VAD + transcriber + the device-batched
+    beam on every chunk with carried hypotheses.  The pack's data columns
+    carry the best hypothesis per stream: [n_tokens, token_0 ..
+    token_{CAP-1}] (f32 holds token ids <= 4096 exactly).
+    """
+    wave, new_ctx = _assemble_wave(cfg, segment, ctx, active, new_stream)
+    rnnt = cfg.rnnt
+    enc_state = _reset_encoder(reset, state.encoder)
+
+    audio_cfg = cfg.asr.audio
+    gate, silero_speech, lead, trail = _vad_stage(
+        params, cfg, wave, audio_cfg.buffer_length, audio_cfg.sample_rate)
+    decode = active & (contain_token | (gate & silero_speech))
+
+    enc, stepped = transcriber_step(params, rnnt,
+                                    _rnnt_feats(params, cfg, wave), enc_state)
+    new_enc_state = _hold_encoder(decode, stepped, enc_state)
+
+    beam_state, best_toks, best_len = rnnt_beam_chunk_step(
+        params, rnnt, enc.to(torch.float32), state.beam, active=decode,
+        reset=reset)
+
+    if emission_buf is not None:
+        emission_buf = _append_encodings(emission_buf, enc, enc_state.length,
+                                         decode)
+    data = torch.cat([best_len[:, None].to(torch.float32),
+                      best_toks.to(torch.float32)], 1)
+    pack = _pack(decode, gate, silero_speech, lead, trail, data)
+    return ServingTickOutput(
+        pack=pack,
+        state=BeamServingState(encoder=new_enc_state, beam=beam_state),
+        emission=emission_buf, ctx=new_ctx)
+
+
 def make_serving_step(cfg: ServingConfig):
     """The step function for this config's model kind."""
     _check_kind(cfg)
+    if cfg.model_kind == "rnnt":
+        if cfg.en_beam_width_device:
+            return serving_step_rnnt_beam
+        return serving_step_rnnt
     return serving_step

@@ -29,7 +29,8 @@ from typing import List, Optional, Tuple
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("emformer_stack.cu", "emission_append.cu", "emformer_attention.cu")
+SOURCES = ("emformer_stack.cu", "emission_append.cu", "emformer_attention.cu",
+           "row_topk.cu")
 # the wrapper modules whose LAUNCHES counters make up launch_counts():
 # {row name: (module, counter attribute)}
 COUNTERS = {
@@ -38,6 +39,7 @@ COUNTERS = {
     "emission_append": ("emission_append", "LAUNCHES"),
     "emformer_layer": ("emformer_layer", "LAUNCHES"),
     "emformer_attention": ("emformer_attention", "LAUNCHES"),
+    "row_topk": ("row_topk", "LAUNCHES"),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -134,6 +136,8 @@ def lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p]
         handle.asr_emission_append.restype = ctypes.c_int
+        handle.asr_row_topk.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+        handle.asr_row_topk.restype = i32
         handle.asr_cuda_error_string.argtypes = [ctypes.c_int]
         handle.asr_cuda_error_string.restype = ctypes.c_char_p
         _lib = handle

@@ -16,6 +16,12 @@ request ids:
     "fetch slot,len"      ----->   emission rows -> fetch shm
     "stats reset"         ----->   the child's kernel launch counts
 
+The child serves whatever the pickled ServingConfig names: the CTC tick,
+or the English RNNT ticks (greedy or the device beam) with their RNNT
+params, state and float16 encoding buffer, the transcriber's Emformer on
+the route the config carries (the stack route by default, which the JAX
+worker forces for the RNNT Emformer on its device).
+
 The child rebuilds the params from (seed, checkpoint, vad_weights): the
 port's random init draws from a seeded ``torch.Generator`` on the CPU, so
 parent and child agree.  The route, ``quant`` and every other choice come

@@ -1,8 +1,8 @@
 """Continuous-batching scheduler: N streams -> one fixed-shape step per tick.
 
-Counterpart of asr_streaming_tpu/streaming/scheduler.py for the CTC path.
-Streams occupy fixed slots of a ``[max_slots, ...]`` device-resident
-state.  Each tick:
+Counterpart of asr_streaming_tpu/streaming/scheduler.py, for the
+Vietnamese CTC tick and the English RNNT ticks.  Streams occupy fixed
+slots of a ``[max_slots, ...]`` device-resident state.  Each tick:
 
   1. gather one ready chunk per stream (from streams with no chunk in
      flight when ``pipeline_depth`` > 1), encode it (mu-law LUT or int16)
@@ -19,8 +19,14 @@ package.  The pack is waited for on a harvest thread unless
 ``ASR_NO_ASYNC_HARVEST`` is set.  With ``device_worker`` (or a ``worker``
 view) the serving step runs in a spawned child process
 (streaming/device_worker.py) and this object keeps the host half.
-``GroupedScheduler`` ticks several such schedulers round-robin.  Meshes
-and the English beam are not ported yet and raise if asked.
+``GroupedScheduler`` ticks several such schedulers round-robin.
+
+English (``model_kind="rnnt"``): the pack's data columns are the chunk's
+greedy tokens, or, with ``en_beam_partials`` (``en_beam_impl="device"``,
+the default), the device beam's best hypothesis ``[n_tokens, tokens...]``;
+``en_beam_impl="host"`` runs the host oracle ``RNNTBeamDecoder`` on every
+chunk instead (parity and debugging; needs the device in this process).
+Meshes are not ported yet and raise if asked.
 """
 
 from __future__ import annotations
@@ -36,8 +42,12 @@ import numpy as np
 import torch
 
 from asr_streaming_tpu_torch import resolve_device
+from asr_streaming_tpu_torch.models.rnnt import (
+    RNNTBeamDecoder, detokenize_pieces,
+)
 from asr_streaming_tpu_torch.models.serving import (
-    PACK_DATA, PACK_DECODED, ServingConfig, init_audio_context,
+    PACK_DATA, PACK_DECODED, PACK_LEAD, PACK_TRAIL, ServingConfig,
+    init_audio_context,
     init_emission_buffer, init_serving_state, make_emission_fetcher,
     make_serving_step, mulaw_encode_host,
 )
@@ -59,6 +69,25 @@ class StreamEvent:
     stream: Optional[Stream] = None
     # perf_counter timestamp of the dispatch that produced this event
     dispatched_at: float = 0.0
+
+
+def _apply_beam_cfg(cfg: ServingConfig, en_beam_partials: bool,
+                    en_beam_width: int, en_beam_impl: str) -> ServingConfig:
+    """Resolve the EN beam-partials mode into the ServingConfig: the device
+    implementation changes the step (serving_step_rnnt_beam) and the pack
+    width, so it must happen before ANY consumer of cfg (device state,
+    emission buffer, worker client) is built."""
+    if (en_beam_partials and en_beam_impl == "device"
+            and cfg.model_kind == "rnnt" and not cfg.en_beam_width_device):
+        return dataclasses.replace(cfg, en_beam_width_device=en_beam_width)
+    return cfg
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh is not ported yet (one device per scheduler; multi-GPU "
+            "serving is a later slice)")
 
 
 def start_pack_copy(pack: torch.Tensor):
@@ -93,19 +122,26 @@ class Scheduler:
                  mesh=None,
                  device_worker: Optional[dict] = None,
                  worker=None,
-                 en_beam_partials: bool = False):
+                 en_beam_partials: bool = False,
+                 en_beam_width: int = 10,
+                 en_beam_impl: str = "device"):
         """``device_worker``: keyword arguments of
         ``DeviceWorkerClient`` (seed, checkpoint, vad_weights, device): the
         serving step runs in a child process that rebuilds the params from
         them, and ``params`` / ``device`` are not used here.  ``worker``:
-        a ready client or ``PipelinedWorkerClient`` group view."""
-        for name, given in (("mesh", mesh is not None),
-                            ("en_beam_partials", en_beam_partials)):
-            if given:
-                raise NotImplementedError(
-                    f"{name} is not ported yet (CTC scheduling on one "
-                    "device only)")
+        a ready client or ``PipelinedWorkerClient`` group view.
+        ``en_beam_partials`` (RNNT only): the carried-hypothesis beam on
+        every chunk, partials being true deltas of the best hypothesis's
+        text; ``en_beam_impl`` "device" rides the serving step, "host" is
+        the per-stream oracle loop."""
+        _no_mesh(mesh)
+        cfg = _apply_beam_cfg(cfg, en_beam_partials, en_beam_width,
+                              en_beam_impl)
         self.step_fn = make_serving_step(cfg)
+        self.is_rnnt = cfg.model_kind == "rnnt"
+        self.en_beam_partials = en_beam_partials and self.is_rnnt
+        self._beam_device = bool(cfg.en_beam_width_device)
+        self._beam = None               # the host oracle, built below
         self.cfg = cfg
         self.vocab = list(vocab)
         self.max_slots = max_slots
@@ -124,6 +160,11 @@ class Scheduler:
             self.worker = DeviceWorkerClient(
                 cfg, max_slots, pipeline_depth=self.pipeline_depth,
                 **device_worker)
+        if (self.worker is not None and self.en_beam_partials
+                and not self._beam_device):
+            raise ValueError(
+                "en_beam_partials host impl needs in-process device access; "
+                "use en_beam_impl='device' (default) with a device worker")
 
         # staging: depth + 1 buffers [B, segment_length], because the
         # upload of an in-flight batch may still read its buffer while
@@ -140,6 +181,9 @@ class Scheduler:
                                                      self.device)
             self.audio_ctx = init_audio_context(cfg, max_slots, self.device)
             self._fetch_emission = make_emission_fetcher(cfg)
+            if self.en_beam_partials and not self._beam_device:
+                self._beam = RNNTBeamDecoder(self.params, cfg.rnnt,
+                                             beam_width=en_beam_width)
             pin = self.device.type == "cuda"
             self._staging = torch.zeros(
                 (n_stage, max_slots, self._seg_len),
@@ -365,16 +409,27 @@ class Scheduler:
                  dispatched_at: float = 0.0) -> List[StreamEvent]:
         t_host = time.perf_counter()
         decoded = pack[:, PACK_DECODED] > 0.5
-        data = pack[:, PACK_DATA:].astype(np.int32)
+        lead = pack[:, PACK_LEAD]
+        trail = pack[:, PACK_TRAIL]
+        data = pack[:, PACK_DATA:].astype(np.int32)   # argmax / rnnt tokens
         events: List[StreamEvent] = []
+        partial_update = {}
         for slot, s in ready:
-            if decoded[slot]:
+            if decoded[slot] and self.is_rnnt:
+                partial_update[slot] = self._apply_en(
+                    s, slot, data[slot], trail[slot], lead[slot])
+            elif decoded[slot]:
                 s.apply_decode(data[slot])
+                partial_update[slot] = True
             else:
                 s.skip_silence()
             is_final, utt_len = s.check_endpoint(advance=False)
             if is_final:
                 self._needs_reset[slot] = True  # zero state on the next tick
+                if self._beam is not None:
+                    # a new segment starts a fresh hypothesis (device impl:
+                    # the reset flag re-initialises the beam on the card)
+                    s.hypotheses = None
                 emission_len = s.emission_length
                 seg = s.take_final_segment(utt_len)
                 if emission_len > 0:
@@ -387,7 +442,9 @@ class Scheduler:
                     stream_id=s.id, kind="final", text=seg.transcript_greedy,
                     is_final=True, segment=seg, utterance_seconds=utt_len,
                     stream=s, dispatched_at=dispatched_at))
-            elif decoded[slot] and s.transcript_internal.strip():
+            elif decoded[slot] and partial_update.get(slot) and \
+                    s.transcript_internal.strip():
+                # (EN sends partials only on nonempty deltas)
                 events.append(StreamEvent(
                     stream_id=s.id, kind="partial",
                     text=s.transcript_internal, stream=s,
@@ -398,6 +455,43 @@ class Scheduler:
             "chunks_decoded", int(sum(1 for slot, _ in ready if decoded[slot])))
         self.timers.increment("finals", sum(1 for e in events if e.is_final))
         return events
+
+    def _apply_en(self, s: Stream, slot: int, data: np.ndarray,
+                  trail: float, lead: float) -> bool:
+        """One decoded EN chunk into its stream; True when the transcript
+        changed (a partial is due)."""
+        U = self.cfg.rnnt.emformer.segment_length
+        if not self.en_beam_partials:
+            blank = self.cfg.rnnt.blank
+            delta = detokenize_pieces([int(t) for t in data if t != blank],
+                                      self.vocab, lstrip=False)
+            s.apply_decode_en(delta, trail, lead, enc_frames=U)
+            return bool(delta.strip())
+        prev = s.transcript_internal
+        if self._beam_device:
+            # the pack carries the best hypothesis [n_tokens, tokens...];
+            # the host only detokenizes
+            n = int(data[0])
+            full = detokenize_pieces([int(t) for t in data[1:1 + n]],
+                                     self.vocab, lstrip=False)
+        else:
+            # host-impl oracle: the carried-hypothesis beam over this
+            # chunk's device-buffered transcriber encodings
+            pos = int(s.emission_length)
+            enc = self.emission_buf[slot, pos:pos + U].to(
+                torch.float32).cpu().numpy()
+            try:
+                s.hypotheses = self._beam.step_chunk(
+                    enc, getattr(s, "hypotheses", None))
+                full = detokenize_pieces(s.hypotheses[0].tokens, self.vocab,
+                                         lstrip=False)
+            except IndexError:
+                # the reference's rule: an IndexError resets the hypothesis
+                s.hypotheses = None
+                full = prev
+        delta = full[len(prev):] if full.startswith(prev) else full
+        s.apply_decode_en(delta, trail, lead, enc_frames=U, full_text=full)
+        return full != prev
 
     def drain(self, max_ticks: int = 10_000) -> List[StreamEvent]:
         """Run ticks until no stream has a ready chunk."""
@@ -424,9 +518,13 @@ class GroupedScheduler:
     def __init__(self, params: dict, cfg: ServingConfig,
                  vocab: Sequence[str], max_slots: int = 512,
                  groups: int = 4, **kwargs):
-        if kwargs.get("mesh") is not None or kwargs.get("en_beam_partials"):
-            raise NotImplementedError(
-                "mesh / en_beam_partials are not ported yet")
+        _no_mesh(kwargs.get("mesh"))
+        # resolve the EN beam mode BEFORE the shared worker client is built
+        # (it sizes the pack's shared memory from cfg); each group's
+        # Scheduler applies it again, idempotently
+        cfg = _apply_beam_cfg(cfg, kwargs.get("en_beam_partials", False),
+                              kwargs.get("en_beam_width", 10),
+                              kwargs.get("en_beam_impl", "device"))
         groups = max(1, min(groups, max_slots))
         per = -(-max_slots // groups)          # ceil; capacity >= max_slots
         device_worker = kwargs.pop("device_worker", None)

@@ -26,7 +26,19 @@ Phases (any failure exits non-zero; nothing is caught):
      runs the step); the committed overfit fixture
      (assets/test_fixtures/overfit_ctc.npz) served on the card at 512
      slots in process and through the grouped worker gives the same
-     events and its exact golden transcript.
+     events and its exact golden transcript;
+  6. the English Emformer-RNNT path of server-en.yaml: kernel E (the row
+     top-k of csrc/row_topk.cu) against its plain version iter_topk,
+     values and indices exactly, at the beam's [5120, 4097] k=10 rows and
+     on tie, sentinel, narrow and k=128 rows, beside torch.topk; A and B
+     at the EN geometry (U=4, R=1, Lc=30, M=0; encodings [512, 4, 1024]);
+     the int32 hash on the card against numpy; full-width greedy and beam
+     ticks at 512 slots (RNNTConfig defaults, bf16, beam width 10), the
+     beam tick with E against the same tick with iter_topk forced; four
+     streams through the in-process scheduler and through
+     GroupedScheduler(groups=2) over the device worker in beam mode; and
+     assets/test_fixtures/overfit_rnnt.npz serving its golden sentence in
+     greedy and beam mode, in process and through the worker.
 Every path is driven with the kernels' launch counts set to 0 just
 before it and read just after, the worker child's counts included; a
 kernel that no path launched fails the run.  The last line is the result
@@ -100,12 +112,15 @@ def device_times(fn, iters: int = 1):
     return sum(r[0] for r in rows), rows
 
 
-def profile_top(fn, label: str, n: int = 8) -> None:
+def profile_top(fn, label: str, n: int = 8):
+    """Logs the top kernels; returns (device ms, kernel launches)."""
     total, rows = device_times(fn)
+    launches = sum(r[1] for r in rows)
     log(f"[profile] {label}: device time {total:.3f} ms in "
-        f"{sum(r[1] for r in rows)} kernel launches")
+        f"{launches} kernel launches")
     for t, c, name in rows[:n]:
         log(f"[profile]   {t:8.3f} ms {100 * t / total:5.1f}% x{c:<4d} {name}")
+    return total, launches
 
 
 # ------------------------------------------------------------------ phases
@@ -469,12 +484,66 @@ def time_int8_product(cfg, B, gen, device):
         f"matmul {bf16 * 1e3:.1f} us; bound {ops / PEAK_INT8_OPS * 1e6:.1f} us")
 
 
+def check_append(B, max_t, U, V, gen, device, label):
+    """Kernel B against its plain version (exact) at one serving shape,
+    with its device time beside the plain version's and index_put_'s.
+    Returns the kernel's line entry."""
+    import torch
+    from asr_streaming_tpu_torch.ops import emission_append as ea
+    # the buffer's old content is drawn on the card (up to 1 GB of it)
+    dev_gen = torch.Generator(device=device).manual_seed(gen.initial_seed())
+    buf0 = torch.randn((B, max_t, V), generator=dev_gen, device=device,
+                       dtype=torch.float16)
+    rows = torch.randn((B, U, V), generator=gen).to(device)
+    # positions as the ticks clip them: whole segments, the last one at
+    # max_t - max_t % U - U
+    pos = (torch.randint(0, max_t // U, (B,), generator=gen) * U).to(
+        device=device, dtype=torch.int32)
+    decode = (torch.rand(B, generator=gen) < 0.8).to(device)
+    got = ea.emission_append(buf0.clone(), rows, pos, decode)
+    want = ea.emission_append_plain(buf0.clone(), rows, pos, decode)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"{label}: kernel differs from the plain version")
+    del got, want
+    buf = buf0
+    ms_b = device_times(lambda: ea.emission_append(buf, rows, pos, decode),
+                        100)[0]
+    plain_b = device_times(lambda: ea.emission_append_plain(buf, rows, pos,
+                                                            decode), 20)[0]
+    dec_b = decode.nonzero()[:, 0]
+    b_idx = dec_b.view(-1, 1)
+    t_idx = pos[dec_b].long().view(-1, 1) + torch.arange(U, device=device)
+    rows_sel = rows[dec_b]
+
+    def library():
+        # advanced-index assignment (index_put_ takes the buffer's dtype,
+        # so the f32 -> f16 cast is part of the yardstick)
+        buf.index_put_((b_idx, t_idx), rows_sel.to(torch.float16))
+
+    lib_b = device_times(library, 100)[0]
+    nd = int(dec_b.numel())
+    bytes_b = nd * U * V * (4 + 2) + B * (4 + 1)
+    bound = bytes_b / PEAK_BYTES * 1e3
+    log(f"[kernels] {label}: exact at buf [{B}, {max_t}, {V}], rows U={U}; "
+        f"{ms_b * 1e3:.1f} us (plain {plain_b * 1e3:.1f} us, index_put "
+        f"{lib_b * 1e3:.1f} us, bound {bound * 1e3:.1f} us), {nd} of {B} "
+        f"slots decode")
+    del buf0, buf
+    torch.cuda.empty_cache()
+    return {"name": "emission_append", "route": "cuda",
+            "source": "asr_streaming_tpu_torch/csrc/emission_append.cu",
+            "replaces": "asr_streaming_tpu/ops/pallas_append.py:109",
+            "launches": 0, "max_abs_err": 0.0, "ms": ms_b,
+            "plain_ms": plain_b, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": lib_b}
+
+
 def phase_kernels(gen, device):
     import dataclasses
     import torch
     from asr_streaming_tpu_torch.models.emformer import EmformerConfig
     from asr_streaming_tpu_torch.ops import emformer_stack as es
-    from asr_streaming_tpu_torch.ops import emission_append as ea
     results = []
 
     # ---- kernel A at VI full width (B=512, D=512, H=8, F=2048, U=16, R=4,
@@ -537,48 +606,7 @@ def phase_kernels(gen, device):
         "library_ms": None})
 
     # ---- kernel B: VI serving shape, exact equality with the plain version
-    max_t, U, V = 1024, 16, 803
-    buf0 = torch.randn((B, max_t, V), generator=gen).to(
-        device=device, dtype=torch.float16)
-    rows = torch.randn((B, U, V), generator=gen).to(device)
-    pos = (torch.randint(0, max_t // U, (B,), generator=gen) * U).to(
-        device=device, dtype=torch.int32)
-    decode = (torch.rand(B, generator=gen) < 0.8).to(device)
-    got = ea.emission_append(buf0.clone(), rows, pos, decode)
-    want = ea.emission_append_plain(buf0.clone(), rows, pos, decode)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        fail("B: kernel differs from the plain version")
-    del got, want
-    buf = buf0.clone()
-    ms_b = device_times(lambda: ea.emission_append(buf, rows, pos, decode),
-                        100)[0]
-    plain_b = device_times(lambda: ea.emission_append_plain(buf, rows, pos,
-                                                            decode), 20)[0]
-    dec_b = decode.nonzero()[:, 0]
-    b_idx = dec_b.view(-1, 1)
-    t_idx = pos[dec_b].long().view(-1, 1) + torch.arange(U, device=device)
-    rows_sel = rows[dec_b]
-
-    def library():
-        # advanced-index assignment (index_put_ takes the buffer's dtype,
-        # so the f32 -> f16 cast is part of the yardstick)
-        buf.index_put_((b_idx, t_idx), rows_sel.to(torch.float16))
-
-    lib_b = device_times(library, 100)[0]
-    nd = int(dec_b.numel())
-    bytes_b = nd * U * V * (4 + 2) + B * (4 + 1)
-    log(f"[kernels] B: exact; {ms_b * 1e3:.1f} us (plain {plain_b * 1e3:.1f}"
-        f" us, index_put {lib_b * 1e3:.1f} us), {nd} of {B} slots decode")
-    results.append({
-        "name": "emission_append", "route": "cuda",
-        "source": "asr_streaming_tpu_torch/csrc/emission_append.cu",
-        "replaces": "asr_streaming_tpu/ops/pallas_append.py:109",
-        "launches": 0, "max_abs_err": 0.0, "ms": ms_b, "plain_ms": plain_b,
-        "bound_ms": bytes_b / PEAK_BYTES * 1e3, "bound_by": "bytes",
-        "library_ms": lib_b})
-    del buf0, buf
-    torch.cuda.empty_cache()
+    results.append(check_append(B, 1024, 16, 803, gen, device, "B"))
 
     # ---- A's W8A8 modes: 3 layers elementwise at the bf16 tolerance, 20
     # layers by relative L2 with the noise floor (two plain versions whose
@@ -939,9 +967,545 @@ def phase_golden(device):
     return launches
 
 
+# ------------------------------------------------- the English (RNNT) path
+
+def _sync(device) -> None:
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def check_row_topk(gen, device):
+    """Kernel E against its plain version iter_topk, values and indices
+    exactly, and against the stable descending sort (indices), on the
+    beam's rows and the tie / sentinel / narrow / wide-k cases; device
+    times beside iter_topk's and torch.topk's.  Returns E's line entry."""
+    import torch
+    from asr_streaming_tpu_torch.models.rnnt_beam import NEG
+    from asr_streaming_tpu_torch.ops import row_topk as rk
+    from asr_streaming_tpu_torch.ops.topk import iter_topk
+
+    def same(x, k, label):
+        gv, gi = rk.cuda_row_topk(x, k)
+        torch.cuda.synchronize()
+        wv, wi = iter_topk(x, k)
+        if (gv.dtype, gi.dtype, gv.shape) != (wv.dtype, wi.dtype, wv.shape):
+            fail(f"E {label}: {gv.dtype} {gi.dtype} {tuple(gv.shape)} vs "
+                 f"{wv.dtype} {wi.dtype} {tuple(wv.shape)}")
+        if not (torch.equal(gv, wv) and torch.equal(gi, wi)):
+            bad = int(((gv != wv) | (gi != wi)).any(-1).sum())
+            fail(f"E {label}: {bad} rows differ from iter_topk")
+        si = torch.sort(x.float(), dim=-1, descending=True, stable=True)[1]
+        if not torch.equal(gi.long(), si[..., :k]):
+            fail(f"E {label}: indices differ from the stable sort's")
+        log(f"[kernels] E {label}: {tuple(x.shape)} {x.dtype} k={k} == "
+            f"iter_topk (values, indices) == stable sort (indices)")
+        return gv
+
+    B, W, V, k = B_SLOTS, 10, 4097, 10
+    logp = torch.log_softmax(
+        torch.randn((B, W, V), generator=gen).to(device) * 3.0, -1)
+    gv = same(logp, k, "beam rows (log-softmax)")
+    ties = torch.randint(0, 40, (1024, V), generator=gen).to(device).float()
+    same(ties, k, "rows of ties")
+    dead = logp[:64].clone()
+    dead[torch.rand((64, W, V), generator=gen).to(device) < 0.95] = NEG
+    dead[0] = NEG                                   # whole rows of the sentinel
+    same(dead, k, "rows heavy with -1e30")
+    inf = logp[:16].clone()
+    inf[..., ::3] = float("-inf")
+    inf[0, 0, 5:] = float("-inf")
+    same(inf, k, "rows holding -inf")
+    for n in (W * k, 50):                           # the beam's flat tables
+        flat = torch.randn((B, n), generator=gen).to(device) * 20.0
+        flat[torch.rand((B, n), generator=gen).to(device) < 0.5] = NEG
+        same(flat, W, f"flat table N={n}")
+    same(logp[:32], 128, "k=128")
+    same(logp[:64].to(torch.bfloat16), k, "bf16 rows")
+    for bad_k, bad_x in ((129, logp[:1]), (60, logp[:1, :1, :50])):
+        try:
+            rk.cuda_row_topk(bad_x, bad_k)
+        except ValueError:
+            continue
+        fail(f"E: k={bad_k} on N={bad_x.shape[-1]} did not raise")
+
+    ms = device_times(lambda: rk.cuda_row_topk(logp, k), 20)[0]
+    plain_ms = device_times(lambda: iter_topk(logp, k), 3)[0]
+    lib_ms = device_times(lambda: torch.topk(logp, k, dim=-1), 20)[0]
+    if not torch.equal(torch.topk(logp, k, dim=-1).values, gv):
+        fail("E: torch.topk's values differ")
+    flat = torch.randn((B, W * k), generator=gen).to(device)
+    flat_ms = device_times(lambda: rk.cuda_row_topk(flat, W), 20)[0]
+    flat_plain = device_times(lambda: iter_topk(flat, W), 5)[0]
+    nbytes = B * W * V * 4 + B * W * k * 8
+    bound = nbytes / PEAK_BYTES * 1e3
+    log(f"[kernels] E: [{B * W}, {V}] k={k}: {ms * 1e3:.1f} us (plain "
+        f"iter_topk {plain_ms * 1e3:.1f} us, torch.topk {lib_ms * 1e3:.1f} "
+        f"us, values equal), {nbytes / 1e6:.1f} MB, bound {bound * 1e3:.1f}"
+        f" us; flat [{B}, {W * k}] k={W}: {flat_ms * 1e3:.1f} us (plain "
+        f"{flat_plain * 1e3:.1f} us)")
+    return {"name": "row_topk", "route": "cuda",
+            "source": "asr_streaming_tpu_torch/csrc/row_topk.cu",
+            "replaces": "asr_streaming_tpu/ops/pallas_topk.py:82",
+            "launches": 0, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": lib_ms}
+
+
+def check_stack_en(gen, device):
+    """Kernel A at the EN transcriber's geometry (B=512, L=20, U=4, R=1,
+    Lc=30, M=0: 35 keys, 5 queries, 2,560 GEMM rows) against its plain
+    version, as at the VI geometry: f32 elementwise 1e-4, bf16 at 3 layers
+    elementwise 3e-2, bf16 at 20 layers by relative L2 with the noise
+    floor; then with the masks absent, as the RNNT ticks call it.
+    Returns {en_ms, en_plain_ms, en_bound_ms, en_max_abs_err}."""
+    import dataclasses
+    import torch
+    from asr_streaming_tpu_torch.models.rnnt import RNNTConfig
+    from asr_streaming_tpu_torch.ops import emformer_stack as es
+    B = B_SLOTS
+    em = RNNTConfig().emformer
+    check_stack(dataclasses.replace(em, compute_dtype=torch.float32), B, 2,
+                1e-4, gen, device, "A en f32 L=20")
+    bf = dataclasses.replace(em, compute_dtype=torch.bfloat16)
+    check_stack(dataclasses.replace(bf, num_layers=3), B, 3, 3e-2, gen,
+                device, "A en bf16 L=3")
+    err, last = check_stack(bf, B, 3, 3e-2, gen, device, "A en bf16 L=20",
+                            relative=True)
+    params, x, mem, lck, lcv, eff, reset, advance, kw = last
+    got = es.emformer_stack(params, x, mem, lck, lcv, eff, **kw)
+    torch.cuda.synchronize()
+    want = es.emformer_stack_plain(
+        params, x, mem, lck, lcv, eff, torch.zeros_like(reset),
+        torch.ones_like(advance), **kw)
+    for name, g, w in zip(("y", "mem", "lc_k", "lc_v"), got, want):
+        if g.numel():
+            rel = ((g.float() - w.float()).norm() / w.float().norm()).item()
+            if not rel <= 3e-2:
+                fail(f"A en, masks absent, {name}: relative error {rel:.3e}")
+    log("[kernels] A en bf16 L=20: masks absent == reset none, advance all "
+        "(relative L2 within 3e-2 of the plain version)")
+
+    def kernel_a():
+        return es.emformer_stack(params, x, mem, lck, lcv, eff, reset,
+                                 advance, **kw)
+
+    ms = device_times(kernel_a, 5)[0]
+    plain_ms = device_times(
+        lambda: es.emformer_stack_plain(params, x, mem, lck, lcv, eff, reset,
+                                        advance, **kw), 2)[0]
+    profile_top(kernel_a, "A emformer_stack, one EN step at 512 slots")
+    flops = stack_flops(B, bf.num_layers, bf.d_model, bf.ffn_dim,
+                        bf.segment_length, bf.right_context_length, 0,
+                        bf.left_context_length)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = emformer_bytes(bf, B, bf.num_layers, 2) / PEAK_BYTES * 1e3
+    log(f"[kernels] A en: {ms:.3f} ms/step device time (plain {plain_ms:.3f}"
+        f" ms), {flops / 1e12:.3f} TFLOP, bound {max(t_ops, t_bytes):.3f} ms"
+        f" ({'operations' if t_ops >= t_bytes else 'bytes'}), "
+        f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+    return {"en_ms": ms, "en_plain_ms": plain_ms,
+            "en_bound_ms": max(t_ops, t_bytes), "en_max_abs_err": err}
+
+
+def check_hash(gen, device):
+    """The beam's rolling hash relies on int32 products that wrap: the
+    card's result against numpy's two's-complement arithmetic, 8 chained
+    updates of both lanes."""
+    import numpy as np
+    import torch
+    from asr_streaming_tpu_torch.models import rnnt_beam as rb
+    n = 4096
+    for mult, init in ((rb._HASH_M1, rb._HASH_INIT1),
+                       (rb._HASH_M2, rb._HASH_INIT2)):
+        h = torch.full((n,), init, dtype=torch.int32, device=device)
+        want = np.full(n, init, np.int64)
+        for _ in range(8):
+            tok = torch.randint(0, 4097, (n,), generator=gen,
+                                dtype=torch.int32)
+            h = h * mult + (tok.to(device) + 1)
+            want = (want * mult + tok.numpy() + 1 + 2**31) % 2**32 - 2**31
+        if h.dtype != torch.int32 or not np.array_equal(
+                h.cpu().numpy(), want.astype(np.int32)):
+            fail(f"int32 hash lane x{mult} does not wrap as numpy's on "
+                 f"{device}")
+    log("[kernels] int32 rolling hash: 8 chained wrapping updates of both "
+        "lanes equal numpy's two's complement")
+
+
+def phase_kernels_en(gen, device, kernels):
+    """E, and A and B at the EN geometry; adds E's entry and the en_* keys
+    of A's and B's entries."""
+    e = check_row_topk(gen, device)
+    by_name = {k["name"]: k for k in kernels}
+    a_en = check_stack_en(gen, device)
+    b_en = check_append(B_SLOTS, 1024, 4, 1024, gen, device, "B en")
+    # (a run of the EN phases alone has no A or B entry to extend)
+    by_name.get("emformer_stack", {}).update(a_en)
+    by_name.get("emission_append", {}).update(
+        {"en_ms": b_en["ms"], "en_plain_ms": b_en["plain_ms"],
+         "en_bound_ms": b_en["bound_ms"],
+         "en_library_ms": b_en["library_ms"]})
+    check_hash(gen, device)
+    kernels.append(e)
+
+
+# The raw random init gives every token a log-prob near -log(4097): an
+# emission always costs more than it gains, and the beam's best hypothesis
+# stays empty.  The full-width EN phases scale the joiner's weights by this
+# gain, so the random model's distribution is peaked as a trained one's is
+# and the beams hold tokens.
+EN_JOINER_GAIN = 6.0
+
+
+def en_random_params(seed, cfg, device):
+    """The EN phases' weights: random from ``seed``, the joiner sharpened
+    (EN_JOINER_GAIN)."""
+    from asr_streaming_tpu_torch.models.serving import init_serving_params
+    params = init_serving_params(seed, cfg, device)
+    params["joiner"] = dict(params["joiner"],
+                            w=params["joiner"]["w"] * EN_JOINER_GAIN)
+    return params
+
+
+def en_serving_cfg(beam_width=None):
+    """server-en.yaml's model and tick: RNNTConfig defaults (D=512, H=8,
+    F=2048, 20 layers, U=4, R=1, Lc=30, M=0, encoding 1024, V=4097, 3 LSTM
+    layers), bf16 Emformer, mu-law upload, no Silero; ``beam_width`` sets
+    the device beam."""
+    import dataclasses
+    import torch
+    from asr_streaming_tpu_torch.models.asr import ASRConfig
+    from asr_streaming_tpu_torch.models.rnnt import (
+        RNNTConfig, rnnt_config_for_audio,
+    )
+    from asr_streaming_tpu_torch.models.serving import ServingConfig
+    from asr_streaming_tpu_torch.utils.audio import EN_AUDIO
+    rnnt = RNNTConfig()
+    rnnt = rnnt_config_for_audio(dataclasses.replace(
+        rnnt, emformer=dataclasses.replace(
+            rnnt.emformer, compute_dtype=torch.bfloat16)), EN_AUDIO)
+    asr = dataclasses.replace(ASRConfig.vietnamese(torch.bfloat16),
+                              audio=EN_AUDIO)
+    return ServingConfig(asr=asr, model_kind="rnnt", rnnt=rnnt,
+                         use_silero=False, upload_encoding="mulaw",
+                         en_beam_width_device=beam_width)
+
+
+def run_en_ticks(params, cfg, B, segs, device):
+    """One EN serving tick per segment batch, every slot decoding (the
+    first tick resets); checks the pack, the tokens and the encoding rows.
+    Returns (host seconds per tick, packs, state, ctx, buffer)."""
+    import torch
+    from asr_streaming_tpu_torch.models.serving import (
+        PACK_DATA, init_audio_context, init_emission_buffer,
+        init_serving_state, make_serving_step,
+    )
+    step = make_serving_step(cfg)
+    state = init_serving_state(cfg, B, device)
+    ctx = init_audio_context(cfg, B, device)
+    buf = init_emission_buffer(cfg, B, device)
+    rnnt = cfg.rnnt
+    U = rnnt.emformer.segment_length
+    beam = bool(cfg.en_beam_width_device)
+    width = PACK_DATA + (1 + cfg.en_beam_cap if beam
+                         else U * rnnt.max_symbols_per_frame)
+    ones = torch.ones(B, dtype=torch.bool, device=device)
+    zeros = torch.zeros(B, dtype=torch.bool, device=device)
+    times, packs = [], []
+    for t, seg in enumerate(segs):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = step(params, cfg, seg, ones if t else zeros, ones,
+                   zeros if t else ones, zeros if t else ones, state, ctx,
+                   buf)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+        state, ctx, buf = out.state, out.ctx, out.emission
+        if tuple(out.pack.shape) != (B, width):
+            fail(f"EN pack shape {tuple(out.pack.shape)} != {(B, width)}")
+        if not torch.isfinite(out.pack).all():
+            fail("non-finite EN pack")
+        data = out.pack[:, PACK_DATA:]
+        if beam and (data[:, 0].min() < 0 or data[:, 0].max() > cfg.en_beam_cap):
+            fail("beam token count out of range")
+        toks = data[:, 1:] if beam else data
+        if toks.min() < 0 or toks.max() >= rnnt.vocab_size:
+            fail("EN token out of the vocabulary")
+        packs.append(out.pack)
+    if not bool(packs[-1][:, 0].all()):
+        fail("not every slot decoded in the last EN tick")
+    rows = buf[:, :len(segs) * U].float()
+    if not torch.isfinite(rows).all() or not bool((rows != 0).any()):
+        fail("EN encoding rows are not finite, non-zero values")
+    if int(state.encoder.length.min().item()) != len(segs) * U:
+        fail(f"EN lengths {state.encoder.length.min().item()} != "
+             f"{len(segs) * U}")
+    return times, packs, state, ctx, buf
+
+
+def phase_en_serving(seed, gen, device, n_greedy=6, n_beam=4):
+    """Full-width EN ticks at 512 slots: greedy, then the device beam with
+    kernel E and once more with iter_topk forced at its three selections
+    (equal packs and beams, exactly).  Returns the params."""
+    import torch
+    from asr_streaming_tpu_torch.models import rnnt_beam
+    from asr_streaming_tpu_torch.models.serving import make_serving_step
+    from asr_streaming_tpu_torch.ops.topk import iter_topk
+    B = B_SLOTS
+    greedy, beam = en_serving_cfg(), en_serving_cfg(10)
+    # an int seed: the worker child rebuilds the same weights from it
+    params = en_random_params(seed, greedy, device)
+    seg_len = greedy.asr.audio.segment_length
+    segs = [torch.randint(0, 256, (B, seg_len), generator=gen,
+                          dtype=torch.uint8).to(device)
+            for _ in range(max(n_greedy, n_beam))]
+    ones = torch.ones(B, dtype=torch.bool, device=device)
+    zeros = torch.zeros(B, dtype=torch.bool, device=device)
+
+    def report(label, cfg, times, state, ctx, buf):
+        step = make_serving_step(cfg)
+        dev_ms, launches = profile_top(
+            lambda: step(params, cfg, segs[0], ones, ones, zeros, zeros,
+                         state, ctx, buf),
+            f"one EN {label} tick at {B} slots", n=12)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steady = sorted(times[1:])
+        log(f"[en serving] {label}: {len(times)} ticks x {B} slots: first "
+            f"{times[0] * 1e3:.1f} ms, median {_median_ms(times):.2f} ms, "
+            f"min {steady[0] * 1e3:.2f} ms; device time {dev_ms:.2f} ms in "
+            f"{launches} kernel launches per tick; peak {peak:.2f} GiB")
+
+    torch.cuda.reset_peak_memory_stats()
+    times, _, state, ctx, buf = run_en_ticks(params, greedy, B,
+                                             segs[:n_greedy], device)
+    report("greedy", greedy, times, state, ctx, buf)
+    del state, ctx, buf
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    times, packs, state, ctx, buf = run_en_ticks(params, beam, B,
+                                                 segs[:n_beam], device)
+    report("beam (width 10)", beam, times, state, ctx, buf)
+    del ctx, buf
+    kernel_topk = rnnt_beam.row_topk
+    rnnt_beam.row_topk = iter_topk          # the plain version, forced
+    try:
+        times_p, packs_p, state_p, _, _ = run_en_ticks(params, beam, B,
+                                                       segs[:n_beam], device)
+    finally:
+        rnnt_beam.row_topk = kernel_topk
+    for t, (a, b) in enumerate(zip(packs, packs_p)):
+        if not torch.equal(a, b):
+            fail(f"beam tick {t}: the pack with kernel E differs from the "
+                 f"pack with iter_topk")
+    for name in ("tokens", "lengths", "h1", "h2"):
+        if not torch.equal(getattr(state.beam, name),
+                           getattr(state_p.beam, name)):
+            fail(f"beam {name} with kernel E differ from iter_topk's")
+    n_tok = packs[-1][:, 5]
+    if n_tok.max().item() < 1:
+        fail("no beam holds a token: the E vs iter_topk comparison is empty")
+    log(f"[en serving] beam with kernel E == beam with iter_topk over "
+        f"{n_beam} ticks: packs, token buffers, lengths and hashes equal; "
+        f"best hypotheses hold {n_tok.min().item():.0f}-"
+        f"{n_tok.max().item():.0f} tokens; iter_topk-forced tick median "
+        f"{_median_ms(times_p):.2f} ms against {_median_ms(times):.2f} ms")
+    del state, state_p, packs, packs_p
+    torch.cuda.empty_cache()
+    return params
+
+
+def _event_list(events):
+    return [(e.stream_id, e.kind, e.text) for e in events]
+
+
+def phase_en_scheduler(params, seed, device):
+    """server-en.yaml's default mode (beam partials, width 10) answering
+    requests: 4 streams through the in-process Scheduler at 512 slots,
+    through an in-process GroupedScheduler(groups=2), and through
+    GroupedScheduler(groups=2) over the device worker.  The two grouped
+    runs see the same batch shapes and must give the same events.  Returns
+    the worker child's launch counts."""
+    from asr_streaming_tpu_torch.streaming.scheduler import (
+        GroupedScheduler, Scheduler,
+    )
+    import tempfile
+    from asr_streaming_tpu_torch.text.vocab import placeholder_vocab
+    from asr_streaming_tpu_torch.utils.checkpoint import save_params
+    cfg = en_serving_cfg()
+    vocab = placeholder_vocab(cfg.rnnt.vocab_size)
+    kw = dict(max_slots=B_SLOTS, language="en", rules=_flush_rules(),
+              en_beam_partials=True, en_beam_width=10)
+    sched = Scheduler(params, cfg, vocab, device=device, **kw)
+    warm = sched.warmup()
+    single, dt = _drive_four_streams(sched, "EN in process")
+    sched.close()
+    p50 = sched.timers.snapshot()["stages"]["tick"]["p50_ms"]
+    log(f"[en scheduler] in process, beam mode, 4 streams x 3.2 s at "
+        f"{B_SLOTS} slots: {sched.ticks} ticks in {dt:.2f} s (warmup "
+        f"{warm:.2f} s), {len(single)} events, tick p50 {p50} ms")
+
+    grouped = GroupedScheduler(params, cfg, vocab, groups=2, device=device,
+                               **kw)
+    grouped.warmup()
+    want, _ = _drive_four_streams(grouped, "EN grouped in process")
+    grouped.close()
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # the child rebuilds the weights from the seed; the sharpened
+        # joiner reaches it as a partial checkpoint
+        ckpt = os.path.join(tmp, "joiner.npz")
+        save_params(ckpt, {"joiner": {"w": params["joiner"]["w"]}})
+        wk = GroupedScheduler(None, cfg, vocab, groups=2,
+                              device_worker={"seed": seed, "checkpoint": ckpt,
+                                             "device": str(device)}, **kw)
+        try:
+            warm = wk.warmup()
+            stats = wk.client.stats(reset=True)
+            if stats["foreign_modules"]:
+                fail("the EN worker child imported "
+                     f"{stats['foreign_modules'][:5]}")
+            got, dt = _drive_four_streams(wk, "EN grouped worker")
+            launches = wk.client.stats()["launches"]
+            p50w = wk.timers.snapshot()["stages"]["tick"]["p50_ms"]
+        finally:
+            wk.close()
+    if _event_list(got) != _event_list(want):
+        fail(f"EN grouped worker events differ from the in-process grouped "
+             f"scheduler's: {_event_list(got)[:6]} vs {_event_list(want)[:6]}")
+    same = sorted(_event_list(single)) == sorted(_event_list(got))
+    log(f"[en scheduler] GroupedScheduler(groups=2) over the device worker, "
+        f"beam mode: {wk.ticks} group ticks in {dt:.2f} s (child start + "
+        f"warmup {time.perf_counter() - t0 - dt:.1f} s, warm step "
+        f"{warm:.2f} s), {len(got)} events equal to the in-process grouped "
+        f"scheduler's ({'also' if same else 'not'} the 512-slot scheduler's "
+        f"set), group tick p50 {p50w} ms (in process: {p50} ms); child "
+        f"launches {({k: v for k, v in launches.items() if v})}")
+    return launches
+
+
+EN_PIECES = ["\u2581a", "\u2581b", "\u2581c", "\u2581d", "<b>"]
+
+
+def _en_sentence_audio(s, total=3.84, sr=16000):
+    """The tone sentences of tests/test_overfit_rnnt_e2e.py: one tone per
+    letter (each a word piece), 80 ms gaps, no tone for the space."""
+    import numpy as np
+    tone_hz = {"a": 350.0, "b": 700.0, "c": 1400.0, "d": 2100.0}
+    parts = []
+    for ch in s.replace(" ", ""):
+        t = np.arange(int(sr * 0.24)) / sr
+        wave = 0.3 * np.sin(2 * np.pi * tone_hz[ch] * t)
+        ramp = np.minimum(1.0, np.arange(len(t)) / (0.010 * sr))
+        parts.extend([(wave * ramp * ramp[::-1]).astype(np.float32),
+                      np.zeros(int(sr * 0.08), np.float32)])
+    audio = np.concatenate(parts)
+    return np.pad(audio, (0, int(sr * total) - len(audio)))
+
+
+def _en_fixture_events(sched, golden):
+    """Two streams: the sentence; the sentence twice (a final, a reset, a
+    second final).  Per-stream [(kind, text)]."""
+    import numpy as np
+    one = _en_sentence_audio(golden)
+    streams = [sched.admit(f"t{i}") for i in range(2)]
+    for s, a in zip(streams, (one, np.concatenate([one, one]))):
+        s.accept_waveform(a)
+        s.add_tail_padding()
+    out = {}
+    for e in sched.drain():
+        out.setdefault(e.stream_id, []).append((e.kind, e.text.strip()))
+    return out
+
+
+def phase_en_golden(device):
+    """The RNNT overfit fixture at 512 slots on the card: greedy mode and
+    beam mode (width 4, the trained VAD gating silence, as the fixture was
+    accepted), each in process and through the grouped worker: the same
+    events, and the golden sentence as every non-empty final.  Returns the
+    worker children's launch counts."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    from asr_streaming_tpu_torch.models.asr import ASRConfig
+    from asr_streaming_tpu_torch.models.rnnt import RNNTConfig
+    from asr_streaming_tpu_torch.models.serving import (
+        ServingConfig, init_serving_params,
+    )
+    from asr_streaming_tpu_torch.streaming.endpoint import EndpointRule
+    from asr_streaming_tpu_torch.streaming.scheduler import (
+        GroupedScheduler, Scheduler,
+    )
+    from asr_streaming_tpu_torch.utils.audio import EN_AUDIO
+    from asr_streaming_tpu_torch.utils.checkpoint import (
+        load_params, overlay_params, save_params,
+    )
+    fixtures = os.path.join(HERE, "assets", "test_fixtures")
+    path = os.path.join(fixtures, "overfit_rnnt.npz")
+    with np.load(path) as z:
+        golden = json.loads(str(z["__meta__"]))["beam_golden"]
+    vad = load_params(os.path.join(fixtures, "overfit_rnnt_vad.npz"))
+    base = ServingConfig(
+        asr=dataclasses.replace(ASRConfig.tiny(), audio=EN_AUDIO),
+        model_kind="rnnt", rnnt=RNNTConfig.tiny(vocab_size=len(EN_PIECES)),
+        use_silero=False, use_energy_gate=False, energy_threshold_db=-200.0)
+    rules = {"trained": EndpointRule(True, 0.8, 0.0, float("inf"))}
+    totals = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the worker reads VAD weights from an .npz with a "vad" subtree
+        vad_path = os.path.join(tmp, "vad.npz")
+        save_params(vad_path, {"vad": vad})
+        for label, cfg, kw, worker_kw in (
+                ("greedy", base, {}, {}),
+                ("beam", dataclasses.replace(base, use_silero=True),
+                 {"en_beam_partials": True, "en_beam_width": 4},
+                 {"vad_weights": vad_path})):
+            params = overlay_params(init_serving_params(1, cfg, device),
+                                    load_params(path))
+            if cfg.use_silero:
+                params = overlay_params(params, {"vad": vad})
+            kw = dict(kw, max_slots=B_SLOTS, language="en", rules=rules)
+            sched = Scheduler(params, cfg, EN_PIECES, device=device, **kw)
+            want = _en_fixture_events(sched, golden)
+            sched.close()
+            finals = {sid: [t for k, t in ev if k == "final" and t]
+                      for sid, ev in want.items()}
+            if finals != {"t0": [golden], "t1": [golden, golden]}:
+                fail(f"EN {label}: finals {finals}, golden {golden!r}")
+            partials = [t for k, t in want["t0"] if k == "partial" and t]
+            if not partials or not all(golden.startswith(p) for p in partials):
+                fail(f"EN {label}: partials do not grow toward {golden!r}: "
+                     f"{partials}")
+            wk = GroupedScheduler(
+                None, cfg, EN_PIECES, groups=2,
+                device_worker=dict(worker_kw, seed=1, checkpoint=path,
+                                   device=str(device)), **kw)
+            try:
+                wk.warmup()
+                wk.client.stats(reset=True)
+                got = _en_fixture_events(wk, golden)
+                for k, v in wk.client.stats()["launches"].items():
+                    totals[k] = totals.get(k, 0) + v
+            finally:
+                wk.close()
+            if got != want:
+                fail(f"EN {label}: grouped worker events {got} != in "
+                     f"process {want}")
+            log(f"[en golden] overfit_rnnt, {label} mode at {B_SLOTS} slots: "
+                f"finals {finals}, partials of t0 {partials}; "
+                f"GroupedScheduler(groups=2) over the device worker gives "
+                f"the same events")
+    return totals
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=("vi", "en"), default=None,
+                    help="run one language's phases (a partial run: the "
+                         "result line says so and the exit code is 4)")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "asr_streaming_tpu_torch")):
         fail("asr_streaming_tpu_torch/ is not beside this script")
@@ -955,7 +1519,10 @@ def main() -> None:
     from asr_streaming_tpu_torch.ops import _cuda
     phase_build()
     gen = torch.Generator().manual_seed(args.seed)
-    kernels = phase_kernels(gen, device)
+    vi, en = args.only in (None, "vi"), args.only in (None, "en")
+    kernels = phase_kernels(gen, device) if vi else []
+    if en:
+        phase_kernels_en(gen, device, kernels)
 
     # the paths: each driven with the counts set to 0 just before it and
     # read just after; the worker phases add their child's counts
@@ -968,28 +1535,39 @@ def main() -> None:
             totals[k] += v
         return out
 
-    params, cfg = path(phase_serving, gen, device)
-    p50 = path(phase_scheduler, params, cfg, device)
-    # each route is a path of its own (counts zeroed and read around it)
-    routes = phase_routes(params, gen, device)
-    del params
-    torch.cuda.empty_cache()
-    for counts in (routes, path(phase_worker, args.seed, p50, device),
-                   path(phase_golden, device)):
+    def add(counts):
         for k, v in counts.items():
             totals[k] += v
+
+    if vi:
+        params, cfg = path(phase_serving, gen, device)
+        p50 = path(phase_scheduler, params, cfg, device)
+        # each route is a path of its own (counts zeroed and read around it)
+        add(phase_routes(params, gen, device))
+        del params
+        torch.cuda.empty_cache()
+        add(path(phase_worker, args.seed, p50, device))
+        add(path(phase_golden, device))
+    if en:
+        params = path(phase_en_serving, args.seed, gen, device)
+        add(path(phase_en_scheduler, params, args.seed, device))
+        del params
+        torch.cuda.empty_cache()
+        add(path(phase_en_golden, device))
     for k in kernels:
         k["launches"] = totals[k["name"]]
-        if k["launches"] == 0:
+        if k["launches"] == 0 and args.only is None:
             fail(f"kernel {k['name']} was not launched on any path")
     log(f"[launches] {totals}")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
+    print(json.dumps({"ok": args.only is None, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+    if args.only is not None:
+        sys.exit(4)
 
 
 if __name__ == "__main__":

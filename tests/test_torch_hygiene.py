@@ -18,7 +18,9 @@ bad = sorted(m for m in sys.modules
              or m == "asr_streaming_tpu" or m.startswith("asr_streaming_tpu."))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 20, names
+assert len(names) >= 24, names
+for new in ("models.rnnt", "models.rnnt_beam", "ops.topk", "ops.row_topk"):
+    assert "asr_streaming_tpu_torch." + new in names, new
 """
 
 
@@ -63,10 +65,41 @@ assert stats["foreign_modules"] == [], stats["foreign_modules"]
 """
 
 
+_EN_WORKER_PROBE = r"""
+import dataclasses
+from asr_streaming_tpu_torch.models.asr import ASRConfig
+from asr_streaming_tpu_torch.models.rnnt import RNNTConfig
+from asr_streaming_tpu_torch.models.serving import ServingConfig
+from asr_streaming_tpu_torch.streaming.device_worker import DeviceWorkerClient
+from asr_streaming_tpu_torch.utils.audio import EN_AUDIO
+cfg = ServingConfig(asr=dataclasses.replace(ASRConfig.tiny(), audio=EN_AUDIO),
+                    model_kind="rnnt", rnnt=RNNTConfig.tiny(),
+                    use_silero=False, en_beam_width_device=2, en_beam_cap=8)
+client = DeviceWorkerClient(cfg, 2, device="cpu")
+try:
+    client.warmup(timeout=120)
+    stats = client.stats()
+finally:
+    client.close()
+print(stats["foreign_modules"])
+assert stats["foreign_modules"] == [], stats["foreign_modules"]
+assert "row_topk" in stats["launches"], stats["launches"]
+"""
+
+
+def _run_probe(probe):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_device_worker_child_imports_neither():
     """The spawned worker child reports its loaded modules: none of jax or
     the JAX package."""
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", _WORKER_PROBE], cwd=ROOT,
-                         env=env, capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stdout + out.stderr
+    _run_probe(_WORKER_PROBE)
+
+
+def test_en_device_worker_child_imports_neither():
+    """The same for a child that serves the English beam tick."""
+    _run_probe(_EN_WORKER_PROBE)

@@ -5,7 +5,8 @@ Imports neither jax nor the JAX package, so on a machine with only
 PyTorch it runs as
 ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -m gpu``.
 Tolerances: f32 1e-4 (summation order only), bf16 3e-2 (the JAX
-package's bf16 tolerance for its own kernel), the append exact.
+package's bf16 tolerance for its own kernel), the append and the row
+top-k exact.
 """
 
 import numpy as np
@@ -21,6 +22,9 @@ VI = dict(d_model=64, num_heads=4, ffn_dim=96, num_layers=3,
           max_memory_size=4)
 EN = dict(VI, segment_length=4, left_context_length=10,
           right_context_length=1, max_memory_size=0)
+# the English transcriber's own geometry (35 keys, 5 queries; Lc = 30 is
+# no multiple of 8), at a narrow width
+EN_FULL = dict(EN, left_context_length=30)
 
 
 def _cuda():
@@ -30,7 +34,8 @@ def _cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("geo", [VI, EN], ids=["vi_mem", "en_nomem"])
+@pytest.mark.parametrize("geo", [VI, EN, EN_FULL],
+                         ids=["vi_mem", "en_nomem", "en_lc30"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)],
                          ids=["f32", "bf16"])
@@ -69,10 +74,12 @@ def test_emformer_stack_kernel_matches_plain(geo, dtype, tol):
 
 
 @pytest.mark.gpu
-def test_emission_append_kernel_matches_plain_exactly():
+@pytest.mark.parametrize("U,V", [(16, 803), (4, 1024)],
+                         ids=["vi_logprobs", "en_encodings"])
+def test_emission_append_kernel_matches_plain_exactly(U, V):
     dev = _cuda()
     rng = np.random.default_rng(3)
-    B, max_t, U, V = 16, 128, 16, 803
+    B, max_t = 16, 128
     buf = torch.from_numpy(rng.standard_normal((B, max_t, V)).astype(
         np.float16)).to(dev)
     rows = torch.from_numpy(rng.standard_normal((B, U, V)).astype(
@@ -212,3 +219,70 @@ def test_emformer_attention_kernel_matches_plain(use_mem):
     assert ek.LAUNCHES == n0 + 1
     want = ek.emformer_attention_plain(q, k, v, m_m, m_kv, **kw)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,k", [
+    ((64, 10, 4097), 10),     # the beam's per-hypothesis vocab rows
+    ((64, 100), 10),          # its flat [B, W * kcap] table
+    ((64, 50), 10),           # the end-of-frame table
+    ((8, 4097), 128),         # the widest k
+    ((5, 7, 130), 5),
+], ids=["beam", "flat100", "flat50", "k128", "ragged"])
+@pytest.mark.parametrize("kind", ["random", "ties", "sentinel", "neg_inf",
+                                  "bf16"])
+def test_row_topk_kernel_equals_iter_topk(shape, k, kind):
+    """Kernel E == its plain version, values and indices, == the stable
+    descending sort; on the card the dispatcher launches the kernel."""
+    from asr_streaming_tpu_torch.ops import row_topk as rk
+    from asr_streaming_tpu_torch.ops.topk import iter_topk, row_topk
+    dev = _cuda()
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal(shape).astype(np.float32)
+    if kind == "ties":
+        x = np.round(x * 2) / 2
+    elif kind == "sentinel":
+        x[rng.random(shape) < 0.95] = -1.0e30
+        x[0] = -1.0e30
+    elif kind == "neg_inf":
+        x[rng.random(shape) < 0.5] = -np.inf
+    xt = torch.from_numpy(x).to(dev)
+    if kind == "bf16":
+        xt = xt.to(torch.bfloat16)
+    n0 = rk.LAUNCHES
+    gv, gi = row_topk(xt, k)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES == n0 + 1
+    wv, wi = iter_topk(xt, k)
+    assert gv.dtype == xt.dtype and gi.dtype == torch.int32
+    assert torch.equal(gv, wv) and torch.equal(gi, wi)
+    si = torch.sort(xt.float(), dim=-1, descending=True, stable=True)[1]
+    assert torch.equal(gi.long(), si[..., :k])
+
+
+@pytest.mark.gpu
+def test_row_topk_kernel_rejects_what_it_does_not_take():
+    from asr_streaming_tpu_torch.ops import row_topk as rk
+    dev = _cuda()
+    x = torch.zeros((2, 300), device=dev)
+    with pytest.raises(ValueError, match="k=129"):
+        rk.cuda_row_topk(x, 129)
+    with pytest.raises(ValueError, match="N=50 < k=60"):
+        rk.cuda_row_topk(x[:, :50], 60)
+    with pytest.raises(ValueError, match="N="):
+        rk.cuda_row_topk(torch.zeros((1, rk.MAX_N + 1), device=dev), 4)
+
+
+@pytest.mark.gpu
+def test_beam_hash_wraps_on_the_card():
+    """int32 products wrap on the card as numpy's two's complement."""
+    from asr_streaming_tpu_torch.models import rnnt_beam as rb
+    dev = _cuda()
+    rng = np.random.default_rng(11)
+    h = torch.full((512,), rb._HASH_INIT1, dtype=torch.int32, device=dev)
+    want = np.full(512, rb._HASH_INIT1, np.int64)
+    for _ in range(8):
+        tok = rng.integers(0, 4097, 512).astype(np.int32)
+        h = h * rb._HASH_M1 + (torch.from_numpy(tok).to(dev) + 1)
+        want = (want * rb._HASH_M1 + tok + 1 + 2**31) % 2**32 - 2**31
+    assert np.array_equal(h.cpu().numpy(), want.astype(np.int32))

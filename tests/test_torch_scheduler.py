@@ -133,9 +133,14 @@ def test_unported_options_raise_and_cuda_is_the_default():
     cfg = ServingConfig(asr=ASRConfig.tiny(vocab_size=len(VOCAB)),
                         use_silero=False)
     params = init_serving_params(0, cfg, device="cpu")
-    for kw in ({"mesh": object()}, {"en_beam_partials": True}):
-        with pytest.raises(NotImplementedError):
-            Scheduler(params, cfg, VOCAB, device="cpu", **kw)
+    from asr_streaming_tpu_torch.streaming.scheduler import GroupedScheduler
+    for cls in (Scheduler, GroupedScheduler):
+        with pytest.raises(NotImplementedError, match="mesh"):
+            cls(params, cfg, VOCAB, device="cpu", mesh=object())
+    # en_beam_partials is ported; on a CTC config it is ignored, as in the
+    # JAX scheduler
+    sched = Scheduler(params, cfg, VOCAB, device="cpu", en_beam_partials=True)
+    assert not sched.en_beam_partials and not sched.is_rnnt
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):

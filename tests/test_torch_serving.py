@@ -111,5 +111,8 @@ def test_entry_points_need_cuda_unless_cpu_is_named():
                lambda: ts.init_emission_buffer(tcfg, 2)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn()
-    with pytest.raises(NotImplementedError):
+    # "rnnt" is served since the English slice; it needs its RNNTConfig
+    with pytest.raises(ValueError, match="needs ServingConfig.rnnt"):
         ts.make_serving_step(ts.ServingConfig(model_kind="rnnt"))
+    with pytest.raises(ValueError, match="model_kind"):
+        ts.make_serving_step(ts.ServingConfig(model_kind="ctc2"))
