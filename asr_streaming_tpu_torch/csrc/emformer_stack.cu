@@ -22,67 +22,62 @@
 // 989 TFLOP/s bf16 tensor-core peak (W8A8: the five products at the
 // 1,979 TOP/s int8 peak, the attention products still bf16).
 //
-// What the design does about it: every product runs on the tensor cores
-// (WMMA bf16 16x16x16 with f32 accumulation, or WMMA s8 16x16x16 with s32
-// accumulation in W8A8 mode, shared-memory tiles, the dequant / bias /
-// activation epilogue fused into the GEMM so projections never make a
-// second pass).  The Pallas kernel's VMEM-resident megakernel does not
-// translate (a block has 227 KB of shared memory, the TPU tile had ~100 MB
-// of VMEM), so one layer is a short chain of simple kernels: ln_in ->
-// gemm(q) -> gemm(kv) -> state_roll -> attention -> gemm(out) ->
-// residual_ffn_ln -> gemm(ffn1+act) -> gemm(ffn2) -> out_ln.  That chain
-// is run_layer(); the C entry asr_emformer_layer runs it once (kernel C,
-// one launch per layer from the host) and asr_emformer_stack loops it over
-// the layers in one host call (kernel A), so the two cannot drift apart.
-// Inter-layer activations stay in f32 device scratch.  The state roll
-// writes new buffers (no in-place shift across threads).  In W8A8 mode a
-// quantised product is a row-quantiser kernel followed by the int8 GEMM;
-// the quantiser reads the f32 LN outputs for wq and ffw1 (ln_in and
-// residual_ffn_ln then also write f32 copies) and the compute-type values
-// for wkv, wout and ffw2, as _qdot(x.astype(f32)) does.  The Mosaic tiling
-// knobs (tile, layers_per_step, ffn_slices) carry no semantics and are not
-// reproduced.  Not yet done: wgmma/TMA pipelining, one persistent launch
-// for all layers.
+// What the design does about it: the five bf16 products of a layer run on
+// one Hopper GEMM (gemm_bf16_wgmma_kernel: persistent blocks, TMA loads
+// into a ring of 128-byte-swizzled stages, a producer warp and one or two
+// wgmma consumer warpgroups, the bias / activation epilogue through a
+// shared-memory output tile and 16-byte coalesced stores, the tile shape
+// picked per product: 128 rows by 256 or 128 columns for the shortest
+// makespan over the SMs, 64-row tiles where 128-row ones cannot fill the
+// SMs, the 64x128 tile two blocks an SM so that one block's epilogue
+// overlaps the other's products); the
+// attention runs on the core it shares with kernel D
+// (emformer_attention_core.cuh), in bf16 on the tensor cores (mma.sync);
+// the W8A8 products run a row-quantiser kernel and a WMMA s8 GEMM with the
+// dequant epilogue.  The
+// Pallas kernel's VMEM-resident megakernel does not translate (a block has
+// 227 KB of shared memory, the TPU tile had ~100 MB of VMEM), so one layer
+// is a short chain of simple kernels: ln_in -> gemm(q) -> gemm(kv) ->
+// state_roll -> attention -> gemm(out) -> residual_ffn_ln ->
+// gemm(ffn1+act) -> gemm(ffn2) -> out_ln.  That chain is run_layer(); the
+// C entry asr_emformer_layer runs it once (kernel C, one launch per layer
+// from the host) and asr_emformer_stack loops it over the layers in one
+// host call (kernel A), so the two cannot drift apart.  Inter-layer
+// activations stay in f32 device scratch.  The state roll writes new
+// buffers (no in-place shift across threads).  In W8A8 mode the quantiser
+// reads the f32 LN outputs for wq and ffw1 (ln_in and residual_ffn_ln then
+// also write f32 copies) and the compute-type values for wkv, wout and
+// ffw2, as _qdot(x.astype(f32)) does.  The Mosaic tiling knobs (tile,
+// layers_per_step, ffn_slices) carry no semantics and are not reproduced.
+// Not yet done: the epilogue of the one-block-an-SM tiles overlapped with
+// the next tile's products (two consumer warpgroups on alternate tiles),
+// the row kernels
+// fused into the GEMMs' prologues and epilogues, one persistent launch
+// for all layers, TMA multicast of the weight tiles across a cluster, a
+// wgmma int8 GEMM.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
 
-using bf16 = __nv_bfloat16;
+#include <mutex>
+#include <type_traits>
+
+#include "emformer_attention_core.cuh"
 
 namespace {
 
+using attn_core::bf16;
+using attn_core::cp_async16;
+using attn_core::from_f;
+using attn_core::rnd;
+using attn_core::to_f;
+using attn_core::warp_max;
+using attn_core::warp_sum;
+
 // ---------------------------------------------------------------- helpers
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<bf16>(bf16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// round an f32 value to the compute type and back
-template <typename T> __device__ __forceinline__ float rnd(float v) {
-  return to_f<T>(from_f<T>(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_SILU = 3 };
 
@@ -100,12 +95,17 @@ __device__ __forceinline__ float activate(float x, int act) {
 }
 
 // projection epilogue: round(acc) + bias in the compute type, then the
-// activation on that rounded value, rounded again
+// activation on that rounded value, rounded again (returned widened)
+template <typename T>
+__device__ __forceinline__ float epilogue_v(float acc, float bias, int act) {
+  float v = rnd<T>(rnd<T>(acc) + bias);
+  if (act != ACT_NONE) v = rnd<T>(activate(v, act));
+  return v;
+}
+
 template <typename T>
 __device__ __forceinline__ T epilogue(float acc, const T* bias, int n, int act) {
-  float v = rnd<T>(rnd<T>(acc) + to_f<T>(bias[n]));
-  if (act != ACT_NONE) v = rnd<T>(activate(v, act));
-  return from_f<T>(v);
+  return from_f<T>(epilogue_v<T>(acc, to_f<T>(bias[n]), act));
 }
 
 // LayerNorm of one row held by a warp: lane owns elements lane + 32*i.
@@ -142,106 +142,342 @@ __device__ __forceinline__ void warp_layer_norm(float (&v)[kMaxPerLane], int D,
 }
 
 // ------------------------------------------------------------------ GEMMs
-// C[M,N] = epilogue(A[M,K] @ W[K,N]); all row-major, W is a [in, out]
-// weight.  Ragged M, N and K are masked (zero-filled tiles).
+// C[M,N] = epilogue(A[M,K] @ W[K,N]); A and C row-major.  Ragged M, N and
+// K are masked (zero-filled tiles).
 
-// bf16: 128x128 block tile, 8 warps of 64x32 (WMMA 16x16x16, f32
-// accumulators), two shared-memory stages filled by cp.async (16-byte
-// copies; rows past M and columns past N or K zero-filled), so the next K
-// slice loads while the tensor cores work on this one.  Needs K % 8 == 0
-// and N % 8 == 0 (whole 16-byte vectors; the wrapper checks D and F).
-constexpr int kPM = 128, kPN = 128, kPK = 32;
-constexpr int kPAPitch = kPK + 8, kPBPitch = kPN + 8;
+// bf16 on Hopper: C = epilogue(A . Wt^T) with the weight K-major, Wt
+// [L, N, K] (the wrapper's copy of the [in, out] weight, transposed once
+// per params object), the product reading layer `layer`.  Persistent
+// blocks, as many as fit on the SMs, walk the output tiles (BM = 64 * NC
+// rows by BN columns, the tile index striding by the grid).  TMA copies 64-deep K slices of A
+// and Wt (128 bytes of bf16 per row, 128-byte swizzle) into a ring of ST
+// stages that runs on across tiles; one producer warp keeps it full,
+// mbarriers marking each stage full (TMA bytes landed) and empty (every
+// consumer warpgroup's wgmma done with it), so the next tile's loads are
+// in flight while the consumers run this tile's epilogue.  NC consumer
+// warpgroups each run wgmma m64nBNk16 (bf16 in, f32 accumulators in
+// registers) on 64 rows of the tile, one K slice's group in flight while
+// they wait for the next slice.  The epilogue keeps epilogue_v<bf16>'s
+// rounding: the accumulators, rounded and with the bias added in bf16, go
+// to a bf16 output tile in shared memory; a loop over its 16-byte chunks
+// then applies the activation (rounded again; GELU and SiLU from a table
+// in shared memory, act_lookup) and stores them, a warp writing 512 contiguous
+// bytes.  (Unrolled over the accumulators, an inlined activation swamped
+// the instruction cache, and a called one ran one element at a time.)
+// Needs K % 8 == 0 and N % 8 == 0 (16-byte TMA strides, whole 16-byte
+// output vectors).
+namespace gemm90 {
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned saddr = (unsigned)__cvta_generic_to_shared(smem);
-  const int bytes = valid ? 16 : 0;       // 0: zero-fill, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr),
-               "l"(gmem), "r"(bytes));
+constexpr int kBK = 64;           // K per stage: one 128-byte swizzle row
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__global__ void __launch_bounds__(256)
-gemm_bf16_pipelined_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-                           const bf16* __restrict__ bias, bf16* __restrict__ C,
-                           int M, int N, int K, int act) {
-  using namespace nvcuda;
-  __shared__ __align__(128) bf16 As[2][kPM][kPAPitch];
-  __shared__ __align__(128) bf16 Bs[2][kPK][kPBPitch];
-  __shared__ __align__(128) float Cw[8][16][16];   // per-warp epilogue tile
+// wgmma descriptor of a K-major tile in the 128-byte swizzle: rows of 128
+// bytes, 8-row groups 1024 bytes apart (the leading offset is unused)
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;        // 2 x 4 warps, 64x32 each
-  const int m0 = blockIdx.y * kPM, n0 = blockIdx.x * kPN;
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
 
-  auto load_stage = [&](int stage, int k0) {
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {             // A: 128 x 32 = 512 vectors
-      int i = tid + it * 256;
-      int r = i >> 2, c = (i & 3) * 8;
-      bool ok = (m0 + r) < M && (k0 + c) < K;
-      cp_async16(&As[stage][r][c], ok ? A + (size_t)(m0 + r) * K + k0 + c : A, ok);
-    }
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {             // B: 32 x 128 = 512 vectors
-      int i = tid + it * 256;
-      int r = i >> 4, c = (i & 15) * 8;
-      bool ok = (k0 + r) < K && (n0 + c) < N;
-      cp_async16(&Bs[stage][r][c], ok ? W + (size_t)(k0 + r) * N + n0 + c : W, ok);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
 
-  const int nk = (K + kPK - 1) / kPK;
-  load_stage(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < nk) {
-      load_stage(st ^ 1, (kt + 1) * kPK);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+// wait until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 3-d tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator accesses across the waits
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D[64 x N] += A[64 x 16] . B[N x 16]^T, both K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da, uint64_t db) {
+  if constexpr (BN == 256) wgmma_m64n256k16(d, da, db);
+  else wgmma_m64n128k16(d, da, db);
+}
+
+// the output tile's row stride in shared memory: 16 bytes of padding put
+// the eight rows a quad of lanes writes on different banks
+template <int BN>
+__host__ __device__ constexpr int c_stride() { return BN + 8; }
+
+// The epilogue's GELU or SiLU, round(act(v)) of a bf16 v, is a function
+// of 16 bits.  Each block tabulates it in shared memory with activate() for
+// |v| in [2^-14, 16) (biased exponents kLutE0 .. kLutE0 + kLutExps - 1,
+// both signs) and computes it for the rest (zeros, the smallest values,
+// |v| >= 16: rare after a layer norm), so the table gives the same bits.
+// One shared-memory read takes the place of a tanh or an exp (ReLU is
+// computed: cheaper than the table's fill).
+constexpr int kLutE0 = 113, kLutExps = 18;
+constexpr int kLutEntries = 2 * kLutExps * 128;
+
+__device__ __forceinline__ uint32_t act_bits(uint32_t h, int act) {
+  return attn_core::pack_bf16x2(activate(__uint_as_float(h << 16), act), 0.f) & 0xffffu;
+}
+
+__device__ __forceinline__ uint32_t act_lookup(const uint16_t* lut, uint32_t h, int act) {
+  const uint32_t e = ((h >> 7) & 0xffu) - kLutE0;
+  if (e < (uint32_t)kLutExps) return lut[((h >> 15) * kLutExps + e) * 128 + (h & 127u)];
+  return act_bits(h, act);
+}
+
+template <int NC, int BN, int ST>
+constexpr size_t smem_bytes() {
+  return (size_t)ST * (64 * NC + BN) * kBK * 2 + (size_t)64 * NC * c_stride<BN>() * 2 +
+         2 * ST * sizeof(uint64_t) + kLutEntries * sizeof(uint16_t) + 1024;
+}
+
+// the blocks of one shape that fit on an SM in its 228 KB of shared
+// memory (1 KB of it reserved per block): two for the 64x128 tile, so one
+// block's epilogue runs while the other's wgmma do
+template <int NC, int BN, int ST>
+constexpr int blocks_per_sm() {
+  return (int)(233472 / (smem_bytes<NC, BN, ST>() + 1024));
+}
+
+// barrier 1 among the consumer warpgroups (the producer warp never joins)
+template <int NC>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NC * 128) : "memory");
+}
+
+template <int NC, int BN, int ST>
+__global__ void __launch_bounds__(NC * 128 + 32, (blocks_per_sm<NC, BN, ST>()))
+gemm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
+                       const __grid_constant__ CUtensorMap tma_b, int layer,
+                       const bf16* __restrict__ bias, bf16* __restrict__ C, int M, int N,
+                       int K, int act) {
+  constexpr int BM = 64 * NC, CS = c_stride<BN>();
+  constexpr uint32_t kStageA = BM * kBK * 2, kStageB = BN * kBK * 2;
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzled tiles start on a 1024-byte boundary
+  const uint32_t base = smem_u32(smem_raw);
+  unsigned char* sa = smem_raw + (((base + 1023) & ~1023u) - base);
+  unsigned char* sb = sa + ST * kStageA;
+  bf16* ct = reinterpret_cast<bf16*>(sb + ST * kStageB);          // [BM][CS]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ct + BM * CS);
+  uint64_t* empty = full + ST;
+  uint16_t* lut = reinterpret_cast<uint16_t*>(empty + ST);         // [kLutEntries]
+  const int n_tiles = (N + BN - 1) / BN;
+  const int tiles = ((M + BM - 1) / BM) * n_tiles;
+  const int nk = (K + kBK - 1) / kBK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC);
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kPK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], &As[st][wm * 64 + i * 16][kk], kPAPitch);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[st][kk][wn * 32 + j * 16], kPBPitch);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // k-slice it (counted across this block's tiles) sits in stage it % ST,
+  // the (it / ST)-th use of that stage
+  if (warp == 4 * NC) {                 // producer warp: one lane issues
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tma_a))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tma_b))
+                   : "memory");
+      int it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t / n_tiles) * BM, n0 = (t % n_tiles) * BN;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % ST;
+          if (it >= ST) mbar_wait(&empty[s], ((it / ST) + 1) & 1);
+          mbar_expect_tx(&full[s], kStageA + kStageB);
+          tma_load_3d(sa + s * kStageA, &tma_a, &full[s], kt * kBK, m0, 0);
+          tma_load_3d(sb + s * kStageB, &tma_b, &full[s], kt * kBK, n0, layer);
+        }
+      }
     }
-    __syncthreads();     // this stage is refilled by the next iteration
+    return;
   }
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(&Cw[warp][0][0], acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        int idx = lane + 32 * e, r = idx >> 4, c = idx & 15;
-        int m = m0 + wm * 64 + i * 16 + r, n = n0 + wn * 32 + j * 16 + c;
-        if (m < M && n < N) C[(size_t)m * N + n] = epilogue<bf16>(Cw[warp][r][c], bias, n, act);
-      }
-      __syncwarp();
+  // the activation table, read after the first tile's consumers_sync
+  const bool use_lut = act == ACT_GELU || act == ACT_SILU;
+  if (use_lut)
+    for (int i = threadIdx.x; i < kLutEntries; i += NC * 128) {
+      const uint32_t sign = i / (kLutExps * 128), r = i % (kLutExps * 128);
+      lut[i] = (uint16_t)act_bits((sign << 15) | ((r / 128 + kLutE0) << 7) | (r % 128), act);
     }
+
+  // consumer warpgroup wg: rows m0 + 64 * wg .. + 63 of each tile
+  const int wg = warp >> 2;
+  const bool leader = (threadIdx.x & 127) == 0;
+  int it = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = (t / n_tiles) * BM, n0 = (t % n_tiles) * BN;
+    float d[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
+    fence_acc(d);
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % ST;
+      mbar_wait(&full[s], (it / ST) & 1);
+      const unsigned char* a = sa + s * kStageA + wg * 64 * 128;
+      const unsigned char* b = sb + s * kStageB;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)          // 16 of K = 32 bytes
+        wgmma_tile<BN>(d, sw128_desc(a + kk * 32), sw128_desc(b + kk * 32));
+      wgmma_commit();
+      // the previous slice's group is done: its stage goes back
+      wgmma_wait<1>();
+      fence_acc(d);
+      if (kt > 0 && leader) mbar_arrive(&empty[(it - 1) % ST]);
+    }
+    wgmma_wait<0>();
+    fence_acc(d);
+    if (leader) mbar_arrive(&empty[(it - 1) % ST]);
+
+    // epilogue, 1: round(acc) + bias in bf16 into the output tile; lane
+    // (warp wi, quad lane q) holds rows r and r + 8, columns 8j + 2q and
+    // 8j + 2q + 1 of every 8-column group j (d[4j .. 4j+3])
+    const int q = lane & 3, rl = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int nl = 8 * j + 2 * q;
+      float b0 = 0.f, b1 = 0.f;
+      if (n0 + nl < N) {
+        const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(bias + n0 + nl);
+        b0 = __low2float(bb);
+        b1 = __high2float(bb);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint32_t*>(ct + (rl + 8 * h) * CS + nl) = attn_core::pack_bf16x2(
+            epilogue_v<bf16>(d[4 * j + 2 * h], b0, ACT_NONE),
+            epilogue_v<bf16>(d[4 * j + 2 * h + 1], b1, ACT_NONE));
+    }
+    consumers_sync<NC>();
+    // 2: the activation, rounded, and 16-byte stores, a warp writing 512
+    // contiguous bytes of a row
+    for (int c = threadIdx.x; c < BM * BN / 8; c += NC * 128) {
+      const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
+      const int m = m0 + r, n = n0 + col;
+      if (m < M && n < N) {
+        uint4 u = *reinterpret_cast<const uint4*>(ct + r * CS + col);
+        if (act != ACT_NONE) {
+          uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            w[i] = use_lut ? act_lookup(lut, w[i] & 0xffffu, act) |
+                                 (act_lookup(lut, w[i] >> 16, act) << 16)
+                           : act_bits(w[i] & 0xffffu, act) | (act_bits(w[i] >> 16, act) << 16);
+        }
+        *reinterpret_cast<uint4*>(C + (size_t)m * N + n) = u;
+      }
+    }
+    consumers_sync<NC>();               // the tile is read before the next is written
+  }
 }
+
+}  // namespace gemm90
 
 // f32 compute type: plain SIMT FMA GEMM (no tensor-core path keeps full
 // f32; used by the float32 configurations, not by the bf16 serving path)
@@ -492,98 +728,60 @@ __global__ void ln_in_kernel(const float* __restrict__ src, int reorder,
   }
 }
 
-// Masked attention core, one block per (slot, head).  Keys/values are
-// [mem, rc, left context, new utterance] with `reset` zeroing the carried
-// left context; validity from the reset-effective length:
-// m_m = min(M, len // U) memory rows, m_kv = min(Lc, len) left-context
-// rows (filled from the end); the summary query row never sees memory.
+// Masked attention on the core shared with kernel D
+// (emformer_attention_core.cuh), with the stack kernel's rounding points,
+// one block per (slot, head) item.  Keys/values are
+// [mem, rc, left context, new utterance], read from the interleaved kv
+// [B, M+R+U, 2D] and from lc_k/lc_v, the left context zero where `reset`
+// is set; validity from the reset-effective length: m_m = min(M, len // U)
+// memory rows, m_kv = min(Lc, len) left-context rows (filled from the
+// end); the summary query row never sees memory.
 template <typename T>
-__global__ void attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
-                                 const T* __restrict__ lc_k, const T* __restrict__ lc_v,
-                                 const int32_t* __restrict__ length,
-                                 const uint8_t* __restrict__ reset,
-                                 T* __restrict__ out, int D, int H, int U, int R,
-                                 int M, int Lc, int use_mem, float neg_inf) {
-  extern __shared__ float sm[];
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int Dh = D / H;
-  const int Q = R + U + use_mem, K = M + R + Lc + U, NKV = M + R + U;
-  // q and k rows padded to Dh + 1 floats: the logits loop has a warp read
-  // 32 different key rows at the same d, which would otherwise all fall
-  // in one shared-memory bank
-  const int Dp = Dh + 1;
-  float* qs = sm;                 // [Q, Dp]
-  float* ks = qs + Q * Dp;        // [K, Dp]
-  float* vs = ks + K * Dp;        // [K, Dh]
-  float* ps = vs + K * Dh;        // [Q, K]
-  const bool rs = reset[b] != 0;
+struct AttnItems {
+  const T* q; const T* kv; const T* lc_k; const T* lc_v;
+  const int32_t* length; const uint8_t* reset;
+  T* out;
+  int Q, stride, H, Dh, U, R, M, Lc;      // stride = D
+
+  __device__ const T* any() const { return kv; }
+  __device__ const T* qrow(int i) const {
+    return q + (size_t)(i / H) * Q * stride + (i % H) * Dh;
+  }
+  __device__ auto rows(int i) const {
+    const int b = i / H, h = i % H, D = stride, MR = M + R, lc = Lc;
+    const T* kvb = kv + (size_t)b * (MR + U) * 2 * D + h * Dh;
+    const bool rs = reset[b] != 0;
+    const T* lkb = lc_k + (size_t)b * Lc * D + h * Dh;
+    const T* lvb = lc_v + (size_t)b * Lc * D + h * Dh;
+    return [=](int c, const T*& kr, const T*& vr) {
+      if (c < MR || c >= MR + lc) {
+        // kv row c, or MR + (c - MR - Lc) for the new utterance
+        kr = kvb + (size_t)(c < MR ? c : c - lc) * 2 * D;
+        vr = kr + D;
+      } else if (!rs) {
+        kr = lkb + (size_t)(c - MR) * D;
+        vr = lvb + (size_t)(c - MR) * D;
+      }
+    };
+  }
+  __device__ int mm(int i) const { return min(M, length[i / H] / max(U, 1)); }
+  __device__ int mkv(int i) const { return min(Lc, length[i / H]); }
+  __device__ T* outrow(int i) const {
+    return out + (size_t)(i / H) * Q * stride + (i % H) * Dh;
+  }
+};
+
+// kMma: both products on the tensor cores (bf16; attn_core::attend_mma)
+template <typename T, int KJ, bool kMma>
+__global__ void __launch_bounds__(attn_core::kThreads)
+attention_kernel(AttnItems<T> it, int use_mem, float neg_inf) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const attn_core::Layout L =
+      attn_core::make_layout<T>(it.Q, it.M + it.R + it.Lc + it.U, it.Dh, kMma);
   // q * (1/sqrt(Dh)) is taken in the compute type, as in the Pallas kernel
-  const float scaling = rnd<T>((float)(1.0 / sqrt((double)Dh)));
-
-  for (int i = threadIdx.x; i < Q * Dh; i += blockDim.x) {
-    int r = i / Dh, d = i % Dh;
-    qs[r * Dp + d] = rnd<T>(to_f<T>(q[((size_t)b * Q + r) * D + h * Dh + d]) * scaling);
-  }
-  for (int i = threadIdx.x; i < K * Dh; i += blockDim.x) {
-    int c = i / Dh, d = i % Dh;
-    float kval, vval;
-    if (c < M + R) {
-      const T* row = kv + ((size_t)b * NKV + c) * 2 * D + h * Dh + d;
-      kval = to_f<T>(row[0]);
-      vval = to_f<T>(row[D]);
-    } else if (c < M + R + Lc) {
-      size_t o = ((size_t)b * Lc + (c - M - R)) * D + h * Dh + d;
-      kval = rs ? 0.f : to_f<T>(lc_k[o]);
-      vval = rs ? 0.f : to_f<T>(lc_v[o]);
-    } else {
-      const T* row = kv + ((size_t)b * NKV + M + R + (c - M - R - Lc)) * 2 * D + h * Dh + d;
-      kval = to_f<T>(row[0]);
-      vval = to_f<T>(row[D]);
-    }
-    ks[c * Dp + d] = kval;
-    vs[i] = vval;
-  }
-  __syncthreads();
-
-  const int len = length[b];
-  const int m_kv = min(Lc, len);
-  const int m_m = min(M, len / max(U, 1));
-  for (int i = threadIdx.x; i < Q * K; i += blockDim.x) {
-    int r = i / K, c = i % K;
-    bool valid = true;
-    if (c >= M + R && c < M + R + Lc && (c - M - R) < Lc - m_kv) valid = false;
-    if (use_mem && c < M) {
-      if (c < M - m_m) valid = false;
-      if (r == Q - 1) valid = false;          // summary row is blind to memory
-    }
-    float acc = 0.f;
-    for (int d = 0; d < Dh; ++d) acc = fmaf(qs[r * Dp + d], ks[c * Dp + d], acc);
-    ps[i] = valid ? acc : neg_inf;
-  }
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  for (int r = warp; r < Q; r += nw) {
-    float mx = -3.402823466e38f;
-    for (int c = lane; c < K; c += 32) mx = fmaxf(mx, ps[r * K + c]);
-    mx = warp_max(mx);
-    float s = 0.f;
-    for (int c = lane; c < K; c += 32) {
-      float e = expf(ps[r * K + c] - mx);
-      ps[r * K + c] = e;
-      s += e;
-    }
-    s = warp_sum(s);
-    for (int c = lane; c < K; c += 32) ps[r * K + c] = rnd<T>(ps[r * K + c] / s);
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < Q * Dh; i += blockDim.x) {
-    int r = i / Dh, d = i % Dh;
-    float acc = 0.f;
-    for (int c = 0; c < K; ++c) acc = fmaf(ps[r * K + c], vs[c * Dh + d], acc);
-    out[((size_t)b * Q + r) * D + h * Dh + d] = from_f<T>(acc);
-  }
+  const float scaling = rnd<T>((float)(1.0 / sqrt((double)it.Dh)));
+  attn_core::run<T, T, KJ, true, kMma>(L, smem, it, blockIdx.x, scaling, it.M, it.R, it.Lc,
+                                       use_mem, neg_inf);
 }
 
 // State roll into NEW buffers: memory shifts in this layer's input
@@ -741,7 +939,9 @@ struct EmformerStackArgs {
   const void* mem_in;     // [L, B, M, D]
   const void* lck_in;     // [L, B, Lc, D]
   const void* lcv_in;
-  // stacked weights: [L, in, out] / [L, out] in the compute type, LN f32
+  // stacked weights in the compute type: products [L, in, out] in f32,
+  // [L, out, in] (K-major, the bf16 GEMM's operand) in bf16; biases
+  // [L, out]; LN vectors f32
   const void* wq; const void* bq; const void* wkv; const void* bkv;
   const void* wout; const void* bout;
   const float* lnin_s; const float* lnin_b;
@@ -781,45 +981,11 @@ namespace {
 
 constexpr int kErrStructSize = -1;
 constexpr int kErrShape = -2;
+constexpr int kErrDriver = -3;
+constexpr int kErrTensorMap = -4;
 constexpr size_t kDefaultSmem = 48 * 1024;
 
 enum QuantBits { kQWq = 1, kQWkv = 2, kQWout = 4, kQW1 = 8, kQW2 = 16 };
-
-template <typename T>
-int gemm(const T* A, const T* W, const T* bias, T* C, int M, int N, int K,
-         int act, cudaStream_t st);
-
-template <>
-int gemm<bf16>(const bf16* A, const bf16* W, const bf16* bias, bf16* C, int M,
-               int N, int K, int act, cudaStream_t st) {
-  if (K % 8 != 0 || N % 8 != 0) return kErrShape;
-  dim3 grid((N + kPN - 1) / kPN, (M + kPM - 1) / kPM);
-  gemm_bf16_pipelined_kernel<<<grid, 256, 0, st>>>(A, W, bias, C, M, N, K, act);
-  return (int)cudaGetLastError();
-}
-
-template <>
-int gemm<float>(const float* A, const float* W, const float* bias, float* C,
-                int M, int N, int K, int act, cudaStream_t st) {
-  dim3 grid((N + 63) / 64, (M + 63) / 64);
-  gemm_f32_kernel<<<grid, 256, 0, st>>>(A, W, bias, C, M, N, K, act);
-  return (int)cudaGetLastError();
-}
-
-// W8A8 product: quantise the rows of A [M, K] (f32 or compute type), then
-// the int8 GEMM with the dequant epilogue
-template <typename T, typename Tin>
-int qgemm(const Tin* A, int8_t* aq, float* as, const int8_t* wt, const float* ws,
-          const T* bias, T* C, int M, int N, int K, int act, cudaStream_t st) {
-  if (K % 16 != 0 || aq == nullptr || as == nullptr || wt == nullptr || ws == nullptr)
-    return kErrShape;
-  quantize_rows_kernel<Tin><<<M, 256, 0, st>>>(A, aq, as, K);
-  int e = (int)cudaGetLastError();
-  if (e != 0) return e;
-  dim3 grid((N + kQN - 1) / kQN, (M + kQM - 1) / kQM);
-  gemm_int8_kernel<T><<<grid, 256, 0, st>>>(aq, as, wt, ws, bias, C, M, N, K, act);
-  return (int)cudaGetLastError();
-}
 
 #define CHECK_LAUNCH()                          \
   do {                                          \
@@ -840,20 +1006,244 @@ int allow_smem(K kernel, size_t bytes) {
                                    (int)bytes);
 }
 
+// ------------------------------------------------------ bf16 GEMM, host
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (the
+// library links no libcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                   cudaEnableDefault, &found);
+#else
+  cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
+                                          &found);
+#endif
+  return e == cudaSuccess && found == cudaDriverEntryPointSuccess ? (EncodeTiledFn)fn
+                                                                  : nullptr;
+}
+
+// Tensor maps by (pointer, shape, box): a step uses about ten (the five
+// activation operands and the five stacked weights, whose map covers all
+// layers), so they are encoded once and then found here.
+struct MapEntry {
+  CUtensorMap map;
+  const void* ptr;
+  uint64_t inner, rows, layers;
+  uint32_t box_rows;
+};
+constexpr int kMapCache = 256;
+std::mutex g_map_mu;
+MapEntry g_maps[kMapCache];
+int g_map_count = 0, g_map_next = 0;
+
+// The map of a bf16 tensor [layers, rows, inner] (inner contiguous) read
+// in boxes of 64 x box_rows x 1, 128-byte swizzled, zero past the edges.
+int tensor_map(CUtensorMap* out, const void* ptr, uint64_t inner, uint64_t rows,
+               uint64_t layers, uint32_t box_rows) {
+  std::lock_guard<std::mutex> lock(g_map_mu);
+  for (int i = 0; i < g_map_count; ++i) {
+    const MapEntry& m = g_maps[i];
+    if (m.ptr == ptr && m.inner == inner && m.rows == rows && m.layers == layers &&
+        m.box_rows == box_rows) {
+      *out = m.map;
+      return 0;
+    }
+  }
+  static EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return kErrDriver;
+  const cuuint64_t dims[3] = {inner, rows, layers};
+  const cuuint64_t strides[2] = {inner * 2, inner * rows * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)gemm90::kBK, box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  MapEntry e;
+  if (encode(&e.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
+      CUDA_SUCCESS)
+    return kErrTensorMap;
+  e.ptr = ptr;
+  e.inner = inner;
+  e.rows = rows;
+  e.layers = layers;
+  e.box_rows = box_rows;
+  const int slot = g_map_count < kMapCache ? g_map_count++ : (g_map_next++ % kMapCache);
+  g_maps[slot] = e;
+  *out = e.map;
+  return 0;
+}
+
+// The tile shapes: consumer warpgroups NC (the tile is BM = 64 NC rows),
+// BN columns, and as many stages as fit beside the output tile in shared
+// memory, for one block per SM (the 128-row tiles, and 64x256) or two
+// (64x128).
+constexpr int kGemmCfgs = 4;
+constexpr int kCfgBM[kGemmCfgs] = {128, 128, 64, 64};
+constexpr int kCfgBN[kGemmCfgs] = {256, 128, 256, 128};
+
+struct GemmSetup {
+  int status = 0, sms = 0;
+  int blocks[kGemmCfgs] = {};     // resident blocks per SM of each shape
+};
+
+template <int NC, int BN, int ST>
+int gemm_setup_one(int* blocks) {
+  auto kernel = gemm90::gemm_bf16_wgmma_kernel<NC, BN, ST>;
+  const int smem = (int)gemm90::smem_bytes<NC, BN, ST>();
+  int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == 0)
+    e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, NC * 128 + 32, smem);
+  return e == 0 && *blocks < 1 ? kErrShape : e;
+}
+
+// the kernels' shared-memory limits, their blocks per SM and the SM
+// count, once per process
+const GemmSetup& gemm_setup() {
+  static GemmSetup s;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    int dev = 0;
+    s.status = (int)cudaGetDevice(&dev);
+    if (s.status == 0)
+      s.status = (int)cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (s.status == 0) s.status = gemm_setup_one<2, 256, 3>(&s.blocks[0]);
+    if (s.status == 0) s.status = gemm_setup_one<2, 128, 5>(&s.blocks[1]);
+    if (s.status == 0) s.status = gemm_setup_one<1, 256, 4>(&s.blocks[2]);
+    if (s.status == 0) s.status = gemm_setup_one<1, 128, 3>(&s.blocks[3]);
+  });
+  return s;
+}
+
+long gemm_tiles(int i, int M, int N) {
+  return (long)((M + kCfgBM[i] - 1) / kCfgBM[i]) * ((N + kCfgBN[i] - 1) / kCfgBN[i]);
+}
+
+// The tile of an [M, N] product with K-deep sums.  A product with fewer
+// 128x128 tiles than SMs cannot fill the card with 128-row tiles: it
+// takes 64-row ones, 64x256 for long sums (K >= 1024, bound by the bytes
+// each SM loads, where the wider tile loads fewer per operation), else
+// 64x128 (two blocks an SM, where the fixed cost of a tile, its first
+// loads and its epilogue, counts most).  Any other takes the 128-row tile
+// with the shortest makespan: rounds of tiles over the SMs times the
+// tile's area, the larger tile on a tie (fewer bytes per operation).
+int gemm_config(const GemmSetup& s, int M, int N, int K) {
+  if (gemm_tiles(1, M, N) < s.sms) return K >= 1024 ? 2 : 3;
+  int best = 0;
+  long best_cost = -1;
+  for (int i = 0; i < 2; ++i) {
+    const long rounds = (gemm_tiles(i, M, N) + s.sms - 1) / s.sms;
+    const long cost = rounds * kCfgBM[i] * kCfgBN[i];
+    if (best_cost < 0 || cost < best_cost) {
+      best = i;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+template <int NC, int BN, int ST>
+int launch_gemm(const GemmSetup& s, int cfg, const bf16* A, const bf16* Wt, int L, int layer,
+                const bf16* bias, bf16* C, int M, int N, int K, int act, cudaStream_t st) {
+  CUtensorMap ta, tb;
+  CHECK_RC(tensor_map(&ta, A, K, M, 1, 64 * NC));
+  CHECK_RC(tensor_map(&tb, Wt, K, N, L, BN));
+  const long tiles = gemm_tiles(cfg, M, N), slots = (long)s.sms * s.blocks[cfg];
+  const int grid = (int)(tiles < slots ? tiles : slots);
+  gemm90::gemm_bf16_wgmma_kernel<NC, BN, ST>
+      <<<grid, NC * 128 + 32, gemm90::smem_bytes<NC, BN, ST>(), st>>>(ta, tb, layer, bias, C,
+                                                                      M, N, K, act);
+  return (int)cudaGetLastError();
+}
+
+// the bf16 product on tile configuration cfg (-1: gemm_config's choice)
+int gemm_bf16_cfg(int cfg, const bf16* A, const bf16* Wt, int L, int layer, const bf16* bias,
+                  bf16* C, int M, int N, int K, int act, cudaStream_t st) {
+  if (K % 8 != 0 || N % 8 != 0 || M <= 0 || N <= 0 || K <= 0 || cfg < -1 || cfg >= kGemmCfgs)
+    return kErrShape;
+  const GemmSetup& s = gemm_setup();
+  CHECK_RC(s.status);
+  if (cfg < 0) cfg = gemm_config(s, M, N, K);
+  switch (cfg) {
+    case 0: return launch_gemm<2, 256, 3>(s, cfg, A, Wt, L, layer, bias, C, M, N, K, act, st);
+    case 1: return launch_gemm<2, 128, 5>(s, cfg, A, Wt, L, layer, bias, C, M, N, K, act, st);
+    case 2: return launch_gemm<1, 256, 4>(s, cfg, A, Wt, L, layer, bias, C, M, N, K, act, st);
+    default: return launch_gemm<1, 128, 3>(s, cfg, A, Wt, L, layer, bias, C, M, N, K, act, st);
+  }
+}
+
+// C = epilogue(A . W) with W given as Wt [L, N, K] in bf16 (layer `layer`)
+// or as W [L, K, N] in f32
+template <typename T>
+int gemm(const T* A, const T* W, int L, int layer, const T* bias, T* C, int M, int N, int K,
+         int act, cudaStream_t st);
+
+template <>
+int gemm<bf16>(const bf16* A, const bf16* Wt, int L, int layer, const bf16* bias, bf16* C,
+               int M, int N, int K, int act, cudaStream_t st) {
+  return gemm_bf16_cfg(-1, A, Wt, L, layer, bias, C, M, N, K, act, st);
+}
+
+template <>
+int gemm<float>(const float* A, const float* W, int L, int layer, const float* bias,
+                float* C, int M, int N, int K, int act, cudaStream_t st) {
+  (void)L;
+  dim3 grid((N + 63) / 64, (M + 63) / 64);
+  gemm_f32_kernel<<<grid, 256, 0, st>>>(A, W + (size_t)layer * K * N, bias, C, M, N, K, act);
+  return (int)cudaGetLastError();
+}
+
+// W8A8 product: quantise the rows of A [M, K] (f32 or compute type), then
+// the int8 GEMM with the dequant epilogue
+template <typename T, typename Tin>
+int qgemm(const Tin* A, int8_t* aq, float* as, const int8_t* wt, const float* ws,
+          const T* bias, T* C, int M, int N, int K, int act, cudaStream_t st) {
+  if (K % 16 != 0 || aq == nullptr || as == nullptr || wt == nullptr || ws == nullptr)
+    return kErrShape;
+  quantize_rows_kernel<Tin><<<M, 256, 0, st>>>(A, aq, as, K);
+  int e = (int)cudaGetLastError();
+  if (e != 0) return e;
+  dim3 grid((N + kQN - 1) / kQN, (M + kQM - 1) / kQM);
+  gemm_int8_kernel<T><<<grid, 256, 0, st>>>(aq, as, wt, ws, bias, C, M, N, K, act);
+  return (int)cudaGetLastError();
+}
+
 size_t ln_smem_bytes(const EmformerStackArgs& a) {
   return (size_t)(a.R + a.U) * a.D * sizeof(float);
 }
 
-size_t attn_smem_bytes(const EmformerStackArgs& a) {
-  const int Q = a.R + a.U + a.use_mem, Kk = a.M + a.R + a.Lc + a.U, Dh = a.D / a.H;
-  return ((size_t)(Q + Kk) * (Dh + 1) + (size_t)Kk * Dh + (size_t)Q * Kk) * sizeof(float);
+template <typename T, int KJ, bool kMma>
+int launch_attention(const EmformerStackArgs& a, const T* q, const T* kv, const T* lck,
+                     const T* lcv, T* attn, cudaStream_t st) {
+  const int Q = a.R + a.U + a.use_mem, K = a.M + a.R + a.Lc + a.U;
+  const int smem = attn_core::make_layout<T>(Q, K, a.D / a.H, kMma).bytes;
+  auto kernel = attention_kernel<T, KJ, kMma>;
+  CHECK_RC(allow_smem(kernel, smem));
+  const AttnItems<T> it{q, kv, lck, lcv, a.length, a.reset, attn, Q, a.D, a.H, a.D / a.H,
+                        a.U, a.R, a.M, a.Lc};
+  kernel<<<a.B * a.H, attn_core::kThreads, smem, st>>>(it, a.use_mem, a.neg_inf);
+  return (int)cudaGetLastError();
 }
 
+// bf16 runs the tensor-core products (check_args holds the head width to
+// them), f32 the FMA ones
 template <typename T>
-int prepare(const EmformerStackArgs& a) {
-  CHECK_RC(allow_smem(ln_in_kernel<T>, ln_smem_bytes(a)));
-  CHECK_RC(allow_smem(attention_kernel<T>, attn_smem_bytes(a)));
-  return 0;
+int attention(const EmformerStackArgs& a, const T* q, const T* kv, const T* lck,
+              const T* lcv, T* attn, cudaStream_t st) {
+  constexpr bool kMma = std::is_same<T, bf16>::value;
+  switch (attn_core::key_chunks(a.M + a.R + a.Lc + a.U)) {
+    case 1: return launch_attention<T, 1, kMma>(a, q, kv, lck, lcv, attn, st);
+    case 2: return launch_attention<T, 2, kMma>(a, q, kv, lck, lcv, attn, st);
+    case 3: return launch_attention<T, 3, kMma>(a, q, kv, lck, lcv, attn, st);
+    case 4: return launch_attention<T, 4, kMma>(a, q, kv, lck, lcv, attn, st);
+  }
+  return kErrShape;
 }
 
 // One layer of the step: the chain of ten kernels (more in W8A8 mode).
@@ -865,7 +1255,7 @@ template <typename T>
 int run_layer(const EmformerStackArgs& a, int l, const float* src, int reorder,
               int init_memrow, float* y) {
   cudaStream_t st = (cudaStream_t)a.stream;
-  const int B = a.B, D = a.D, F = a.F, U = a.U, R = a.R, M = a.M, Lc = a.Lc, H = a.H;
+  const int B = a.B, D = a.D, F = a.F, U = a.U, R = a.R, M = a.M, Lc = a.Lc;
   const int Tr = R + U, Q = Tr + a.use_mem, NKV = M + Tr;
   const T* wq = (const T*)a.wq; const T* bq = (const T*)a.bq;
   const T* wkv = (const T*)a.wkv; const T* bkv = (const T*)a.bkv;
@@ -893,28 +1283,25 @@ int run_layer(const EmformerStackArgs& a, int l, const float* src, int reorder,
     CHECK_RC((qgemm<T, float>(a.q_in32, a.aq, a.a_scale, a.wq8 + wDD, a.wq_s + (size_t)l * D,
                              bq + (size_t)l * D, q, B * Q, D, D, ACT_NONE, st)));
   else
-    CHECK_RC(gemm<T>(q_in, wq + wDD, bq + (size_t)l * D, q, B * Q, D, D, ACT_NONE, st));
+    CHECK_RC(gemm<T>(q_in, wq, a.L, l, bq + (size_t)l * D, q, B * Q, D, D, ACT_NONE, st));
   if (qz & kQWkv)
     CHECK_RC((qgemm<T, T>(kv_in, a.aq, a.a_scale, a.wkv8 + 2 * wDD, a.wkv_s + (size_t)l * 2 * D,
                          bkv + (size_t)l * 2 * D, kv, B * NKV, 2 * D, D, ACT_NONE, st)));
   else
-    CHECK_RC(gemm<T>(kv_in, wkv + 2 * wDD, bkv + (size_t)l * 2 * D, kv, B * NKV, 2 * D,
-                     D, ACT_NONE, st));
+    CHECK_RC(gemm<T>(kv_in, wkv, a.L, l, bkv + (size_t)l * 2 * D, kv, B * NKV, 2 * D, D,
+                     ACT_NONE, st));
   // the roll reads this layer's input memory row before residual_ffn_ln
   // overwrites it with the next layer's
   state_roll_kernel<T><<<dim3(B, M + 2 * Lc), 128, 0, st>>>(
       mem_in, lck_in, lcv_in, kv, a.memrow, a.reset, a.advance,
       (T*)a.mem_out + sMem, (T*)a.lck_out + sLc, (T*)a.lcv_out + sLc, D, U, R, M, Lc);
   CHECK_LAUNCH();
-  attention_kernel<T><<<dim3(B, H), 128, attn_smem_bytes(a), st>>>(
-      q, kv, lck_in, lcv_in, a.length, a.reset, attn, D, H, U, R, M, Lc, a.use_mem,
-      a.neg_inf);
-  CHECK_LAUNCH();
+  CHECK_RC(attention<T>(a, q, kv, lck_in, lcv_in, attn, st));
   if (qz & kQWout)
     CHECK_RC((qgemm<T, T>(attn, a.aq, a.a_scale, a.wout8 + wDD, a.wout_s + (size_t)l * D,
                          bout + (size_t)l * D, out, B * Q, D, D, ACT_NONE, st)));
   else
-    CHECK_RC(gemm<T>(attn, wout + wDD, bout + (size_t)l * D, out, B * Q, D, D, ACT_NONE,
+    CHECK_RC(gemm<T>(attn, wout, a.L, l, bout + (size_t)l * D, out, B * Q, D, D, ACT_NONE,
                      st));
   residual_ffn_ln_kernel<T><<<(B * Q + rows_per_block - 1) / rows_per_block,
                               32 * rows_per_block, 0, st>>>(
@@ -925,13 +1312,13 @@ int run_layer(const EmformerStackArgs& a, int l, const float* src, int reorder,
     CHECK_RC((qgemm<T, float>(a.ff_in32, a.aq, a.a_scale, a.w18 + wDF, a.w1_s + (size_t)l * F,
                              b1 + (size_t)l * F, h1, B * Tr, F, D, a.activation, st)));
   else
-    CHECK_RC(gemm<T>(ff_in, w1 + wDF, b1 + (size_t)l * F, h1, B * Tr, F, D, a.activation,
+    CHECK_RC(gemm<T>(ff_in, w1, a.L, l, b1 + (size_t)l * F, h1, B * Tr, F, D, a.activation,
                      st));
   if (qz & kQW2)
     CHECK_RC((qgemm<T, T>(h1, a.aq, a.a_scale, a.w28 + wDF, a.w2_s + (size_t)l * D,
                          b2 + (size_t)l * D, h2, B * Tr, D, F, ACT_NONE, st)));
   else
-    CHECK_RC(gemm<T>(h1, w2 + wDF, b2 + (size_t)l * D, h2, B * Tr, D, F, ACT_NONE, st));
+    CHECK_RC(gemm<T>(h1, w2, a.L, l, b2 + (size_t)l * D, h2, B * Tr, D, F, ACT_NONE, st));
   out_ln_kernel<T><<<(B * Tr + rows_per_block - 1) / rows_per_block,
                      32 * rows_per_block, 0, st>>>(
       a.hres, h2, a.lnout_s + (size_t)l * D, a.lnout_b + (size_t)l * D, a.hin, y, B, D,
@@ -943,7 +1330,7 @@ int run_layer(const EmformerStackArgs& a, int l, const float* src, int reorder,
 // all layers: layer 0 reads the chunk x, the others hin; the last writes y
 template <typename T>
 int run_stack(const EmformerStackArgs& a) {
-  CHECK_RC(prepare<T>(a));
+  CHECK_RC(allow_smem(ln_in_kernel<T>, ln_smem_bytes(a)));
   for (int l = 0; l < a.L; ++l)
     CHECK_RC(run_layer<T>(a, l, l == 0 ? a.x : a.hin, l == 0, l == 0,
                           l == a.L - 1 ? a.y : nullptr));
@@ -952,7 +1339,7 @@ int run_stack(const EmformerStackArgs& a) {
 
 template <typename T>
 int run_one_layer(const EmformerStackArgs& a) {
-  CHECK_RC(prepare<T>(a));
+  CHECK_RC(allow_smem(ln_in_kernel<T>, ln_smem_bytes(a)));
   return run_layer<T>(a, 0, a.x, 1, a.init_memrow, a.y);
 }
 
@@ -963,6 +1350,10 @@ int check_args(const EmformerStackArgs* a) {
       a->L <= 0 || a->U <= 0 || (a->use_mem && a->M <= 0) || a->y == nullptr ||
       (a->quant != 0 && (a->D % 16 != 0 || a->F % 16 != 0)) ||
       (a->dtype != 0 && a->dtype != 1))
+    return kErrShape;
+  const int Q = a->R + a->U + a->use_mem, K = a->M + a->R + a->Lc + a->U, Dh = a->D / a->H;
+  if (!(a->dtype == 1 ? attn_core::supports<bf16>(Q, K, Dh) && attn_core::supports_mma(Q, K, Dh)
+                      : attn_core::supports<float>(Q, K, Dh)))
     return kErrShape;
   return 0;
 }
@@ -1003,8 +1394,27 @@ extern "C" int asr_w8a8_linear(int dtype, int x_is_f32, const void* x, int8_t* a
   return kErrShape;
 }
 
+// The bf16 product alone, y [M, N] = epilogue(x [M, K] . wt [N, K]^T)
+// with bias [N] and the activation, as run_layer runs each product, for
+// tests and timing; cfg is the tile configuration (0..3: 128x256,
+// 128x128, 64x256, 64x128), -1 the one run_layer picks for the shape.
+extern "C" int asr_gemm_bf16(const void* x, const void* wt, const void* bias, void* y,
+                             int M, int N, int K, int act, int cfg, void* stream) {
+  return gemm_bf16_cfg(cfg, (const bf16*)x, (const bf16*)wt, 1, 0, (const bf16*)bias,
+                       (bf16*)y, M, N, K, act, (cudaStream_t)stream);
+}
+
+// The tile configuration run_layer picks for an [M, N] product with
+// K-deep sums (a negative error code if the kernels cannot be set up).
+extern "C" int asr_gemm_bf16_config(int M, int N, int K) {
+  const GemmSetup& s = gemm_setup();
+  return s.status > 0 ? -s.status : s.status < 0 ? s.status : gemm_config(s, M, N, K);
+}
+
 extern "C" const char* asr_cuda_error_string(int code) {
   if (code == kErrStructSize) return "argument struct size mismatch";
   if (code == kErrShape) return "unsupported shape or dtype";
+  if (code == kErrDriver) return "cuTensorMapEncodeTiled not found in the driver";
+  if (code == kErrTensorMap) return "cuTensorMapEncodeTiled rejected the tensor map";
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -48,7 +48,7 @@ from asr_streaming_tpu_torch import resolve_device
 from asr_streaming_tpu_torch.ops.emformer_attention import emformer_attention
 from asr_streaming_tpu_torch.ops.emformer_layer import emformer_layer
 from asr_streaming_tpu_torch.ops.emformer_stack import (
-    _kernel_quant_names, emformer_stack, quantized_weights,
+    _kernel_quant_names, emformer_stack, kernel_weights, quantized_weights,
 )
 
 ROUTES = ("stack", "layer", "eager")
@@ -219,6 +219,9 @@ def _layer_route(params, cfg, x, state, length, reset, advance, kw):
     utt, rc = x[:, :U].to(torch.float32), x[:, U:U + R].to(torch.float32)
     quant = cfg.quant == "int8"           # "int8_ffn" quantises nothing here
     qall = quantized_weights(params, _kernel_quant_names(quant))
+    # the kernel's weight copies of the stacked params (cached with them)
+    kall = (kernel_weights(params, cfg.compute_dtype, skip=tuple(qall))
+            if x.device.type == "cuda" else None)
     mem_row = None
     mems, lcks, lcvs = [], [], []
     for l in range(cfg.num_layers):
@@ -228,6 +231,8 @@ def _layer_route(params, cfg, x, state, length, reset, advance, kw):
             length, reset, advance, quant=quant,
             qweights={n: tuple(None if t is None else t[l] for t in q)
                       for n, q in qall.items()},
+            kweights=None if kall is None else {n: t[l]
+                                                for n, t in kall.items()},
             mem_row_from_utt=l == 0 and cfg.use_mem, **kw)
         mems.append(nm)
         lcks.append(nk)
@@ -298,10 +303,12 @@ def _layer_step(cfg: EmformerConfig, p: dict, utt, rc, mem_row, mem_state,
         valid_mem = torch.ones((B, 0), dtype=torch.bool, device=utt.device)
 
     if cfg.fused_attention:
+        # the core widens cdt to f32 exactly and rounds its f32 result to
+        # cdt once: the XLA route's q.astype(f32) -> kernel -> astype(cdt)
         attn = emformer_attention(
-            q.float(), full_k.float(), full_v.float(), m_m, m_kv,
+            q, full_k, full_v, m_m, m_kv,
             num_heads=H, M=M, R=R, Lc=Lc, U=U, use_mem=cfg.use_mem,
-            neg_inf=cfg.negative_inf).to(cdt)
+            neg_inf=cfg.negative_inf, out_dtype=cdt)
         out = _dot(attn, p["w_out"], cdt) + p["b_out"].to(cdt)
         return _finish_layer_step(cfg, p, out, utt, rc, mem_row, mem_state,
                                   lc_k, lc_v, next_k, next_v)

@@ -129,8 +129,12 @@ def lib() -> ctypes.CDLL:
             + [ptr]
         handle.asr_w8a8_linear.restype = i32
         handle.asr_emformer_attention.argtypes = [ptr] * 6 + [i32] * 9 + [
-            ctypes.c_float, ptr]
+            ctypes.c_float, i32, i32, ptr]
         handle.asr_emformer_attention.restype = i32
+        handle.asr_gemm_bf16.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
+        handle.asr_gemm_bf16.restype = i32
+        handle.asr_gemm_bf16_config.argtypes = [i32] * 3
+        handle.asr_gemm_bf16_config.restype = i32
         handle.asr_emission_append.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,

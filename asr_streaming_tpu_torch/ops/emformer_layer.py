@@ -60,13 +60,14 @@ def emformer_layer_plain(p, utt, rc, mem_row, mem_state, lc_k, lc_v, length,
 
 
 def _emformer_layer_cuda(p, utt, rc, mem_row, mem_state, lc_k, lc_v, length,
-                         reset, advance, *, quant, qweights, mem_row_from_utt,
-                         **kw):
+                         reset, advance, *, quant, qweights, kweights,
+                         mem_row_from_utt, **kw):
     global LAUNCHES
     B, U, D = utt.shape
     qw = _layer_weights(p, quant, qweights)
-    w = es._kernel_weights({k: v[None] for k, v in p.items()}, kw["cdt"],
-                           skip=tuple(qw))
+    if kweights is None:
+        kweights = es.kernel_weights(p, kw["cdt"], skip=tuple(qw))
+    w = {k: v[None] for k, v in kweights.items()}
     qw = {n: (t[0][None], t[1][None], t[2][None]) for n, t in qw.items()}
     if mem_row_from_utt or not kw["use_mem"]:
         memrow = torch.empty((B, D), dtype=torch.float32, device=utt.device)
@@ -92,11 +93,15 @@ def emformer_layer(p: dict, utt: torch.Tensor, rc: torch.Tensor,
                    tanh_on_mem: bool, neg_inf: float, activation: str,
                    cdt: torch.dtype, quant: bool = False,
                    qweights: Optional[dict] = None,
+                   kweights: Optional[dict] = None,
                    mem_row_from_utt: bool = False):
     """One Emformer layer step (see module doc).  CUDA tensor -> kernel,
     CPU tensor -> plain version.  ``qweights``: this layer's
     {name: (w8, scale, w8t)} from ``emformer_stack.quantized_weights`` of
-    the stacked params (else quantised here from ``p``)."""
+    the stacked params (else quantised here from ``p``); ``kweights``:
+    this layer's slice of ``emformer_stack.kernel_weights`` of the stacked
+    params (else made here from ``p``, cached per tensor of ``p``); the
+    plain version reads neither."""
     B = utt.shape[0]
     if reset is None:
         reset = torch.zeros(B, dtype=torch.bool, device=utt.device)
@@ -114,6 +119,7 @@ def emformer_layer(p: dict, utt: torch.Tensor, rc: torch.Tensor,
         return _emformer_layer_cuda(p, utt, rc, mem_row, mem_state, lc_k,
                                     lc_v, length, reset, advance,
                                     quant=quant, qweights=qweights,
+                                    kweights=kweights,
                                     mem_row_from_utt=mem_row_from_utt, **kw)
     if utt.device.type == "cpu":
         return emformer_layer_plain(p, utt, rc, mem_row, mem_state, lc_k,

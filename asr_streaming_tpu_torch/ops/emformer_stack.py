@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from asr_streaming_tpu_torch.ops import _cuda
+from asr_streaming_tpu_torch.ops.emformer_attention import check_geometry
 
 # launches of the CUDA kernel (one per call that reaches the card), in
 # bf16/f32 mode and in W8A8 mode
@@ -92,32 +93,37 @@ def _qdot(x2d: torch.Tensor, w8: torch.Tensor, wscale: torch.Tensor
     return _int_product(xq, w8) * s * wscale
 
 
-# quantised weights per f32 weight tensor, by id: {id: (weakref to the
-# tensor, its version, w8, scale, w8 transposed [..., N, K] or None)};
-# an entry goes with its tensor
-_QCACHE: dict = {}
+# values derived from weight tensors, by (id of the tensor, tag):
+# {key: (weakref to the tensor, its version, value)}; an entry goes with
+# its tensor
+_CACHE: dict = {}
+
+
+def _cached(t: torch.Tensor, tag, make):
+    """``make(t)``, cached per tensor and tag: made once per params object,
+    dropped with the tensor, and made again if it is changed in place."""
+    key = (id(t), tag)
+    hit = _CACHE.get(key)
+    if hit is None or hit[0]() is not t or hit[1] != t._version:
+        ref = weakref.ref(t, lambda _, key=key: _CACHE.pop(key, None))
+        hit = (ref, t._version, make(t))
+        _CACHE[key] = hit
+    return hit[2]
+
+
+def _quantized(w: torch.Tensor):
+    w8, scale = _quantize_weight(w, axis=-2)
+    w8t = w8.transpose(-1, -2).contiguous() if w.device.type == "cuda" else None
+    return w8, scale, w8t
 
 
 def quantized_weights(params: dict, names) -> dict:
     """{name: (w8 [..., K, N] int8, scale [..., 1, N] f32, w8t)} for the
     named f32 weights of ``params`` (stacked or one layer's).  Quantisation
-    is deterministic, so the result is cached per weight tensor (dropped
-    with it, and redone if the tensor is changed in place); ``w8t`` is the
-    contiguous [..., N, K] copy the CUDA kernel reads (None on the CPU)."""
-    out = {}
-    for name in names:
-        w = params[name]
-        hit = _QCACHE.get(id(w))
-        if hit is None or hit[0]() is not w or hit[1] != w._version:
-            w8, scale = _quantize_weight(w, axis=-2)
-            w8t = (w8.transpose(-1, -2).contiguous()
-                   if w.device.type == "cuda" else None)
-            key = id(w)
-            ref = weakref.ref(w, lambda _, key=key: _QCACHE.pop(key, None))
-            hit = (ref, w._version, w8, scale, w8t)
-            _QCACHE[key] = hit
-        out[name] = hit[2:]
-    return out
+    is deterministic, so the result is cached per weight tensor
+    (``_cached``); ``w8t`` is the contiguous [..., N, K] copy the CUDA
+    kernel reads (None on the CPU)."""
+    return {name: _cached(params[name], "int8", _quantized) for name in names}
 
 
 # ----------------------------------------------------------- plain version
@@ -311,14 +317,32 @@ _WFIELDS = {"w_q": "wq", "b_q": "bq", "w_kv": "wkv", "b_kv": "bkv",
             "ln_out_bias": "lnout_b"}
 
 
-def _kernel_weights(params: dict, cdt: torch.dtype, skip=()) -> dict:
+def _kernel_tensor(t: torch.Tensor, dtype: torch.dtype,
+                   transpose: bool = False) -> torch.Tensor:
+    """``t`` in ``dtype``, contiguous, its last two axes swapped with
+    ``transpose``.  A copy is cached per source tensor (``_cached``), so a
+    weight is cast and transposed once per params object, not per step; a
+    tensor that needs no copy is returned as it is."""
+    if t.dtype == dtype and not transpose and t.is_contiguous():
+        return t
+
+    def make(t):
+        out = t.to(dtype)
+        return (out.transpose(-1, -2) if transpose else out).contiguous()
+    return _cached(t, (dtype, transpose), make)
+
+
+def kernel_weights(params: dict, cdt: torch.dtype, skip=()) -> dict:
     """Weights as the kernel reads them: products and biases in the
-    compute type, LN vectors in f32, contiguous (a no-op when the params
-    already are; f32 -> bf16 costs ~0.1 ms per step at VI width).  The
-    products in ``skip`` run W8A8 and are not cast."""
-    w = {n: params[n].to(cdt).contiguous() for n in _MAT + _BIAS
+    compute type, the bf16 products transposed to ``[..., out, in]`` (the
+    K-major operand of the wgmma GEMM), LN vectors in f32, contiguous;
+    cached per source tensor (``_kernel_tensor``).  The products in
+    ``skip`` run W8A8 and are left out."""
+    tr = cdt == torch.bfloat16
+    w = {n: _kernel_tensor(params[n], cdt, tr) for n in _MAT
          if n not in skip}
-    w.update({n: params[n].float().contiguous() for n in _LN})
+    w.update({n: _kernel_tensor(params[n], cdt) for n in _BIAS})
+    w.update({n: _kernel_tensor(params[n], torch.float32) for n in _LN})
     return w
 
 
@@ -332,7 +356,7 @@ def run_chain(entry: str, w: dict, qw: dict, x, length, reset, advance, mem,
     """Launch the layer chain of csrc/emformer_stack.cu through ``entry``
     (``asr_emformer_stack`` or ``asr_emformer_layer``), on the card.
 
-    w: kernel weights (``_kernel_weights``, stacked ``[L, ...]``); qw:
+    w: kernel weights (``kernel_weights``, stacked ``[L, ...]``); qw:
     {name: (w8, scale, w8t)} of the W8A8 products; x [B, U+R, D]
     (utterance then right context); mem/lc_k/lc_v [L, B, rows, D] in the
     compute type; memrow [B, D] f32, read and written (the memory row).
@@ -365,6 +389,8 @@ def run_chain(entry: str, w: dict, qw: dict, x, length, reset, advance, mem,
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
     if use_mem and M == 0:
         raise ValueError("use_mem requires M > 0")
+    check_geometry(R + U + int(use_mem), M + R + Lc + U, D // H, cdt,
+                   mma=cdt == torch.bfloat16, what="emformer kernel")
 
     x = x.to(torch.float32).contiguous()
     mem, lc_k, lc_v = mem.contiguous(), lc_k.contiguous(), lc_v.contiguous()
@@ -459,11 +485,86 @@ def w8a8_linear(x2d: torch.Tensor, q: tuple, bias: torch.Tensor,
     return y
 
 
+def gemm_bf16_plain(x2d: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                    activation: Optional[str] = None) -> torch.Tensor:
+    """The plain version of one bf16 product of the chain, the kernel's
+    epilogue (``epilogue<bf16>``): x2d [M, K] . w [K, N] in f32 rounded
+    to bf16 once, the bias added in bf16, then the activation, rounded."""
+    y = _mm(x2d, w, torch.bfloat16) + bias.to(torch.bfloat16)
+    return _act(activation)(y) if activation else y
+
+
+def gemm_bf16_error_bound(x2d: torch.Tensor, w: torch.Tensor,
+                          want: torch.Tensor,
+                          activation: Optional[str] = None) -> torch.Tensor:
+    """Elementwise bound on |kernel - plain| for one bf16 product, where
+    only the f32 sum order differs.  The two f32 sums differ by at most
+    2 K u sum|x w| (u = 2^-24), so the products rounded to bf16 land at
+    most one ulp (of the larger of the product and the output) apart;
+    adding the bf16 bias can make that a tie that rounds to even the other
+    way: two ulps.  An activation carries it through its slope (at most
+    1.13 for GELU, 1.1 for SiLU) and rounds again: twice that."""
+    xf, wf = x2d.float(), w.float()
+    acc = torch.matmul(xf, wf)
+    slack = 2.0 * x2d.shape[1] * 2.0 ** -24 * torch.matmul(xf.abs(), wf.abs())
+    mag = torch.maximum(acc.abs(), want.float().abs()).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return (2 * ulp + slack) * (2 if activation else 1)
+
+
+# the wgmma GEMM's tile configurations (rows x columns), by index
+GEMM_TILES = ((128, 256), (128, 128), (64, 256), (64, 128))
+
+
+def gemm_bf16_config(M: int, N: int, K: int) -> int:
+    """The index in ``GEMM_TILES`` of the tile ``run_layer``'s GEMM takes
+    for an [M, N] product with K-deep sums on this card (``gemm_config``
+    in csrc/emformer_stack.cu)."""
+    rc = _cuda.lib().asr_gemm_bf16_config(M, N, K)
+    _cuda.check(min(rc, 0), "gemm_bf16_config")
+    return rc
+
+
+def gemm_bf16(x2d: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+              activation: Optional[str] = None,
+              config: Optional[int] = None) -> torch.Tensor:
+    """One bf16 product of the chain as ``run_layer`` runs it, for tests
+    and timing: x2d [M, K], w [K, N] (``[in, out]``; the kernel reads its
+    transposed copy, made once per weight tensor), bias [N] -> [M, N]
+    bf16.  CUDA tensor -> the wgmma GEMM of csrc/emformer_stack.cu on the
+    tile ``run_layer`` picks, or on ``GEMM_TILES[config]``; CPU tensor ->
+    ``gemm_bf16_plain``."""
+    if x2d.device.type == "cpu":
+        return gemm_bf16_plain(x2d, w, bias, activation)
+    if x2d.device.type != "cuda":
+        raise ValueError(f"gemm_bf16: unsupported device {x2d.device}")
+    M, K = x2d.shape
+    N = w.shape[-1]
+    if K % 8 or N % 8 or tuple(w.shape) != (K, N) or \
+            tuple(bias.shape) != (N,):
+        raise ValueError(f"gemm_bf16: x {tuple(x2d.shape)}, w "
+                         f"{tuple(w.shape)}, bias {tuple(bias.shape)} (K and "
+                         f"N must be multiples of 8)")
+    if config is not None and config not in range(len(GEMM_TILES)):
+        raise ValueError(f"gemm_bf16: config {config} not in "
+                         f"0..{len(GEMM_TILES) - 1}")
+    x2d = x2d.to(torch.bfloat16).contiguous()
+    wt = _kernel_tensor(w, torch.bfloat16, transpose=True)
+    bias = bias.to(torch.bfloat16).contiguous()
+    y = torch.empty((M, N), dtype=torch.bfloat16, device=x2d.device)
+    _cuda.check(_cuda.lib().asr_gemm_bf16(
+        x2d.data_ptr(), wt.data_ptr(), bias.data_ptr(), y.data_ptr(), M, N, K,
+        _ACTS[activation] if activation else 0,
+        -1 if config is None else config,
+        torch.cuda.current_stream(x2d.device).cuda_stream), "gemm_bf16")
+    return y
+
+
 def _emformer_stack_cuda(params, x, mem, lc_k, lc_v, length, reset, advance,
                          *, quant, **kw):
     global LAUNCHES, LAUNCHES_INT8
     names = _kernel_quant_names(quant)
-    w = _kernel_weights(params, kw["cdt"], skip=names)
+    w = kernel_weights(params, kw["cdt"], skip=names)
     qw = quantized_weights(params, names)
     memrow = torch.empty((x.shape[0], x.shape[2]), dtype=torch.float32,
                          device=x.device)

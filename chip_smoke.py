@@ -16,6 +16,16 @@ Phases (any failure exits non-zero; nothing is caught):
      version's time, the card's bound and a library yardstick where one
      PyTorch call computes the same function, plus a device-time
      breakdown by kernel and the int8 product beside torch._int_mm;
+     A's parts (its bf16 GEMMs, its attention, the rest) from the profile
+     at VI and EN, and D in bf16 in/out (bit for bit the f32 kernel on
+     the widened inputs, then cast) beside SDPA on the same tensors;
+  3b. A's bf16 product alone (the wgmma GEMM, entry asr_gemm_bf16) at the
+     ten serving product shapes (five at VI, five at EN), a ragged shape
+     and each activation, on the tile run_layer picks and on each tile
+     forced, within gemm_bf16_error_bound of its plain version (only the
+     f32 sum order differs), timed beside its plain version and
+     torch.matmul on the same bf16 operands (``--only gemm``: this phase
+     alone);
   4. the Vietnamese CTC serving tick at full width (512 slots, 20 layers,
      bf16, random weights from --seed): 10 ticks of the default route
      (stack), then a few of each other route: stack+int8,
@@ -87,29 +97,68 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_times(fn, iters: int = 1):
+def device_times(fn, iters: int = 1, need: str = ""):
     """Device time per call of fn, by kernel name, from torch.profiler's
     CUDA activity (kernel execution only: host gaps between launches do
-    not count).  Returns (ms per call, [(ms per call, launches, name)])."""
+    not count).  Returns (ms per call, [(ms per call, launches, name)]).
+    Each call is waited for before the next is queued: with the launch
+    queue full, the profiler dropped kernel records.  A profile with no
+    kernel record (or none whose name holds ``need``) is taken again, up
+    to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", None)
-        if t is None:
-            t = getattr(e, "cuda_time_total", 0.0)
-        if t > 0:
-            name = e.key.replace("(anonymous namespace)::", "").replace(
-                "void ", "").split("(")[0][-70:]
-            rows.append((t / 1e3 / iters, e.count // iters, name))
-    rows.sort(reverse=True)
-    return sum(r[0] for r in rows), rows
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+                torch.cuda.synchronize()
+        rows = []
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", None)
+            if t is None:
+                t = getattr(e, "cuda_time_total", 0.0)
+            if t > 0:
+                name = e.key.replace("(anonymous namespace)::", "").replace(
+                    "void ", "").split("(")[0][-70:]
+                rows.append((t / 1e3 / iters, e.count // iters, name))
+        if rows and any(need in r[2] for r in rows):
+            rows.sort(reverse=True)
+            return sum(r[0] for r in rows), rows
+    fail(f"three profiles of {getattr(fn, '__name__', 'a call')} held no "
+         f"kernel records{' of ' + need if need else ''}")
+
+
+def stack_parts(fn, label: str, attn_bytes: float):
+    """Device time of one call of kernel A by part, from the profile: its
+    bf16 GEMMs, its attention (beside the bytes bound of ``attn_bytes``)
+    and the rest (LNs, state roll, and anything else the call launches).
+    Returns {part: {"ms": ms}}, the attention's with its "bound_ms"."""
+    total, rows = device_times(fn, 3, need="attention_kernel")
+    parts = {"gemm": 0.0, "attention": 0.0}
+    for t, _, name in rows:
+        key = ("gemm" if "gemm_bf16_wgmma" in name else
+               "attention" if "attention_kernel" in name else None)
+        if key:
+            parts[key] += t
+    parts["rest"] = total - parts["gemm"] - parts["attention"]
+    bound = attn_bytes / PEAK_BYTES * 1e3
+    log(f"[profile] {label} by part: GEMMs {parts['gemm']:.3f} ms, attention "
+        f"{parts['attention']:.3f} ms (bytes bound {bound:.3f} ms), the rest "
+        f"{parts['rest']:.3f} ms, of {total:.3f} ms")
+    out = {k: {"ms": v} for k, v in parts.items()}
+    out["attention"]["bound_ms"] = bound
+    return out
+
+
+def attention_bytes(B, L, D, U, R, M, Lc, itemsize=2) -> float:
+    """Bytes A's attention must move in one step of L layers: q and the
+    output [B, Q, D], the kv rows [B, M+T, 2D] and the left context
+    [B, Lc, D] twice."""
+    T = U + R
+    Q = T + (1 if M else 0)
+    return float(L * itemsize * B * D * (2 * Q + 2 * (M + T) + 2 * Lc))
 
 
 def profile_top(fn, label: str, n: int = 8):
@@ -398,7 +447,10 @@ def check_layer_plain(cfg, params, B, n_ticks, tol, gen, device, label):
 
 def check_attention(cfg, B, gen, device):
     """Kernel D against its plain version in f32 at rtol = atol = 1e-4,
-    at the VI serving shape; times beside SDPA with the boolean mask."""
+    at the VI serving shape; times beside SDPA with the boolean mask.  Then
+    with bf16 inputs and output, as the eager route calls it: bit for bit
+    the f32 kernel on the widened inputs, then cast; timed beside SDPA on
+    the same bf16 tensors."""
     import torch
     import torch.nn.functional as F
     from asr_streaming_tpu_torch.ops import emformer_attention as ek
@@ -442,13 +494,114 @@ def check_attention(cfg, B, gen, device):
         f"plain {sdpa_err:.3e}); {ms * 1e3:.1f} us (plain {plain_ms * 1e3:.1f}"
         f" us, SDPA {lib_ms * 1e3:.1f} us), {nbytes / 1e6:.1f} MB, bound "
         f"{max(t_bytes, t_ops) * 1e3:.1f} us")
+
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    bf = ek.emformer_attention(qb, kb, vb, m_m, m_kv,
+                               out_dtype=torch.bfloat16, **kw)
+    wide = ek.emformer_attention(qb.float(), kb.float(), vb.float(), m_m,
+                                 m_kv, **kw)
+    torch.cuda.synchronize()
+    if bf.dtype != torch.bfloat16 or not torch.equal(bf, wide.to(bf.dtype)):
+        fail("D: bf16 in/out differs from the f32 kernel on the widened "
+             "inputs, then cast")
+    q4b, k4b, v4b = (t.view(B, -1, H, D // H).transpose(1, 2)
+                     for t in (qb, kb, vb))
+    ms_bf = device_times(lambda: ek.emformer_attention(
+        qb, kb, vb, m_m, m_kv, out_dtype=torch.bfloat16, **kw), 20)[0]
+    lib_bf = device_times(lambda: F.scaled_dot_product_attention(
+        q4b, k4b, v4b, attn_mask=mask), 20)[0]
+    bound_bf = (2 * (2 * B * Q * D + 2 * B * K * D) + 8 * B) / PEAK_BYTES * 1e3
+    log(f"[kernels] D bf16 in/out: == the f32 kernel on the widened inputs "
+        f"then cast, bit for bit; {ms_bf * 1e3:.1f} us (SDPA on the bf16 "
+        f"tensors {lib_bf * 1e3:.1f} us), bound {bound_bf * 1e3:.1f} us")
     return {"name": "emformer_attention", "route": "cuda",
             "source": "asr_streaming_tpu_torch/csrc/emformer_attention.cu",
             "replaces": "asr_streaming_tpu/ops/pallas_attention.py:119",
             "launches": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms}
+            "library_ms": lib_ms,
+            "bf16": {"ms": ms_bf, "library_ms": lib_bf, "bound_ms": bound_bf}}
+
+
+def gemm_shapes(B, U, R, M, D, Fd, act):
+    """The five products of one layer, (name, rows, K, N, activation): q
+    on the Q query rows, kv on the M + T key rows, out, ffn1 (with the
+    activation) and ffn2 on the T frames, T = U + R."""
+    T = U + R
+    Q = T + (1 if M else 0)
+    return [("q", B * Q, D, D, None), ("kv", B * (M + T), D, 2 * D, None),
+            ("out", B * Q, D, D, None), ("ffn1", B * T, D, Fd, act),
+            ("ffn2", B * T, Fd, D, None)]
+
+
+def check_gemm(label, M, K, N, act, gen, device):
+    """A's bf16 product (the wgmma GEMM of csrc/emformer_stack.cu) at one
+    shape against its plain version (``_mm`` + ``epilogue<bf16>``) within
+    ``gemm_bf16_error_bound``: two bf16 ulps and the sum-order slack,
+    doubled through an activation (only the f32 sum order differs).
+    Times it beside the plain version and ``torch.matmul`` on the same bf16
+    operands (no bias: the yardstick)."""
+    import torch
+    from asr_streaming_tpu_torch.ops import emformer_stack as es
+    x = torch.randn((M, K), generator=gen).to(device, torch.bfloat16)
+    w = (torch.randn((K, N), generator=gen) / K ** 0.5).to(device,
+                                                           torch.bfloat16)
+    bias = torch.randn((N,), generator=gen).to(device, torch.bfloat16)
+    want = es.gemm_bf16_plain(x, w, bias, act)
+    bound = es.gemm_bf16_error_bound(x, w, want, act)
+    # the tile run_layer picks (None), then each tile forced
+    errs, tile_ms = [], {}
+    for config in [None] + list(range(len(es.GEMM_TILES))):
+        got = es.gemm_bf16(x, w, bias, act, config)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        worst = (err / bound).max().item()
+        if not torch.isfinite(got.float()).all() or worst > 1:
+            fail(f"GEMM {label}, tile {config}: {worst:.2f} x its error "
+                 f"bound from the plain version")
+        errs.append((worst, err.max().item()))
+        if config is not None:
+            tile_ms["%dx%d" % es.GEMM_TILES[config]] = device_times(
+                lambda c=config: es.gemm_bf16(x, w, bias, act, c), 20)[0]
+    worst, max_err = max(errs)
+    tile = "%dx%d" % es.GEMM_TILES[es.gemm_bf16_config(M, N, K)]
+    ms = device_times(lambda: es.gemm_bf16(x, w, bias, act), 20)[0]
+    plain_ms = device_times(lambda: es.gemm_bf16_plain(x, w, bias, act), 5)[0]
+    lib_ms = device_times(lambda: torch.matmul(x, w), 20)[0]
+    flops = 2.0 * M * K * N
+    nbytes = 2.0 * (M * K + K * N + N + M * N)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    log(f"[gemm] {label} {M}x{K}x{N}{' +' + act if act else ''}: "
+        f"{ms * 1e3:.1f} us on {tile} ({flops / ms / 1e9:.0f} TFLOP/s; "
+        + ", ".join(f"{t} {v * 1e3:.1f}" for t, v in tile_ms.items())
+        + f" us), torch.matmul {lib_ms * 1e3:.1f} us "
+        f"({flops / lib_ms / 1e9:.0f} TFLOP/s), plain {plain_ms * 1e3:.1f} "
+        f"us, bound {max(t_ops, t_bytes) * 1e3:.1f} us; max error "
+        f"{worst:.2f} x bound, {max_err:.2e}")
+    return {"product": label, "m": M, "k": K, "n": N, "tile": tile, "ms": ms,
+            "tiles_ms": tile_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "tflops": flops / ms / 1e9, "max_abs_err": max_err}
+
+
+def phase_gemm(gen, device):
+    """A's bf16 product at the ten serving product shapes (VI and EN, five
+    each), a ragged shape and each activation.  Returns the ten serving
+    shapes' entries."""
+    from asr_streaming_tpu_torch.models.emformer import EmformerConfig
+    from asr_streaming_tpu_torch.models.rnnt import RNNTConfig
+    out = []
+    for lang, c in (("vi", EmformerConfig()), ("en", RNNTConfig().emformer)):
+        for name, M, K, N, act in gemm_shapes(
+                B_SLOTS, c.segment_length, c.right_context_length,
+                c.max_memory_size, c.d_model, c.ffn_dim, c.activation):
+            out.append(check_gemm(f"{lang} {name}", M, K, N, act, gen, device))
+    for label, act in (("ragged", None), ("relu", "relu"), ("gelu", "gelu"),
+                       ("silu", "silu")):
+        check_gemm(label, 300, 200 if act is None else 512, 136, act, gen,
+                   device)
+    return out
 
 
 def time_int8_product(cfg, B, gen, device):
@@ -464,7 +617,8 @@ def time_int8_product(cfg, B, gen, device):
     q = es.quantized_weights({"w": w}, ["w"])["w"]
     bias = torch.zeros(N, device=device)
     _, rows = device_times(lambda: es.w8a8_linear(x, q, bias,
-                                                  torch.bfloat16), 20)
+                                                  torch.bfloat16), 20,
+                           need="gemm_int8")
     by = {name: t for t, _, name in rows}
     gemm = sum(t for n, t in by.items() if "gemm_int8" in n)
     quant = sum(t for n, t in by.items() if "quantize_rows" in n)
@@ -583,6 +737,9 @@ def phase_kernels(gen, device):
     plain_ms = device_times(plain_a, 2)[0]
     profile_top(kernel_a, "A emformer_stack, one VI step at 512 slots")
     L, D, Fd = vi.num_layers, vi.d_model, vi.ffn_dim
+    parts = stack_parts(kernel_a, "A, one VI step", attention_bytes(
+        B, L, D, vi.segment_length, vi.right_context_length,
+        vi.max_memory_size, vi.left_context_length))
     flops = stack_flops(B, L, D, Fd, vi.segment_length,
                         vi.right_context_length, vi.max_memory_size,
                         vi.left_context_length)
@@ -603,7 +760,7 @@ def phase_kernels(gen, device):
         "launches": 0, "max_abs_err": err_a, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None})
+        "library_ms": None, "parts": parts})
 
     # ---- kernel B: VI serving shape, exact equality with the plain version
     results.append(check_append(B, 1024, 16, 803, gen, device, "B"))
@@ -1058,7 +1215,8 @@ def check_stack_en(gen, device):
     version, as at the VI geometry: f32 elementwise 1e-4, bf16 at 3 layers
     elementwise 3e-2, bf16 at 20 layers by relative L2 with the noise
     floor; then with the masks absent, as the RNNT ticks call it.
-    Returns {en_ms, en_plain_ms, en_bound_ms, en_max_abs_err}."""
+    Returns {"en": {ms, plain_ms, bound_ms, bound_by, max_abs_err,
+    parts}}."""
     import dataclasses
     import torch
     from asr_streaming_tpu_torch.models.rnnt import RNNTConfig
@@ -1095,6 +1253,9 @@ def check_stack_en(gen, device):
         lambda: es.emformer_stack_plain(params, x, mem, lck, lcv, eff, reset,
                                         advance, **kw), 2)[0]
     profile_top(kernel_a, "A emformer_stack, one EN step at 512 slots")
+    parts = stack_parts(kernel_a, "A, one EN step", attention_bytes(
+        B, bf.num_layers, bf.d_model, bf.segment_length,
+        bf.right_context_length, 0, bf.left_context_length))
     flops = stack_flops(B, bf.num_layers, bf.d_model, bf.ffn_dim,
                         bf.segment_length, bf.right_context_length, 0,
                         bf.left_context_length)
@@ -1104,8 +1265,10 @@ def check_stack_en(gen, device):
         f" ms), {flops / 1e12:.3f} TFLOP, bound {max(t_ops, t_bytes):.3f} ms"
         f" ({'operations' if t_ops >= t_bytes else 'bytes'}), "
         f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
-    return {"en_ms": ms, "en_plain_ms": plain_ms,
-            "en_bound_ms": max(t_ops, t_bytes), "en_max_abs_err": err}
+    return {"en": {"ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "max_abs_err": err, "parts": parts}}
 
 
 def check_hash(gen, device):
@@ -1134,8 +1297,8 @@ def check_hash(gen, device):
 
 
 def phase_kernels_en(gen, device, kernels):
-    """E, and A and B at the EN geometry; adds E's entry and the en_* keys
-    of A's and B's entries."""
+    """E, and A and B at the EN geometry; adds E's entry and the "en"
+    sub-entries of A's and B's."""
     e = check_row_topk(gen, device)
     by_name = {k["name"]: k for k in kernels}
     a_en = check_stack_en(gen, device)
@@ -1143,9 +1306,8 @@ def phase_kernels_en(gen, device, kernels):
     # (a run of the EN phases alone has no A or B entry to extend)
     by_name.get("emformer_stack", {}).update(a_en)
     by_name.get("emission_append", {}).update(
-        {"en_ms": b_en["ms"], "en_plain_ms": b_en["plain_ms"],
-         "en_bound_ms": b_en["bound_ms"],
-         "en_library_ms": b_en["library_ms"]})
+        {"en": {k: b_en[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}})
     check_hash(gen, device)
     kernels.append(e)
 
@@ -1320,12 +1482,24 @@ def _event_list(events):
     return [(e.stream_id, e.kind, e.text) for e in events]
 
 
+def _per_stream(events):
+    """{stream: [(kind, text)]} in event order: what each stream's client
+    sees.  Across groups the order in which packs surface follows the
+    device's timing (GroupedScheduler ticks the group whose pack is ready
+    first), so only each stream's own sequence is the scheduler's result."""
+    out = {}
+    for sid, kind, text in _event_list(events):
+        out.setdefault(sid, []).append((kind, text))
+    return out
+
+
 def phase_en_scheduler(params, seed, device):
     """server-en.yaml's default mode (beam partials, width 10) answering
     requests: 4 streams through the in-process Scheduler at 512 slots,
     through an in-process GroupedScheduler(groups=2), and through
     GroupedScheduler(groups=2) over the device worker.  The two grouped
-    runs see the same batch shapes and must give the same events.  Returns
+    runs see the same batch shapes and must give each stream the same
+    events.  Returns
     the worker child's launch counts."""
     from asr_streaming_tpu_torch.streaming.scheduler import (
         GroupedScheduler, Scheduler,
@@ -1372,15 +1546,15 @@ def phase_en_scheduler(params, seed, device):
             p50w = wk.timers.snapshot()["stages"]["tick"]["p50_ms"]
         finally:
             wk.close()
-    if _event_list(got) != _event_list(want):
+    if _per_stream(got) != _per_stream(want):
         fail(f"EN grouped worker events differ from the in-process grouped "
-             f"scheduler's: {_event_list(got)[:6]} vs {_event_list(want)[:6]}")
+             f"scheduler's: {_per_stream(got)} vs {_per_stream(want)}")
     same = sorted(_event_list(single)) == sorted(_event_list(got))
     log(f"[en scheduler] GroupedScheduler(groups=2) over the device worker, "
         f"beam mode: {wk.ticks} group ticks in {dt:.2f} s (child start + "
         f"warmup {time.perf_counter() - t0 - dt:.1f} s, warm step "
-        f"{warm:.2f} s), {len(got)} events equal to the in-process grouped "
-        f"scheduler's ({'also' if same else 'not'} the 512-slot scheduler's "
+        f"{warm:.2f} s), {len(got)} events, each stream's equal to the "
+        f"in-process grouped scheduler's ({'also' if same else 'not'} the 512-slot scheduler's "
         f"set), group tick p50 {p50w} ms (in process: {p50} ms); child "
         f"launches {({k: v for k, v in launches.items() if v})}")
     return launches
@@ -1503,9 +1677,10 @@ def phase_en_golden(device):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("vi", "en"), default=None,
-                    help="run one language's phases (a partial run: the "
-                         "result line says so and the exit code is 4)")
+    ap.add_argument("--only", choices=("vi", "en", "gemm"), default=None,
+                    help="run one language's phases, or the GEMM phase "
+                         "alone (a partial run: the result line says so "
+                         "and the exit code is 4)")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "asr_streaming_tpu_torch")):
         fail("asr_streaming_tpu_torch/ is not beside this script")
@@ -1520,9 +1695,16 @@ def main() -> None:
     phase_build()
     gen = torch.Generator().manual_seed(args.seed)
     vi, en = args.only in (None, "vi"), args.only in (None, "en")
+    if args.only == "gemm":
+        phase_gemm(gen, device)
+        sys.exit(4)
     kernels = phase_kernels(gen, device) if vi else []
     if en:
         phase_kernels_en(gen, device, kernels)
+    gemm = phase_gemm(gen, device)
+    for k in kernels:
+        if k["name"] == "emformer_stack":
+            k["gemm"] = gemm
 
     # the paths: each driven with the counts set to 0 just before it and
     # read just after; the worker phases add their child's counts

@@ -2,9 +2,12 @@
 
 ``emformer_attention`` (its kernel's plain version on the CPU) against
 ``fused_emformer_attention`` in interpret mode at 1e-5 (f32 throughout,
-only the summation order differs), and the eager route with
+only the summation order differs), the same on bf16 inputs and outputs
+(bf16 in is widened exactly, a bf16 out is the f32 result rounded once:
+equal to the f32 path then cast), and the eager route with
 ``fused_attention`` against JAX's XLA route with ``use_pallas_attention``
-at the JAX package's tolerances, with reset/advance churn.
+at the JAX package's tolerances, with reset/advance churn; and the
+geometry the CUDA core takes, refused with a clear error outside it.
 """
 
 import dataclasses
@@ -17,7 +20,11 @@ import jax.numpy as jnp
 
 from asr_streaming_tpu.ops.pallas_attention import fused_emformer_attention
 from asr_streaming_tpu_torch.models import emformer as te
-from asr_streaming_tpu_torch.ops.emformer_attention import emformer_attention
+from asr_streaming_tpu_torch.ops import emformer_attention as ea
+from asr_streaming_tpu_torch.ops import emformer_stack as es
+from asr_streaming_tpu_torch.ops.emformer_attention import (
+    check_geometry, emformer_attention,
+)
 from tests.test_torch_emformer import (
     EN, VI, _compare, _inputs, _run_jax, _run_torch, _setup,
 )
@@ -49,6 +56,41 @@ def test_attention_core_matches_jax_kernel(geo):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["out_f32", "out_bf16"])
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16],
+                         ids=["in_f32", "in_bf16"])
+@pytest.mark.parametrize("geo", [VI, EN], ids=["vi_mem", "en_nomem"])
+def test_attention_core_dtypes_equal_the_f32_core_then_cast(geo, in_dtype,
+                                                            out_dtype):
+    rng = np.random.default_rng(32)
+    B, D, H = 4, geo["d_model"], geo["num_heads"]
+    U, R = geo["segment_length"], geo["right_context_length"]
+    M, Lc = geo["max_memory_size"], geo["left_context_length"]
+    use_mem = M > 0
+    Q, K = R + U + (1 if use_mem else 0), M + R + Lc + U
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(in_dtype) for s in ((B, Q, D), (B, K, D), (B, K, D)))
+    length = torch.tensor([0, 3, U + 1, 100], dtype=torch.int32)
+    m_kv = torch.clamp(length, max=Lc)
+    m_m = torch.clamp(length // U, max=M)
+    kw = dict(num_heads=H, M=M, R=R, Lc=Lc, U=U, use_mem=use_mem,
+              neg_inf=-1e8)
+    got = emformer_attention(q, k, v, m_m, m_kv, out_dtype=out_dtype, **kw)
+    f32 = emformer_attention(q.float(), k.float(), v.float(), m_m, m_kv, **kw)
+    assert got.dtype == out_dtype and tuple(got.shape) == (B, Q, D)
+    assert torch.equal(got, f32.to(out_dtype))
+    # and the JAX kernel on the widened inputs, then cast
+    want = fused_emformer_attention(
+        *(jnp.asarray(t.float().numpy()) for t in (q, k, v)),
+        jnp.asarray(m_m.numpy()), jnp.asarray(m_kv.numpy()), interpret=True,
+        **kw)
+    want = torch.from_numpy(np.array(want)).to(out_dtype).float()
+    tol = 1e-5 if out_dtype == torch.float32 else 8e-3   # one bf16 ulp
+    np.testing.assert_allclose(got.float().numpy(), want.numpy(), rtol=tol,
+                               atol=tol)
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("geo", [VI, EN], ids=["vi_mem", "en_nomem"])
 def test_eager_fused_attention_matches_jax_pallas_attention(geo, dtype):
@@ -61,3 +103,52 @@ def test_eager_fused_attention_matches_jax_pallas_attention(geo, dtype):
                                          fused_attention=True),
                      tparams, xs, rs, adv)
     _compare(got, want, tol)
+
+
+@pytest.mark.parametrize("Q,K,Dh,dtype,mma", [
+    (21, 56, 64, torch.float32, False), (5, 35, 64, torch.bfloat16, True),
+    (32, 128, 16, torch.bfloat16, True), (32, 128, 4, torch.float32, False),
+    (1, 1, 128, torch.bfloat16, False)],
+    ids=["vi_f32", "en_bf16_mma", "edges_mma", "edges_f32", "bf16_wide"])
+def test_attention_geometry_in_range_is_taken(Q, K, Dh, dtype, mma):
+    check_geometry(Q, K, Dh, dtype, mma)
+
+
+@pytest.mark.parametrize("Q,K,Dh,dtype,mma", [
+    (33, 56, 64, torch.float32, False), (21, 129, 64, torch.float32, False),
+    (21, 56, 128, torch.float32, False), (21, 56, 48, torch.float32, False),
+    (21, 56, 128, torch.bfloat16, True), (21, 56, 8, torch.bfloat16, True)],
+    ids=["queries", "keys", "f32_wide", "f32_not_pow2", "mma_wide",
+         "mma_narrow"])
+def test_attention_geometry_out_of_range_raises(Q, K, Dh, dtype, mma):
+    """The shapes the CUDA attention core refuses raise a ValueError that
+    names its limits, before anything is launched (this needs no card)."""
+    with pytest.raises(ValueError, match="outside the CUDA kernel's geometry"):
+        check_geometry(Q, K, Dh, dtype, mma)
+
+
+def test_kernel_entries_refuse_keys_past_the_core():
+    """D's and A's CUDA wrappers check the geometry before they load the
+    library: 200 left-context keys (K > 128) raise on any device."""
+    B, D, H, M, R, U, Lc = 2, 64, 4, 4, 2, 8, 200
+    Q, K = R + U + 1, M + R + Lc + U
+    q, kv = torch.zeros(B, Q, D), torch.zeros(B, K, D)
+    fill = torch.zeros(B, dtype=torch.int32)
+    with pytest.raises(ValueError, match="K=214 keys"):
+        ea._emformer_attention_cuda(
+            q, kv, kv, fill, fill, num_heads=H, M=M, R=R, Lc=Lc, U=U,
+            use_mem=True, neg_inf=-1e8, out_dtype=torch.float32)
+    cfg = te.EmformerConfig(d_model=D, num_heads=H, ffn_dim=96, num_layers=1,
+                            segment_length=U, left_context_length=Lc,
+                            right_context_length=R, max_memory_size=M,
+                            compute_dtype=torch.bfloat16)
+    params = te.init_emformer_params(torch.Generator().manual_seed(0), cfg,
+                                     torch.device("cpu"))
+    w = es.kernel_weights(params, torch.bfloat16)
+    state = [torch.zeros(1, B, n, D, dtype=torch.bfloat16) for n in (M, Lc, Lc)]
+    with pytest.raises(ValueError, match="K=214 keys"):
+        es.run_chain("asr_emformer_stack", w, {}, torch.zeros(B, U + R, D),
+                     fill, fill.bool(), fill.bool(), *state,
+                     torch.zeros(B, D), U=U, R=R, M=M, Lc=Lc, H=H,
+                     use_mem=True, tanh_on_mem=False, neg_inf=-1e8,
+                     activation="gelu", cdt=torch.bfloat16)

@@ -286,3 +286,109 @@ def test_beam_hash_wraps_on_the_card():
         h = h * rb._HASH_M1 + (torch.from_numpy(tok).to(dev) + 1)
         want = (want * rb._HASH_M1 + tok + 1 + 2**31) % 2**32 - 2**31
     assert np.array_equal(h.cpu().numpy(), want.astype(np.int32))
+
+
+# The ten bf16 products of one layer at the serving shapes, (rows, K, N,
+# activation): VI (512 slots, Q = 21 queries, 24 key rows, 20 frames) and
+# EN (512 slots, 5 queries = 5 key rows = 5 frames, no memory); D = 512,
+# F = 2048, GELU after the first FFN product.
+GEMM_SHAPES = {
+    "vi_q": (10752, 512, 512, None), "vi_kv": (12288, 512, 1024, None),
+    "vi_out": (10752, 512, 512, None), "vi_ffn1": (10240, 512, 2048, "gelu"),
+    "vi_ffn2": (10240, 2048, 512, None),
+    "en_q": (2560, 512, 512, None), "en_kv": (2560, 512, 1024, None),
+    "en_out": (2560, 512, 512, None), "en_ffn1": (2560, 512, 2048, "gelu"),
+    "en_ffn2": (2560, 2048, 512, None),
+    # ragged: rows, K and N off every tile edge
+    "ragged": (300, 200, 136, None),
+    "relu": (333, 512, 264, "relu"), "gelu": (333, 512, 264, "gelu"),
+    "silu": (333, 512, 264, "silu"),
+}
+
+
+def _check_gemm(dev, M, K, N, act, config=None):
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(
+        dev).to(torch.bfloat16)
+    w = torch.from_numpy((rng.standard_normal((K, N)) / np.sqrt(K)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    bias = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(
+        dev).to(torch.bfloat16)
+    got = es.gemm_bf16(x, w, bias, act, config)
+    torch.cuda.synchronize()
+    want = es.gemm_bf16_plain(x, w, bias, act)
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert torch.isfinite(got.float()).all()
+    bound = es.gemm_bf16_error_bound(x, w, want, act)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= bound).all()), (
+        f"{int((err > bound).sum())} of {err.numel()} beyond the bound, "
+        f"max {float((err / bound).max()):.2f} x the bound")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(GEMM_SHAPES))
+def test_gemm_bf16_matches_plain_within_its_bound(name):
+    """The wgmma GEMM against ``_mm`` + ``epilogue<bf16>``: only the f32
+    sum order differs, so the product rounded to bf16 lands at most one
+    ulp away, carried through the bias and the activation as
+    ``gemm_bf16_error_bound`` states."""
+    _check_gemm(_cuda(), *GEMM_SHAPES[name])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", range(len(es.GEMM_TILES)),
+                         ids=[f"{m}x{n}" for m, n in es.GEMM_TILES])
+@pytest.mark.parametrize("name", ["ragged", "gelu", "en_q", "en_ffn1",
+                                  "vi_ffn2"])
+def test_gemm_bf16_each_tile_matches_plain(name, config):
+    """Each tile configuration, forced, within the same bound: ragged
+    edges, an activation, and serving shapes of one, a few and many tiles
+    a block."""
+    _check_gemm(_cuda(), *GEMM_SHAPES[name], config=config)
+
+
+@pytest.mark.gpu
+def test_gemm_bf16_config_fills_the_card():
+    """The tile picked for each serving product is a valid index, and a
+    product with fewer 128-row tiles than SMs takes a 64-row tile."""
+    _cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for M, K, N, _ in GEMM_SHAPES.values():
+        c = es.gemm_bf16_config(M, N, K)
+        assert c in range(len(es.GEMM_TILES))
+        if -(-M // 128) * -(-N // 128) < sms:
+            assert es.GEMM_TILES[c][0] == 64, (M, N, es.GEMM_TILES[c])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_mem", [True, False], ids=["vi_mem", "en_nomem"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["out_f32", "out_bf16"])
+def test_emformer_attention_bf16_inputs_equal_widened_f32(use_mem, out_dtype):
+    """D on bf16 q/k/v is D on their exact f32 widening, bit for bit, and
+    a bf16 output is that f32 output rounded once; at the serving widths
+    (D = 512, H = 8) and key counts (VI: Q = 21, K = 56; EN: Q = 5,
+    K = 35)."""
+    from asr_streaming_tpu_torch.ops import emformer_attention as ek
+    dev = _cuda()
+    rng = np.random.default_rng(13)
+    B, D, H = 64, 512, 8
+    U, R, Lc, M = (16, 4, 32, 4) if use_mem else (4, 1, 30, 0)
+    Q, K = R + U + (1 if use_mem else 0), M + R + Lc + U
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        dev).to(torch.bfloat16) for s in ((B, Q, D), (B, K, D), (B, K, D)))
+    length = torch.from_numpy(rng.integers(0, 200, B).astype(np.int32)).to(dev)
+    m_kv = torch.clamp(length, max=Lc)
+    m_m = torch.clamp(length // U, max=M)
+    kw = dict(num_heads=H, M=M, R=R, Lc=Lc, U=U, use_mem=use_mem)
+    n0 = ek.LAUNCHES
+    got = ek.emformer_attention(q, k, v, m_m, m_kv, out_dtype=out_dtype, **kw)
+    wide = ek.emformer_attention(q.float(), k.float(), v.float(), m_m, m_kv,
+                                 **kw)
+    assert ek.LAUNCHES == n0 + 2
+    assert got.dtype == out_dtype and torch.equal(got, wide.to(out_dtype))
+    want = ek.emformer_attention_plain(q, k, v, m_m, m_kv, out_dtype=out_dtype,
+                                       **kw)
+    tol = 1e-4 if out_dtype == torch.float32 else 8e-3
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

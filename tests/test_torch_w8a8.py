@@ -75,6 +75,32 @@ def test_quantized_weights_are_cached_per_tensor():
     torch.testing.assert_close(b[1], 2 * a[1])
 
 
+def test_kernel_copies_share_the_weight_cache():
+    """The kernel's cast / transposed weight copies and the int8 weights
+    live in one per-tensor cache: each copy is made once, kept apart by
+    its tag, made again after an in-place change, and dropped with the
+    tensor."""
+    w = torch.randn(2, 16, 8)
+    t = es._kernel_tensor(w, torch.bfloat16, transpose=True)
+    assert t.shape == (2, 8, 16) and t.dtype == torch.bfloat16
+    assert es._kernel_tensor(w, torch.bfloat16, transpose=True) is t
+    assert es._kernel_tensor(w, torch.bfloat16) is not t
+    assert es._kernel_tensor(w, torch.float32) is w      # no copy needed
+    q = es.quantized_weights({"w": w}, ["w"])["w"]
+    assert es.quantized_weights({"w": w}, ["w"])["w"] is q
+    with torch.no_grad():
+        w.add_(1.0)
+    t2 = es._kernel_tensor(w, torch.bfloat16, transpose=True)
+    assert t2 is not t
+    torch.testing.assert_close(t2, w.to(torch.bfloat16).transpose(1, 2))
+    keys = [k for k in es._CACHE if k[0] == id(w)]
+    assert len(keys) == 3
+    del w, t2
+    import gc
+    gc.collect()
+    assert not any(k in es._CACHE for k in keys)
+
+
 def _quant_runs(geo, quant, jax_mode, route, seed):
     jcfg, tcfg, jparams, tparams, _ = _setup(geo, "f32", seed=seed)
     xs, rs, adv = _inputs(geo, 3, 4, seed=seed + 1)
