@@ -33,8 +33,10 @@
 // overlaps the other's products); the
 // attention runs on the core it shares with kernel D
 // (emformer_attention_core.cuh), in bf16 on the tensor cores (mma.sync);
-// the W8A8 products run a row-quantiser kernel and a WMMA s8 GEMM with the
-// dequant epilogue.  The
+// the W8A8 products run a row-quantiser kernel and the same GEMM on int8
+// (gemm_int8_wgmma_kernel: the ring, producer and tiles of the bf16 one,
+// wgmma m64n{128,256}k32 s8 with exact s32 sums, the dequant epilogue of
+// _qdot; at 1,979 TOP/s the int8 peak is twice the bf16 one).  The
 // Pallas kernel's VMEM-resident megakernel does not translate (a block has
 // 227 KB of shared memory, the TPU tile had ~100 MB of VMEM), so one layer
 // is a short chain of simple kernels: ln_in -> gemm(q) -> gemm(kv) ->
@@ -51,17 +53,16 @@
 // layers_per_step, ffn_slices) carry no semantics and are not reproduced.
 // Not yet done: the epilogue of the one-block-an-SM tiles overlapped with
 // the next tile's products (two consumer warpgroups on alternate tiles),
-// the row kernels
-// fused into the GEMMs' prologues and epilogues, one persistent launch
-// for all layers, TMA multicast of the weight tiles across a cluster, a
-// wgmma int8 GEMM.
+// the row kernels (and the W8A8 row quantiser) fused into the GEMMs'
+// prologues and epilogues, one persistent launch for all layers, TMA
+// multicast of the weight tiles across a cluster.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <mutex>
 #include <type_traits>
 
@@ -70,7 +71,6 @@
 namespace {
 
 using attn_core::bf16;
-using attn_core::cp_async16;
 using attn_core::from_f;
 using attn_core::rnd;
 using attn_core::to_f;
@@ -165,10 +165,13 @@ __device__ __forceinline__ void warp_layer_norm(float (&v)[kMaxPerLane], int D,
 // bytes.  (Unrolled over the accumulators, an inlined activation swamped
 // the instruction cache, and a called one ran one element at a time.)
 // Needs K % 8 == 0 and N % 8 == 0 (16-byte TMA strides, whole 16-byte
-// output vectors).
+// output vectors).  The W8A8 product (gemm_int8_wgmma_kernel) is the same
+// kernel on int8 operands: 128-deep K slices (the same 128 bytes a row),
+// wgmma m64nBNk32 s8 with s32 sums, the dequant in the epilogue's first
+// pass; it needs K % 16 == 0.
 namespace gemm90 {
 
-constexpr int kBK = 64;           // K per stage: one 128-byte swizzle row
+constexpr int kBK = 64;           // bf16 K per stage: one 128-byte swizzle row
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -240,6 +243,11 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // D[64 x N] += A[64 x 16] . B[N x 16]^T, both K-major in shared memory
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
@@ -300,6 +308,66 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da, uint
   else wgmma_m64n128k16(d, da, db);
 }
 
+// D[64 x N] += A[64 x 32] . B[N x 32]^T in int8 with s32 sums (exact),
+// both K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(int (&d)[BN / 2], uint64_t da, uint64_t db) {
+  if constexpr (BN == 256) wgmma_m64n256k32_s8(d, da, db);
+  else wgmma_m64n128k32_s8(d, da, db);
+}
+
 // the output tile's row stride in shared memory: 16 bytes of padding put
 // the eight rows a quad of lanes writes on different banks
 template <int BN>
@@ -345,13 +413,26 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(NC * 128) : "memory");
 }
 
-template <int NC, int BN, int ST>
-__global__ void __launch_bounds__(NC * 128 + 32, (blocks_per_sm<NC, BN, ST>()))
-gemm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
-                       const __grid_constant__ CUtensorMap tma_b, int layer,
-                       const bf16* __restrict__ bias, bf16* __restrict__ C, int M, int N,
-                       int K, int act) {
-  constexpr int BM = 64 * NC, CS = c_stride<BN>();
+// The product behind both GEMM kernels, on In = bf16 (f32 accumulators)
+// or In = int8 (s32 accumulators, W8A8).  A K slice is 128 bytes of each
+// row in both: 64 bf16 or 128 int8 values, four 32-byte wgmma k steps
+// (k16 bf16, k32 s8).  The epilogue's first pass takes acc to
+// epilogue_v<Out>'s value: the bf16 accumulator as it is; the int8 one
+// dequantised as _qdot does, (float)acc * as[m] * ws[n] with no
+// contraction (the row scale first), each tile's scales read once a
+// thread.  Out = bf16 goes through the output tile (the activation in the
+// second pass, 16-byte stores); Out = f32 (the float32 configurations'
+// W8A8 products, not a serving path) is stored from the registers, the
+// activation computed.
+template <int NC, int BN, int ST, typename In, typename Out>
+__device__ __forceinline__ void gemm_body(const CUtensorMap* tma_a, const CUtensorMap* tma_b,
+                                          int layer, const Out* __restrict__ bias,
+                                          const float* __restrict__ as,
+                                          const float* __restrict__ ws, Out* __restrict__ C,
+                                          int M, int N, int K, int act) {
+  constexpr bool kInt8 = std::is_same<In, int8_t>::value;
+  using Acc = typename std::conditional<kInt8, int, float>::type;
+  constexpr int BM = 64 * NC, CS = c_stride<BN>(), kKE = kBK * 2 / (int)sizeof(In);
   constexpr uint32_t kStageA = BM * kBK * 2, kStageB = BN * kBK * 2;
   extern __shared__ unsigned char smem_raw[];
   // the swizzled tiles start on a 1024-byte boundary
@@ -364,7 +445,7 @@ gemm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
   uint16_t* lut = reinterpret_cast<uint16_t*>(empty + ST);         // [kLutEntries]
   const int n_tiles = (N + BN - 1) / BN;
   const int tiles = ((M + BM - 1) / BM) * n_tiles;
-  const int nk = (K + kBK - 1) / kBK;
+  const int nk = (K + kKE - 1) / kKE;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST; ++s) {
@@ -379,9 +460,9 @@ gemm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
   // the (it / ST)-th use of that stage
   if (warp == 4 * NC) {                 // producer warp: one lane issues
     if (lane == 0) {
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tma_a))
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(tma_a))
                    : "memory");
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tma_b))
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(tma_b))
                    : "memory");
       int it = 0;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
@@ -390,16 +471,18 @@ gemm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
           const int s = it % ST;
           if (it >= ST) mbar_wait(&empty[s], ((it / ST) + 1) & 1);
           mbar_expect_tx(&full[s], kStageA + kStageB);
-          tma_load_3d(sa + s * kStageA, &tma_a, &full[s], kt * kBK, m0, 0);
-          tma_load_3d(sb + s * kStageB, &tma_b, &full[s], kt * kBK, n0, layer);
+          tma_load_3d(sa + s * kStageA, tma_a, &full[s], kt * kKE, m0, 0);
+          tma_load_3d(sb + s * kStageB, tma_b, &full[s], kt * kKE, n0, layer);
         }
       }
     }
     return;
   }
 
-  // the activation table, read after the first tile's consumers_sync
-  const bool use_lut = act == ACT_GELU || act == ACT_SILU;
+  // the activation table (bf16 outputs), read after the first tile's
+  // consumers_sync
+  const bool use_lut =
+      std::is_same<Out, bf16>::value && (act == ACT_GELU || act == ACT_SILU);
   if (use_lut)
     for (int i = threadIdx.x; i < kLutEntries; i += NC * 128) {
       const uint32_t sign = i / (kLutExps * 128), r = i % (kLutExps * 128);
@@ -412,9 +495,9 @@ gemm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
   int it = 0;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int m0 = (t / n_tiles) * BM, n0 = (t % n_tiles) * BN;
-    float d[BN / 2];
+    Acc d[BN / 2];
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
+    for (int i = 0; i < BN / 2; ++i) d[i] = 0;
     fence_acc(d);
     for (int kt = 0; kt < nk; ++kt, ++it) {
       const int s = it % ST;
@@ -423,7 +506,7 @@ gemm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
       const unsigned char* b = sb + s * kStageB;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk)          // 16 of K = 32 bytes
+      for (int kk = 0; kk < 4; ++kk)                 // 32 bytes of K a step
         wgmma_tile<BN>(d, sw128_desc(a + kk * 32), sw128_desc(b + kk * 32));
       wgmma_commit();
       // the previous slice's group is done: its stage goes back
@@ -435,46 +518,102 @@ gemm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
     fence_acc(d);
     if (leader) mbar_arrive(&empty[(it - 1) % ST]);
 
-    // epilogue, 1: round(acc) + bias in bf16 into the output tile; lane
-    // (warp wi, quad lane q) holds rows r and r + 8, columns 8j + 2q and
-    // 8j + 2q + 1 of every 8-column group j (d[4j .. 4j+3])
+    // epilogue, 1: lane (warp wi, quad lane q) holds rows r and r + 8,
+    // columns 8j + 2q and 8j + 2q + 1 of every 8-column group j
+    // (d[4j .. 4j+3])
     const int q = lane & 3, rl = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+    float rs[2] = {1.f, 1.f};           // the int8 rows' scales
+    if constexpr (kInt8) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) rs[h] = m0 + rl + 8 * h < M ? as[m0 + rl + 8 * h] : 0.f;
+    }
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int nl = 8 * j + 2 * q;
-      float b0 = 0.f, b1 = 0.f;
+      float b0 = 0.f, b1 = 0.f, w0 = 1.f, w1 = 1.f;
       if (n0 + nl < N) {
-        const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(bias + n0 + nl);
-        b0 = __low2float(bb);
-        b1 = __high2float(bb);
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<uint32_t*>(ct + (rl + 8 * h) * CS + nl) = attn_core::pack_bf16x2(
-            epilogue_v<bf16>(d[4 * j + 2 * h], b0, ACT_NONE),
-            epilogue_v<bf16>(d[4 * j + 2 * h + 1], b1, ACT_NONE));
-    }
-    consumers_sync<NC>();
-    // 2: the activation, rounded, and 16-byte stores, a warp writing 512
-    // contiguous bytes of a row
-    for (int c = threadIdx.x; c < BM * BN / 8; c += NC * 128) {
-      const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
-      const int m = m0 + r, n = n0 + col;
-      if (m < M && n < N) {
-        uint4 u = *reinterpret_cast<const uint4*>(ct + r * CS + col);
-        if (act != ACT_NONE) {
-          uint32_t* w = reinterpret_cast<uint32_t*>(&u);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            w[i] = use_lut ? act_lookup(lut, w[i] & 0xffffu, act) |
-                                 (act_lookup(lut, w[i] >> 16, act) << 16)
-                           : act_bits(w[i] & 0xffffu, act) | (act_bits(w[i] >> 16, act) << 16);
+        if constexpr (std::is_same<Out, bf16>::value) {
+          const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(bias + n0 + nl);
+          b0 = __low2float(bb);
+          b1 = __high2float(bb);
+        } else {
+          const float2 bb = *reinterpret_cast<const float2*>(bias + n0 + nl);
+          b0 = bb.x;
+          b1 = bb.y;
         }
-        *reinterpret_cast<uint4*>(C + (size_t)m * N + n) = u;
+        if constexpr (kInt8) {
+          const float2 ww = *reinterpret_cast<const float2*>(ws + n0 + nl);
+          w0 = ww.x;
+          w1 = ww.y;
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v0, v1;
+        if constexpr (kInt8) {
+          v0 = __fmul_rn(__fmul_rn(__int2float_rn(d[4 * j + 2 * h]), rs[h]), w0);
+          v1 = __fmul_rn(__fmul_rn(__int2float_rn(d[4 * j + 2 * h + 1]), rs[h]), w1);
+        } else {
+          v0 = d[4 * j + 2 * h];
+          v1 = d[4 * j + 2 * h + 1];
+        }
+        if constexpr (std::is_same<Out, bf16>::value) {
+          // round(v) + bias in bf16 into the output tile
+          *reinterpret_cast<uint32_t*>(ct + (rl + 8 * h) * CS + nl) = attn_core::pack_bf16x2(
+              epilogue_v<bf16>(v0, b0, ACT_NONE), epilogue_v<bf16>(v1, b1, ACT_NONE));
+        } else {
+          const int m = m0 + rl + 8 * h, n = n0 + nl;
+          if (m < M && n < N)
+            *reinterpret_cast<float2*>(C + (size_t)m * N + n) =
+                make_float2(epilogue_v<float>(v0, b0, act), epilogue_v<float>(v1, b1, act));
+        }
       }
     }
-    consumers_sync<NC>();               // the tile is read before the next is written
+    if constexpr (std::is_same<Out, bf16>::value) {
+      consumers_sync<NC>();
+      // 2: the activation, rounded, and 16-byte stores, a warp writing 512
+      // contiguous bytes of a row
+      for (int c = threadIdx.x; c < BM * BN / 8; c += NC * 128) {
+        const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
+        const int m = m0 + r, n = n0 + col;
+        if (m < M && n < N) {
+          uint4 u = *reinterpret_cast<const uint4*>(ct + r * CS + col);
+          if (act != ACT_NONE) {
+            uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              w[i] = use_lut ? act_lookup(lut, w[i] & 0xffffu, act) |
+                                   (act_lookup(lut, w[i] >> 16, act) << 16)
+                             : act_bits(w[i] & 0xffffu, act) | (act_bits(w[i] >> 16, act) << 16);
+          }
+          *reinterpret_cast<uint4*>(C + (size_t)m * N + n) = u;
+        }
+      }
+      consumers_sync<NC>();             // the tile is read before the next is written
+    }
   }
+}
+
+template <int NC, int BN, int ST>
+__global__ void __launch_bounds__(NC * 128 + 32, (blocks_per_sm<NC, BN, ST>()))
+gemm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
+                       const __grid_constant__ CUtensorMap tma_b, int layer,
+                       const bf16* __restrict__ bias, bf16* __restrict__ C, int M, int N,
+                       int K, int act) {
+  gemm_body<NC, BN, ST, bf16, bf16>(&tma_a, &tma_b, layer, bias, nullptr, nullptr, C, M, N, K,
+                                    act);
+}
+
+// W8A8: C = epilogue((Aq . Wt^T) * as[m] * ws[n]), Aq [M, K] and Wt
+// [L, N, K] int8 (layer `layer`), the sum exact in s32
+template <int NC, int BN, int ST, typename T>
+__global__ void __launch_bounds__(NC * 128 + 32, (blocks_per_sm<NC, BN, ST>()))
+gemm_int8_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
+                       const __grid_constant__ CUtensorMap tma_b, int layer,
+                       const float* __restrict__ as, const float* __restrict__ ws,
+                       const T* __restrict__ bias, T* __restrict__ C, int M, int N, int K,
+                       int act) {
+  gemm_body<NC, BN, ST, int8_t, T>(&tma_a, &tma_b, layer, bias, as, ws, C, M, N, K, act);
 }
 
 }  // namespace gemm90
@@ -536,8 +675,9 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
 // int8 x int8 -> int32 product (exact), f32 dequant.  The weights are
 // quantised once per params object by the wrapper
 // (ops/emformer_stack.py::_quantize_weight, a true division by the scale
-// as in the Pallas code) and stored transposed, Wt [N, K], so both
-// operand tiles are rows of K bytes.
+// as in the Pallas code) and stored transposed, Wt [N, K]: both operands
+// K-major, as wgmma takes 8-bit ones.  The product runs on
+// gemm_int8_wgmma_kernel (above).
 
 // One block per row of x [rows, K]: amax, then s = max(amax, 1e-8) *
 // (1/127) and xq = rint(x * (1/s)): the reciprocal is taken and then
@@ -568,95 +708,6 @@ quantize_rows_kernel(const Tin* __restrict__ x, int8_t* __restrict__ xq,
   int8_t* qr = xq + (size_t)row * K;
   for (int k = threadIdx.x; k < K; k += blockDim.x)
     qr[k] = (int8_t)__float2int_rn(__fmul_rn(to_f<Tin>(xr[k]), r));
-}
-
-// C[M,N] = epilogue((Aq[M,K] . Wt[N,K]^T) * as[m] * ws[n]): 128x128
-// block tile, 8 warps of 64x32 (WMMA s8 16x16x16, s32 accumulators), two
-// cp.async stages of 32 bytes of K.  Each stage keeps its two 16-byte K
-// halves in separate arrays, so every WMMA fragment starts on a 256-byte
-// boundary.  Needs K % 16 == 0 (whole 16-byte vectors; rows past M or N
-// and K halves past K are zero-filled).  Dequant (acc * s) * ws in f32
-// with no contraction, rounded to the compute type, then the bias in that
-// type (_qdot(...).astype(cdt) + b.astype(cdt)).
-constexpr int kQM = 128, kQN = 128, kQK = 32;
-
-template <typename T>
-__global__ void __launch_bounds__(256)
-gemm_int8_kernel(const int8_t* __restrict__ Aq, const float* __restrict__ As,
-                 const int8_t* __restrict__ Wt, const float* __restrict__ Ws,
-                 const T* __restrict__ bias, T* __restrict__ C, int M, int N,
-                 int K, int act) {
-  using namespace nvcuda;
-  __shared__ __align__(128) int8_t Aqs[2][2][kQM][16];   // [stage][k half][row][k]
-  __shared__ __align__(128) int8_t Bqs[2][2][kQN][16];   // [stage][k half][n][k]
-  __shared__ __align__(128) int Cw[8][16][16];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.y * kQM, n0 = blockIdx.x * kQN;
-
-  auto load_stage = [&](int stage, int k0) {
-    const int r = tid >> 1, h = tid & 1, k = k0 + 16 * h;
-    const bool oka = (m0 + r) < M && k < K;
-    cp_async16(&Aqs[stage][h][r][0], oka ? Aq + (size_t)(m0 + r) * K + k : Aq, oka);
-    const bool okb = (n0 + r) < N && k < K;
-    cp_async16(&Bqs[stage][h][r][0], okb ? Wt + (size_t)(n0 + r) * K + k : Wt, okb);
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
-
-  const int nk = (K + kQK - 1) / kQK;
-  load_stage(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < nk) {
-      load_stage(st ^ 1, (kt + 1) * kQK);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], &Aqs[st][h][wm * 64 + i * 16][0], 16);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], &Bqs[st][h][wn * 32 + j * 16][0], 16);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(&Cw[warp][0][0], acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        int idx = lane + 32 * e, r = idx >> 4, c = idx & 15;
-        int m = m0 + wm * 64 + i * 16 + r, n = n0 + wn * 32 + j * 16 + c;
-        if (m < M && n < N) {
-          const float v = __fmul_rn(__fmul_rn((float)Cw[warp][r][c], As[m]), Ws[n]);
-          C[(size_t)m * N + n] = epilogue<T>(v, bias, n, act);
-        }
-      }
-      __syncwarp();
-    }
 }
 
 // ------------------------------------------------- per-layer row kernels
@@ -1037,22 +1088,23 @@ struct MapEntry {
   CUtensorMap map;
   const void* ptr;
   uint64_t inner, rows, layers;
-  uint32_t box_rows;
+  uint32_t box_rows, elem_bytes;
 };
 constexpr int kMapCache = 256;
 std::mutex g_map_mu;
 MapEntry g_maps[kMapCache];
 int g_map_count = 0, g_map_next = 0;
 
-// The map of a bf16 tensor [layers, rows, inner] (inner contiguous) read
-// in boxes of 64 x box_rows x 1, 128-byte swizzled, zero past the edges.
+// The map of a bf16 (elem_bytes 2) or int8 (1) tensor [layers, rows,
+// inner] (inner contiguous) read in boxes of 128 bytes x box_rows x 1,
+// 128-byte swizzled, zero past the edges.
 int tensor_map(CUtensorMap* out, const void* ptr, uint64_t inner, uint64_t rows,
-               uint64_t layers, uint32_t box_rows) {
+               uint64_t layers, uint32_t box_rows, uint32_t elem_bytes) {
   std::lock_guard<std::mutex> lock(g_map_mu);
   for (int i = 0; i < g_map_count; ++i) {
     const MapEntry& m = g_maps[i];
     if (m.ptr == ptr && m.inner == inner && m.rows == rows && m.layers == layers &&
-        m.box_rows == box_rows) {
+        m.box_rows == box_rows && m.elem_bytes == elem_bytes) {
       *out = m.map;
       return 0;
     }
@@ -1060,11 +1112,13 @@ int tensor_map(CUtensorMap* out, const void* ptr, uint64_t inner, uint64_t rows,
   static EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return kErrDriver;
   const cuuint64_t dims[3] = {inner, rows, layers};
-  const cuuint64_t strides[2] = {inner * 2, inner * rows * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)gemm90::kBK, box_rows, 1};
+  const cuuint64_t strides[2] = {inner * elem_bytes, inner * rows * elem_bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)(gemm90::kBK * 2 / elem_bytes), box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   MapEntry e;
-  if (encode(&e.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+  if (encode(&e.map,
+             elem_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             3, const_cast<void*>(ptr), dims,
              strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
       CUDA_SUCCESS)
@@ -1074,6 +1128,7 @@ int tensor_map(CUtensorMap* out, const void* ptr, uint64_t inner, uint64_t rows,
   e.rows = rows;
   e.layers = layers;
   e.box_rows = box_rows;
+  e.elem_bytes = elem_bytes;
   const int slot = g_map_count < kMapCache ? g_map_count++ : (g_map_next++ % kMapCache);
   g_maps[slot] = e;
   *out = e.map;
@@ -1083,7 +1138,8 @@ int tensor_map(CUtensorMap* out, const void* ptr, uint64_t inner, uint64_t rows,
 // The tile shapes: consumer warpgroups NC (the tile is BM = 64 NC rows),
 // BN columns, and as many stages as fit beside the output tile in shared
 // memory, for one block per SM (the 128-row tiles, and 64x256) or two
-// (64x128).
+// (64x128).  The bf16 and the int8 kernels of a shape take the same
+// shared memory (a stage is 128 bytes of K a row in both).
 constexpr int kGemmCfgs = 4;
 constexpr int kCfgBM[kGemmCfgs] = {128, 128, 64, 64};
 constexpr int kCfgBN[kGemmCfgs] = {256, 128, 256, 128};
@@ -1095,11 +1151,15 @@ struct GemmSetup {
 
 template <int NC, int BN, int ST>
 int gemm_setup_one(int* blocks) {
-  auto kernel = gemm90::gemm_bf16_wgmma_kernel<NC, BN, ST>;
   const int smem = (int)gemm90::smem_bytes<NC, BN, ST>();
-  int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int e = 0;
+  for (const void* k : {(const void*)gemm90::gemm_int8_wgmma_kernel<NC, BN, ST, bf16>,
+                        (const void*)gemm90::gemm_int8_wgmma_kernel<NC, BN, ST, float>,
+                        (const void*)gemm90::gemm_bf16_wgmma_kernel<NC, BN, ST>})
+    if (e == 0) e = (int)cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == 0)
-    e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, NC * 128 + 32, smem);
+    e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, gemm90::gemm_bf16_wgmma_kernel<NC, BN, ST>, NC * 128 + 32, smem);
   return e == 0 && *blocks < 1 ? kErrShape : e;
 }
 
@@ -1125,22 +1185,26 @@ long gemm_tiles(int i, int M, int N) {
   return (long)((M + kCfgBM[i] - 1) / kCfgBM[i]) * ((N + kCfgBN[i] - 1) / kCfgBN[i]);
 }
 
-// The tile of an [M, N] product with K-deep sums.  A product with fewer
+// The tile of an [M, N] product whose rows hold kbytes of K (2K in bf16,
+// K in int8).  A product with fewer
 // 128x128 tiles than SMs cannot fill the card with 128-row tiles: it
-// takes 64-row ones, 64x256 for long sums (K >= 1024, bound by the bytes
-// each SM loads, where the wider tile loads fewer per operation), else
+// takes 64-row ones, 64x256 for long rows (2 KB and more: bound by the
+// bytes each SM loads, where the wider tile loads fewer per operation), else
 // 64x128 (two blocks an SM, where the fixed cost of a tile, its first
 // loads and its epilogue, counts most).  Any other takes the 128-row tile
 // with the shortest makespan: rounds of tiles over the SMs times the
-// tile's area, the larger tile on a tie (fewer bytes per operation).
-int gemm_config(const GemmSetup& s, int M, int N, int K) {
-  if (gemm_tiles(1, M, N) < s.sms) return K >= 1024 ? 2 : 3;
+// tile's area.  On a tie, rows of 1 KB of K and more take the larger tile
+// (fewer bytes per operation); shorter ones (the int8 products at K =
+// 512: four slices a tile) the smaller, whose epilogue, the per-tile cost
+// there, is half as long.
+int gemm_config(const GemmSetup& s, int M, int N, int kbytes) {
+  if (gemm_tiles(1, M, N) < s.sms) return kbytes >= 2048 ? 2 : 3;
   int best = 0;
   long best_cost = -1;
   for (int i = 0; i < 2; ++i) {
     const long rounds = (gemm_tiles(i, M, N) + s.sms - 1) / s.sms;
     const long cost = rounds * kCfgBM[i] * kCfgBN[i];
-    if (best_cost < 0 || cost < best_cost) {
+    if (best_cost < 0 || cost < best_cost || (cost == best_cost && kbytes < 1024)) {
       best = i;
       best_cost = cost;
     }
@@ -1152,8 +1216,8 @@ template <int NC, int BN, int ST>
 int launch_gemm(const GemmSetup& s, int cfg, const bf16* A, const bf16* Wt, int L, int layer,
                 const bf16* bias, bf16* C, int M, int N, int K, int act, cudaStream_t st) {
   CUtensorMap ta, tb;
-  CHECK_RC(tensor_map(&ta, A, K, M, 1, 64 * NC));
-  CHECK_RC(tensor_map(&tb, Wt, K, N, L, BN));
+  CHECK_RC(tensor_map(&ta, A, K, M, 1, 64 * NC, 2));
+  CHECK_RC(tensor_map(&tb, Wt, K, N, L, BN, 2));
   const long tiles = gemm_tiles(cfg, M, N), slots = (long)s.sms * s.blocks[cfg];
   const int grid = (int)(tiles < slots ? tiles : slots);
   gemm90::gemm_bf16_wgmma_kernel<NC, BN, ST>
@@ -1169,7 +1233,7 @@ int gemm_bf16_cfg(int cfg, const bf16* A, const bf16* Wt, int L, int layer, cons
     return kErrShape;
   const GemmSetup& s = gemm_setup();
   CHECK_RC(s.status);
-  if (cfg < 0) cfg = gemm_config(s, M, N, K);
+  if (cfg < 0) cfg = gemm_config(s, M, N, 2 * K);
   switch (cfg) {
     case 0: return launch_gemm<2, 256, 3>(s, cfg, A, Wt, L, layer, bias, C, M, N, K, act, st);
     case 1: return launch_gemm<2, 128, 5>(s, cfg, A, Wt, L, layer, bias, C, M, N, K, act, st);
@@ -1199,19 +1263,44 @@ int gemm<float>(const float* A, const float* W, int L, int layer, const float* b
   return (int)cudaGetLastError();
 }
 
-// W8A8 product: quantise the rows of A [M, K] (f32 or compute type), then
-// the int8 GEMM with the dequant epilogue
-template <typename T, typename Tin>
-int qgemm(const Tin* A, int8_t* aq, float* as, const int8_t* wt, const float* ws,
-          const T* bias, T* C, int M, int N, int K, int act, cudaStream_t st) {
-  if (K % 16 != 0 || aq == nullptr || as == nullptr || wt == nullptr || ws == nullptr)
-    return kErrShape;
-  quantize_rows_kernel<Tin><<<M, 256, 0, st>>>(A, aq, as, K);
-  int e = (int)cudaGetLastError();
-  if (e != 0) return e;
-  dim3 grid((N + kQN - 1) / kQN, (M + kQM - 1) / kQM);
-  gemm_int8_kernel<T><<<grid, 256, 0, st>>>(aq, as, wt, ws, bias, C, M, N, K, act);
+template <int NC, int BN, int ST, typename T>
+int launch_qgemm(const GemmSetup& s, int cfg, const int8_t* Aq, const float* as,
+                 const int8_t* Wt, int L, int layer, const float* ws, const T* bias, T* C,
+                 int M, int N, int K, int act, cudaStream_t st) {
+  CUtensorMap ta, tb;
+  CHECK_RC(tensor_map(&ta, Aq, K, M, 1, 64 * NC, 1));
+  CHECK_RC(tensor_map(&tb, Wt, K, N, L, BN, 1));
+  const long tiles = gemm_tiles(cfg, M, N), slots = (long)s.sms * s.blocks[cfg];
+  const int grid = (int)(tiles < slots ? tiles : slots);
+  gemm90::gemm_int8_wgmma_kernel<NC, BN, ST, T>
+      <<<grid, NC * 128 + 32, gemm90::smem_bytes<NC, BN, ST>(), st>>>(ta, tb, layer, as, ws,
+                                                                      bias, C, M, N, K, act);
   return (int)cudaGetLastError();
+}
+
+// W8A8 product: quantise the rows of A [M, K] (f32 or compute type) into
+// aq / as, then the int8 wgmma GEMM with the dequant epilogue on Wt [L,
+// N, K] (layer `layer`; ws is that layer's scales), on tile configuration
+// cfg (-1: gemm_config's choice).  Needs K % 16 == 0 (16-byte TMA
+// strides) and N % 8 == 0 (whole 16-byte output vectors).
+template <typename T, typename Tin>
+int qgemm(int cfg, const Tin* A, int8_t* aq, float* as, const int8_t* wt, int L, int layer,
+          const float* ws, const T* bias, T* C, int M, int N, int K, int act,
+          cudaStream_t st) {
+  if (K % 16 != 0 || N % 8 != 0 || M <= 0 || N <= 0 || K <= 0 || cfg < -1 ||
+      cfg >= kGemmCfgs || aq == nullptr || as == nullptr || wt == nullptr || ws == nullptr)
+    return kErrShape;
+  const GemmSetup& s = gemm_setup();
+  CHECK_RC(s.status);
+  if (cfg < 0) cfg = gemm_config(s, M, N, K);
+  quantize_rows_kernel<Tin><<<M, 256, 0, st>>>(A, aq, as, K);
+  CHECK_LAUNCH();
+  switch (cfg) {
+    case 0: return launch_qgemm<2, 256, 3>(s, cfg, aq, as, wt, L, layer, ws, bias, C, M, N, K, act, st);
+    case 1: return launch_qgemm<2, 128, 5>(s, cfg, aq, as, wt, L, layer, ws, bias, C, M, N, K, act, st);
+    case 2: return launch_qgemm<1, 256, 4>(s, cfg, aq, as, wt, L, layer, ws, bias, C, M, N, K, act, st);
+    default: return launch_qgemm<1, 128, 3>(s, cfg, aq, as, wt, L, layer, ws, bias, C, M, N, K, act, st);
+  }
 }
 
 size_t ln_smem_bytes(const EmformerStackArgs& a) {
@@ -1271,7 +1360,6 @@ int run_layer(const EmformerStackArgs& a, int l, const float* src, int reorder,
   const T* mem_in = (const T*)a.mem_in + sMem;
   const T* lck_in = (const T*)a.lck_in + sLc;
   const T* lcv_in = (const T*)a.lcv_in + sLc;
-  const size_t wDD = (size_t)l * D * D, wDF = (size_t)l * D * F;
   const int rows_per_block = 4;          // warps per block in row kernels
 
   ln_in_kernel<T><<<B, 256, ln_smem_bytes(a), st>>>(
@@ -1280,13 +1368,15 @@ int run_layer(const EmformerStackArgs& a, int l, const float* src, int reorder,
       (qz & kQWq) ? a.q_in32 : nullptr, D, U, R, M, a.use_mem);
   CHECK_LAUNCH();
   if (qz & kQWq)
-    CHECK_RC((qgemm<T, float>(a.q_in32, a.aq, a.a_scale, a.wq8 + wDD, a.wq_s + (size_t)l * D,
-                             bq + (size_t)l * D, q, B * Q, D, D, ACT_NONE, st)));
+    CHECK_RC((qgemm<T, float>(-1, a.q_in32, a.aq, a.a_scale, a.wq8, a.L, l,
+                             a.wq_s + (size_t)l * D, bq + (size_t)l * D, q, B * Q, D, D,
+                             ACT_NONE, st)));
   else
     CHECK_RC(gemm<T>(q_in, wq, a.L, l, bq + (size_t)l * D, q, B * Q, D, D, ACT_NONE, st));
   if (qz & kQWkv)
-    CHECK_RC((qgemm<T, T>(kv_in, a.aq, a.a_scale, a.wkv8 + 2 * wDD, a.wkv_s + (size_t)l * 2 * D,
-                         bkv + (size_t)l * 2 * D, kv, B * NKV, 2 * D, D, ACT_NONE, st)));
+    CHECK_RC((qgemm<T, T>(-1, kv_in, a.aq, a.a_scale, a.wkv8, a.L, l,
+                         a.wkv_s + (size_t)l * 2 * D, bkv + (size_t)l * 2 * D, kv, B * NKV,
+                         2 * D, D, ACT_NONE, st)));
   else
     CHECK_RC(gemm<T>(kv_in, wkv, a.L, l, bkv + (size_t)l * 2 * D, kv, B * NKV, 2 * D, D,
                      ACT_NONE, st));
@@ -1298,8 +1388,9 @@ int run_layer(const EmformerStackArgs& a, int l, const float* src, int reorder,
   CHECK_LAUNCH();
   CHECK_RC(attention<T>(a, q, kv, lck_in, lcv_in, attn, st));
   if (qz & kQWout)
-    CHECK_RC((qgemm<T, T>(attn, a.aq, a.a_scale, a.wout8 + wDD, a.wout_s + (size_t)l * D,
-                         bout + (size_t)l * D, out, B * Q, D, D, ACT_NONE, st)));
+    CHECK_RC((qgemm<T, T>(-1, attn, a.aq, a.a_scale, a.wout8, a.L, l,
+                         a.wout_s + (size_t)l * D, bout + (size_t)l * D, out, B * Q, D, D,
+                         ACT_NONE, st)));
   else
     CHECK_RC(gemm<T>(attn, wout, a.L, l, bout + (size_t)l * D, out, B * Q, D, D, ACT_NONE,
                      st));
@@ -1309,13 +1400,14 @@ int run_layer(const EmformerStackArgs& a, int l, const float* src, int reorder,
       ff_in, (qz & kQW1) ? a.ff_in32 : nullptr, B, D, Tr, a.use_mem, a.tanh_on_mem);
   CHECK_LAUNCH();
   if (qz & kQW1)
-    CHECK_RC((qgemm<T, float>(a.ff_in32, a.aq, a.a_scale, a.w18 + wDF, a.w1_s + (size_t)l * F,
-                             b1 + (size_t)l * F, h1, B * Tr, F, D, a.activation, st)));
+    CHECK_RC((qgemm<T, float>(-1, a.ff_in32, a.aq, a.a_scale, a.w18, a.L, l,
+                             a.w1_s + (size_t)l * F, b1 + (size_t)l * F, h1, B * Tr, F, D,
+                             a.activation, st)));
   else
     CHECK_RC(gemm<T>(ff_in, w1, a.L, l, b1 + (size_t)l * F, h1, B * Tr, F, D, a.activation,
                      st));
   if (qz & kQW2)
-    CHECK_RC((qgemm<T, T>(h1, a.aq, a.a_scale, a.w28 + wDF, a.w2_s + (size_t)l * D,
+    CHECK_RC((qgemm<T, T>(-1, h1, a.aq, a.a_scale, a.w28, a.L, l, a.w2_s + (size_t)l * D,
                          b2 + (size_t)l * D, h2, B * Tr, D, F, ACT_NONE, st)));
   else
     CHECK_RC(gemm<T>(h1, w2, a.L, l, b2 + (size_t)l * D, h2, B * Tr, D, F, ACT_NONE, st));
@@ -1376,20 +1468,22 @@ extern "C" int asr_emformer_layer(const EmformerStackArgs* a) {
 }
 
 // The W8A8 product alone (quantise the rows of x, int8 GEMM, dequant +
-// bias + activation), for tests and timing.  x_is_f32: x is f32 (else
-// the compute type); dtype as in EmformerStackArgs.
+// bias + activation), as run_layer runs each, for tests and timing.
+// x_is_f32: x is f32 (else the compute type); dtype as in
+// EmformerStackArgs; wt [N, K] int8; cfg the tile configuration as in
+// asr_gemm_bf16 (-1: the one run_layer picks).
 extern "C" int asr_w8a8_linear(int dtype, int x_is_f32, const void* x, int8_t* aq,
                                float* as, const int8_t* wt, const float* ws,
                                const void* bias, void* y, int M, int N, int K, int act,
-                               void* stream) {
+                               int cfg, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
-    return x_is_f32 ? qgemm<bf16, float>((const float*)x, aq, as, wt, ws,
+    return x_is_f32 ? qgemm<bf16, float>(cfg, (const float*)x, aq, as, wt, 1, 0, ws,
                                          (const bf16*)bias, (bf16*)y, M, N, K, act, st)
-                    : qgemm<bf16, bf16>((const bf16*)x, aq, as, wt, ws, (const bf16*)bias,
-                                        (bf16*)y, M, N, K, act, st);
+                    : qgemm<bf16, bf16>(cfg, (const bf16*)x, aq, as, wt, 1, 0, ws,
+                                        (const bf16*)bias, (bf16*)y, M, N, K, act, st);
   if (dtype == 0)
-    return qgemm<float, float>((const float*)x, aq, as, wt, ws, (const float*)bias,
+    return qgemm<float, float>(cfg, (const float*)x, aq, as, wt, 1, 0, ws, (const float*)bias,
                                (float*)y, M, N, K, act, st);
   return kErrShape;
 }
@@ -1404,11 +1498,12 @@ extern "C" int asr_gemm_bf16(const void* x, const void* wt, const void* bias, vo
                        (bf16*)y, M, N, K, act, (cudaStream_t)stream);
 }
 
-// The tile configuration run_layer picks for an [M, N] product with
-// K-deep sums (a negative error code if the kernels cannot be set up).
-extern "C" int asr_gemm_bf16_config(int M, int N, int K) {
+// The tile configuration run_layer picks for an [M, N] product whose rows
+// hold kbytes of K (2K in bf16, K in int8); a negative error code if the
+// kernels cannot be set up.
+extern "C" int asr_gemm_config(int M, int N, int kbytes) {
   const GemmSetup& s = gemm_setup();
-  return s.status > 0 ? -s.status : s.status < 0 ? s.status : gemm_config(s, M, N, K);
+  return s.status > 0 ? -s.status : s.status < 0 ? s.status : gemm_config(s, M, N, kbytes);
 }
 
 extern "C" const char* asr_cuda_error_string(int code) {

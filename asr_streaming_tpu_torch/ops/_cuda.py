@@ -125,7 +125,7 @@ def lib() -> ctypes.CDLL:
             getattr(handle, name).argtypes = [ctypes.c_void_p]
             getattr(handle, name).restype = ctypes.c_int
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        handle.asr_w8a8_linear.argtypes = [i32, i32] + [ptr] * 7 + [i32] * 4 \
+        handle.asr_w8a8_linear.argtypes = [i32, i32] + [ptr] * 7 + [i32] * 5 \
             + [ptr]
         handle.asr_w8a8_linear.restype = i32
         handle.asr_emformer_attention.argtypes = [ptr] * 6 + [i32] * 9 + [
@@ -133,8 +133,8 @@ def lib() -> ctypes.CDLL:
         handle.asr_emformer_attention.restype = i32
         handle.asr_gemm_bf16.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
         handle.asr_gemm_bf16.restype = i32
-        handle.asr_gemm_bf16_config.argtypes = [i32] * 3
-        handle.asr_gemm_bf16_config.restype = i32
+        handle.asr_gemm_config.argtypes = [i32] * 3
+        handle.asr_gemm_config.restype = i32
         handle.asr_emission_append.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,

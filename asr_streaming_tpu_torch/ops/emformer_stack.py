@@ -451,13 +451,15 @@ def run_chain(entry: str, w: dict, qw: dict, x, length, reset, advance, mem,
 
 
 def w8a8_linear(x2d: torch.Tensor, q: tuple, bias: torch.Tensor,
-                cdt: torch.dtype, activation: Optional[str] = None
-                ) -> torch.Tensor:
+                cdt: torch.dtype, activation: Optional[str] = None,
+                config: Optional[int] = None) -> torch.Tensor:
     """One W8A8 product with the kernel's epilogue,
     act(_qdot(x2d, w8, scale).to(cdt) + bias.to(cdt)), for tests and
     timing.  x2d [rows, K] f32 or cdt; q = (w8, scale, w8t) from
     ``quantized_weights``.  CUDA tensor -> the row quantiser and the int8
-    GEMM of csrc/emformer_stack.cu, CPU tensor -> plain version."""
+    wgmma GEMM of csrc/emformer_stack.cu on the tile ``run_layer`` picks,
+    or on ``GEMM_TILES[config]``; CPU tensor -> plain version."""
+    _check_config(config, "w8a8_linear")
     if x2d.device.type == "cpu":
         y = _qdot(x2d.to(torch.float32), q[0], q[1]).to(cdt) + bias.to(cdt)
         return _act(activation)(y) if activation else y
@@ -466,10 +468,11 @@ def w8a8_linear(x2d: torch.Tensor, q: tuple, bias: torch.Tensor,
     w8t, scale = q[2], q[1].contiguous()
     M, K = x2d.shape
     N = w8t.shape[0]
-    if cdt not in (torch.bfloat16, torch.float32) or K % 16 or \
+    if cdt not in (torch.bfloat16, torch.float32) or K % 16 or N % 8 or \
             tuple(w8t.shape) != (N, K):
         raise ValueError(f"w8a8_linear: x {tuple(x2d.shape)}, w8t "
-                         f"{tuple(w8t.shape)}, {cdt}")
+                         f"{tuple(w8t.shape)}, {cdt} (K must be a multiple "
+                         f"of 16, N of 8)")
     x_f32 = x2d.dtype == torch.float32 or cdt == torch.float32
     x2d = x2d.to(torch.float32 if x_f32 else cdt).contiguous()
     bias = bias.to(cdt).contiguous()
@@ -481,6 +484,7 @@ def w8a8_linear(x2d: torch.Tensor, q: tuple, bias: torch.Tensor,
         aq.data_ptr(), a_scale.data_ptr(), w8t.data_ptr(), scale.data_ptr(),
         bias.data_ptr(), y.data_ptr(), M, N, K,
         _ACTS[activation] if activation else 0,
+        -1 if config is None else config,
         torch.cuda.current_stream(x2d.device).cuda_stream), "w8a8_linear")
     return y
 
@@ -512,16 +516,25 @@ def gemm_bf16_error_bound(x2d: torch.Tensor, w: torch.Tensor,
     return (2 * ulp + slack) * (2 if activation else 1)
 
 
-# the wgmma GEMM's tile configurations (rows x columns), by index
+# the wgmma GEMM's tile configurations (rows x columns), by index; the
+# bf16 and the int8 (W8A8) products take the same ones
 GEMM_TILES = ((128, 256), (128, 128), (64, 256), (64, 128))
 
 
-def gemm_bf16_config(M: int, N: int, K: int) -> int:
+def _check_config(config: Optional[int], what: str) -> None:
+    if config is not None and config not in range(len(GEMM_TILES)):
+        raise ValueError(f"{what}: config {config} not in "
+                         f"0..{len(GEMM_TILES) - 1}")
+
+
+def gemm_config(M: int, N: int, K: int,
+                dtype: torch.dtype = torch.bfloat16) -> int:
     """The index in ``GEMM_TILES`` of the tile ``run_layer``'s GEMM takes
-    for an [M, N] product with K-deep sums on this card (``gemm_config``
-    in csrc/emformer_stack.cu)."""
-    rc = _cuda.lib().asr_gemm_bf16_config(M, N, K)
-    _cuda.check(min(rc, 0), "gemm_bf16_config")
+    for an [M, N] product with K-deep sums of ``dtype`` on this card:
+    bf16, or int8 for a W8A8 product (``gemm_config`` in
+    csrc/emformer_stack.cu reads the bytes of a row)."""
+    rc = _cuda.lib().asr_gemm_config(M, N, K * dtype.itemsize)
+    _cuda.check(min(rc, 0), "gemm_config")
     return rc
 
 
@@ -534,6 +547,7 @@ def gemm_bf16(x2d: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     bf16.  CUDA tensor -> the wgmma GEMM of csrc/emformer_stack.cu on the
     tile ``run_layer`` picks, or on ``GEMM_TILES[config]``; CPU tensor ->
     ``gemm_bf16_plain``."""
+    _check_config(config, "gemm_bf16")
     if x2d.device.type == "cpu":
         return gemm_bf16_plain(x2d, w, bias, activation)
     if x2d.device.type != "cuda":
@@ -545,9 +559,6 @@ def gemm_bf16(x2d: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"gemm_bf16: x {tuple(x2d.shape)}, w "
                          f"{tuple(w.shape)}, bias {tuple(bias.shape)} (K and "
                          f"N must be multiples of 8)")
-    if config is not None and config not in range(len(GEMM_TILES)):
-        raise ValueError(f"gemm_bf16: config {config} not in "
-                         f"0..{len(GEMM_TILES) - 1}")
     x2d = x2d.to(torch.bfloat16).contiguous()
     wt = _kernel_tensor(w, torch.bfloat16, transpose=True)
     bias = bias.to(torch.bfloat16).contiguous()

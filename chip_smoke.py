@@ -15,7 +15,7 @@ Phases (any failure exits non-zero; nothing is caught):
      device times (torch.profiler, kernel execution only), the plain
      version's time, the card's bound and a library yardstick where one
      PyTorch call computes the same function, plus a device-time
-     breakdown by kernel and the int8 product beside torch._int_mm;
+     breakdown by kernel;
      A's parts (its bf16 GEMMs, its attention, the rest) from the profile
      at VI and EN, and D in bf16 in/out (bit for bit the f32 kernel on
      the widened inputs, then cast) beside SDPA on the same tensors;
@@ -26,6 +26,12 @@ Phases (any failure exits non-zero; nothing is caught):
      f32 sum order differs), timed beside its plain version and
      torch.matmul on the same bf16 operands (``--only gemm``: this phase
      alone);
+  3c. A-int8's product alone (the row quantiser and the int8 wgmma GEMM,
+     entry asr_w8a8_linear) at the same ten shapes, a ragged one and the
+     tiny test geometry, on the picked tile and each tile forced, equal
+     bit for bit to _qdot + bias, the GEMM and the quantiser timed apart,
+     beside torch._int_mm on the same int8 operands, a bf16 torch.matmul
+     and the bound at the int8 peak (``--only int8``: this phase alone);
   4. the Vietnamese CTC serving tick at full width (512 slots, 20 layers,
      bf16, random weights from --seed): 10 ticks of the default route
      (stack), then a few of each other route: stack+int8,
@@ -71,6 +77,11 @@ PEAK_INT8_OPS = 1979e12       # dense int8 tensor-core peak
 PEAK_F32_FLOPS = 67e12        # f32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # HBM3
 B_SLOTS = 512                 # server-vi.yaml's max_active_connections
+# kernels one call of A launches (device_times' ``need``): its GEMM,
+# attention and state roll, in bf16 and in W8A8 mode
+A_KERNELS = ("gemm_bf16_wgmma", "attention_kernel", "state_roll")
+A_INT8_KERNELS = ("gemm_int8_wgmma", "quantize_rows", "attention_kernel",
+                  "state_roll")
 
 
 def fail(msg: str) -> None:
@@ -97,19 +108,26 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_times(fn, iters: int = 1, need: str = ""):
+def device_times(fn, iters: int = 1, need=""):
     """Device time per call of fn, by kernel name, from torch.profiler's
     CUDA activity (kernel execution only: host gaps between launches do
-    not count).  Returns (ms per call, [(ms per call, launches, name)]).
+    not count).  Returns (ms per call, [(ms per call, launches per call,
+    name)]): a kernel's mean time per launch times its launches per call
+    (its records over ``iters``, rounded), so a dropped record does not
+    bias it.
     Each call is waited for before the next is queued: with the launch
     queue full, the profiler dropped kernel records.  A profile with no
-    kernel record (or none whose name holds ``need``) is taken again, up
-    to three times."""
+    kernel record (or none whose name holds ``need``, or one of the names
+    of a tuple ``need``) is taken again, up to five times: a profile of
+    short calls now and then records nothing.  Five such profiles fail
+    the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(5):
+        if attempt:
+            time.sleep(0.1)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -122,31 +140,38 @@ def device_times(fn, iters: int = 1, need: str = ""):
             if t > 0:
                 name = e.key.replace("(anonymous namespace)::", "").replace(
                     "void ", "").split("(")[0][-70:]
-                rows.append((t / 1e3 / iters, e.count // iters, name))
-        if rows and any(need in r[2] for r in rows):
+                per_call = max(1, round(e.count / iters))
+                rows.append((t / 1e3 / e.count * per_call, per_call, name))
+        needs = (need,) if isinstance(need, str) else need
+        if rows and all(any(n in r[2] for r in rows) for n in needs):
             rows.sort(reverse=True)
             return sum(r[0] for r in rows), rows
-    fail(f"three profiles of {getattr(fn, '__name__', 'a call')} held no "
-         f"kernel records{' of ' + need if need else ''}")
+    fail(f"five profiles of {getattr(fn, '__name__', 'a call')} held no "
+         f"kernel records{' of ' + str(need) if need else ''}")
 
 
-def stack_parts(fn, label: str, attn_bytes: float):
+def stack_parts(fn, label: str, attn_bytes: float, need=A_KERNELS):
     """Device time of one call of kernel A by part, from the profile: its
-    bf16 GEMMs, its attention (beside the bytes bound of ``attn_bytes``)
-    and the rest (LNs, state roll, and anything else the call launches).
-    Returns {part: {"ms": ms}}, the attention's with its "bound_ms"."""
-    total, rows = device_times(fn, 3, need="attention_kernel")
-    parts = {"gemm": 0.0, "attention": 0.0}
+    bf16 GEMMs, its int8 GEMMs and row quantiser (W8A8 mode), its
+    attention (beside the bytes bound of ``attn_bytes``) and the rest
+    (LNs, state roll, and anything else the call launches).  Returns
+    {part: {"ms": ms}}, the attention's with its "bound_ms"."""
+    total, rows = device_times(fn, 3, need=need)
+    parts = {"gemm": 0.0, "gemm_int8": 0.0, "quantise": 0.0, "attention": 0.0}
     for t, _, name in rows:
         key = ("gemm" if "gemm_bf16_wgmma" in name else
+               "gemm_int8" if "gemm_int8_wgmma" in name else
+               "quantise" if "quantize_rows" in name else
                "attention" if "attention_kernel" in name else None)
         if key:
             parts[key] += t
-    parts["rest"] = total - parts["gemm"] - parts["attention"]
+    parts["rest"] = total - sum(parts.values())
     bound = attn_bytes / PEAK_BYTES * 1e3
-    log(f"[profile] {label} by part: GEMMs {parts['gemm']:.3f} ms, attention "
-        f"{parts['attention']:.3f} ms (bytes bound {bound:.3f} ms), the rest "
-        f"{parts['rest']:.3f} ms, of {total:.3f} ms")
+    int8 = (f"int8 GEMMs {parts['gemm_int8']:.3f} ms, row quantiser "
+            f"{parts['quantise']:.3f} ms, " if parts["gemm_int8"] else "")
+    log(f"[profile] {label} by part: GEMMs {parts['gemm']:.3f} ms, {int8}"
+        f"attention {parts['attention']:.3f} ms (bytes bound {bound:.3f} "
+        f"ms), the rest {parts['rest']:.3f} ms, of {total:.3f} ms")
     out = {k: {"ms": v} for k, v in parts.items()}
     out["attention"]["bound_ms"] = bound
     return out
@@ -161,14 +186,17 @@ def attention_bytes(B, L, D, U, R, M, Lc, itemsize=2) -> float:
     return float(L * itemsize * B * D * (2 * Q + 2 * (M + T) + 2 * Lc))
 
 
-def profile_top(fn, label: str, n: int = 8):
-    """Logs the top kernels; returns (device ms, kernel launches)."""
+def profile_top(fn, label: str, n: int = 8, also=()):
+    """Logs the top n kernels, and below them those whose name holds one of
+    ``also``; returns (device ms, kernel launches)."""
     total, rows = device_times(fn)
     launches = sum(r[1] for r in rows)
     log(f"[profile] {label}: device time {total:.3f} ms in "
         f"{launches} kernel launches")
-    for t, c, name in rows[:n]:
-        log(f"[profile]   {t:8.3f} ms {100 * t / total:5.1f}% x{c:<4d} {name}")
+    for i, (t, c, name) in enumerate(rows):
+        if i < n or any(a in name for a in also):
+            log(f"[profile]   {t:8.3f} ms {100 * t / total:5.1f}% x{c:<4d} "
+                f"{name}")
     return total, launches
 
 
@@ -247,6 +275,48 @@ def _stack_inputs(cfg, B, gen, device):
     return mem, lck, lcv, length
 
 
+def _stack_kw(cfg, quant="none"):
+    return dict(U=cfg.segment_length, R=cfg.right_context_length,
+                M=cfg.max_memory_size, Lc=cfg.left_context_length,
+                H=cfg.num_heads, use_mem=cfg.use_mem,
+                tanh_on_mem=cfg.tanh_on_mem, neg_inf=cfg.negative_inf,
+                activation=cfg.activation, cdt=cfg.compute_dtype, quant=quant)
+
+
+def stack_digest(cfg, B, seed, device, label):
+    """One step of kernel A (bf16, ``cfg``'s geometry) on weights, state
+    and inputs made from ``seed`` alone: the sha256 of its outputs' bytes
+    and its device ms.  A commit whose kernel computes the same bits gives
+    the same digest: the fingerprint by which two commits' A are held
+    equal (run this function with either checkout's package first on
+    sys.path)."""
+    import hashlib
+    import torch
+    from asr_streaming_tpu_torch.models.emformer import init_emformer_params
+    from asr_streaming_tpu_torch.ops import emformer_stack as es
+    gen = torch.Generator().manual_seed(seed)
+    params = init_emformer_params(gen, cfg, device)
+    mem, lck, lcv, length = _stack_inputs(cfg, B, gen, device)
+    T = cfg.segment_length + cfg.right_context_length
+    x = torch.randn((B, T, cfg.d_model), generator=gen).to(device)
+    reset = (torch.rand(B, generator=gen) < 0.15).to(device)
+    advance = (torch.rand(B, generator=gen) < 0.8).to(device)
+    eff = torch.where(reset, torch.zeros_like(length), length)
+    kw = _stack_kw(cfg)
+
+    def kernel_a():
+        return es.emformer_stack(params, x, mem, lck, lcv, eff, reset,
+                                 advance, **kw)
+
+    h = hashlib.sha256()
+    for t in kernel_a():
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    ms = device_times(kernel_a, 5, need=A_KERNELS)[0]
+    log(f"[kernels] {label}, one step from seed {seed}: outputs' sha256 "
+        f"{h.hexdigest()[:16]}, {ms:.3f} ms device time")
+    return h.hexdigest(), ms
+
+
 def _mm_split_k(x2d, w, cdt):
     """The plain version's product summed as two half-K products: another
     valid f32 accumulation order, for the bf16 noise floor."""
@@ -301,11 +371,7 @@ def check_stack(cfg, B, n_ticks, tol, gen, device, label, relative=False,
     from asr_streaming_tpu_torch.ops import emformer_stack as es
     params = init_emformer_params(gen, cfg, device)
     mem, lck, lcv, length = _stack_inputs(cfg, B, gen, device)
-    kw = dict(U=cfg.segment_length, R=cfg.right_context_length,
-              M=cfg.max_memory_size, Lc=cfg.left_context_length,
-              H=cfg.num_heads, use_mem=cfg.use_mem,
-              tanh_on_mem=cfg.tanh_on_mem, neg_inf=cfg.negative_inf,
-              activation=cfg.activation, cdt=cfg.compute_dtype, quant=quant)
+    kw = _stack_kw(cfg, quant)
     T = cfg.segment_length + cfg.right_context_length
     worst = worst_rel = floor_abs = floor_rel = 0.0
     last = None
@@ -483,7 +549,7 @@ def check_attention(cfg, B, gen, device):
     sdpa_err = (library().transpose(1, 2).reshape(B, Q, D)
                 - want).abs().max().item()
     ms = device_times(lambda: ek.emformer_attention(q, k, v, m_m, m_kv, **kw),
-                      20)[0]
+                      20, need="attention")[0]
     plain_ms = device_times(
         lambda: ek.emformer_attention_plain(q, k, v, m_m, m_kv, **kw), 5)[0]
     lib_ms = device_times(library, 20)[0]
@@ -507,7 +573,8 @@ def check_attention(cfg, B, gen, device):
     q4b, k4b, v4b = (t.view(B, -1, H, D // H).transpose(1, 2)
                      for t in (qb, kb, vb))
     ms_bf = device_times(lambda: ek.emformer_attention(
-        qb, kb, vb, m_m, m_kv, out_dtype=torch.bfloat16, **kw), 20)[0]
+        qb, kb, vb, m_m, m_kv, out_dtype=torch.bfloat16, **kw), 20,
+        need="attention")[0]
     lib_bf = device_times(lambda: F.scaled_dot_product_attention(
         q4b, k4b, v4b, attn_mask=mask), 20)[0]
     bound_bf = (2 * (2 * B * Q * D + 2 * B * K * D) + 8 * B) / PEAK_BYTES * 1e3
@@ -563,10 +630,12 @@ def check_gemm(label, M, K, N, act, gen, device):
         errs.append((worst, err.max().item()))
         if config is not None:
             tile_ms["%dx%d" % es.GEMM_TILES[config]] = device_times(
-                lambda c=config: es.gemm_bf16(x, w, bias, act, c), 20)[0]
+                lambda c=config: es.gemm_bf16(x, w, bias, act, c), 20,
+                need="gemm_bf16_wgmma")[0]
     worst, max_err = max(errs)
-    tile = "%dx%d" % es.GEMM_TILES[es.gemm_bf16_config(M, N, K)]
-    ms = device_times(lambda: es.gemm_bf16(x, w, bias, act), 20)[0]
+    tile = "%dx%d" % es.GEMM_TILES[es.gemm_config(M, N, K)]
+    ms = device_times(lambda: es.gemm_bf16(x, w, bias, act), 20,
+                      need="gemm_bf16_wgmma")[0]
     plain_ms = device_times(lambda: es.gemm_bf16_plain(x, w, bias, act), 5)[0]
     lib_ms = device_times(lambda: torch.matmul(x, w), 20)[0]
     flops = 2.0 * M * K * N
@@ -604,38 +673,155 @@ def phase_gemm(gen, device):
     return out
 
 
-def time_int8_product(cfg, B, gen, device):
-    """The W8A8 product at the FFN1 shape (rows B*(U+R), K = D, N = F):
-    the int8 GEMM and the row quantiser by kernel, beside torch._int_mm
-    on the same int8 operands and a bf16 torch.matmul."""
+def _int8_operands(M, K, N, x_f32, gen, device):
+    """x [M, K] (f32 where the chain quantises f32 rows: the q and ffn1
+    products; else bf16), the int8 weights of a random [K, N] f32 weight,
+    and a bias."""
     import torch
     from asr_streaming_tpu_torch.ops import emformer_stack as es
-    M = B * (cfg.segment_length + cfg.right_context_length)
-    K, N = cfg.d_model, cfg.ffn_dim
-    x = torch.randn((M, K), generator=gen).to(device)
-    w = (torch.randn((K, N), generator=gen) * 0.05).to(device)
+    x = (torch.randn((M, K), generator=gen) * 2).to(device)
+    if not x_f32:
+        x = x.to(torch.bfloat16)
+    w = (torch.randn((K, N), generator=gen) / K ** 0.5).to(device)
     q = es.quantized_weights({"w": w}, ["w"])["w"]
-    bias = torch.zeros(N, device=device)
-    _, rows = device_times(lambda: es.w8a8_linear(x, q, bias,
-                                                  torch.bfloat16), 20,
-                           need="gemm_int8")
-    by = {name: t for t, _, name in rows}
-    gemm = sum(t for n, t in by.items() if "gemm_int8" in n)
-    quant = sum(t for n, t in by.items() if "quantize_rows" in n)
-    a8 = torch.randint(-127, 128, (M, K), dtype=torch.int8,
-                       generator=gen).to(device)
+    bias = torch.randn((N,), generator=gen).to(device)
+    return x, w, q, bias
+
+
+def w8a8_times(x, q, bias, act=None, config=None):
+    """Device time of one W8A8 product (``w8a8_linear``, bf16 out) by
+    kernel: (the int8 GEMM's ms, the row quantiser's ms), on the tile the
+    chain picks or on ``GEMM_TILES[config]``."""
+    import torch
+    from asr_streaming_tpu_torch.ops import emformer_stack as es
+    kw = {} if config is None else {"config": config}
+    _, rows = device_times(lambda: es.w8a8_linear(
+        x, q, bias, torch.bfloat16, act, **kw), 20,
+        need=("gemm_int8", "quantize_rows"))
+    return (sum(t for t, _, n in rows if "gemm_int8" in n),
+            sum(t for t, _, n in rows if "quantize_rows" in n))
+
+
+def int_mm_step(params, cfg, B, gen, device):
+    """Device ms of the W8A8 step's int8 sums on torch._int_mm: one call
+    that issues the five products of each layer (the layer's int8
+    weights, int8 activations of the step's row counts), 5 x L launches,
+    no quantiser, dequant or bias."""
+    import torch
+    from asr_streaming_tpu_torch.ops import emformer_stack as es
+    qw = es.quantized_weights(params, es._MAT)
+    shapes = gemm_shapes(B, cfg.segment_length, cfg.right_context_length,
+                         cfg.max_memory_size, cfg.d_model, cfg.ffn_dim, None)
+    a8 = [torch.randint(-127, 128, (M, K), dtype=torch.int8,
+                        generator=gen).to(device) for _, M, K, _, _ in shapes]
+    b8 = [[qw[n][2][l].t() for n in es._MAT]
+          for l in range(cfg.num_layers)]   # [K, N], column-major
+
+    def step():
+        for w in b8:
+            for a, b in zip(a8, w):
+                torch._int_mm(a, b)
+
+    ms, rows = device_times(step, 3)
+    log(f"[kernels] A-int8's 100 products on torch._int_mm: {ms:.3f} ms in "
+        f"{sum(r[1] for r in rows)} launches")
+    return ms
+
+
+def check_int8(label, M, K, N, act, x_f32, gen, device):
+    """A-int8's product (the row quantiser and the int8 wgmma GEMM of
+    csrc/emformer_stack.cu) at one shape, bf16 out: equal bit for bit to
+    _qdot(...).to(bf16) + bias on the tile run_layer picks and on each tile
+    forced (an exact s32 sum, the same f32 dequant); with an activation,
+    that exact value through the kernel's activation within one bf16 ulp
+    of torch's (other f32 operation orders).  Times the GEMM and the
+    quantiser by kernel beside torch._int_mm on the same int8 operands
+    (no dequant: the yardstick), a bf16 torch.matmul of the same shape and
+    the bound at the int8 peak."""
+    import torch
+    from asr_streaming_tpu_torch.ops import emformer_stack as es
+    x, w, q, bias = _int8_operands(M, K, N, x_f32, gen, device)
+    cdt = torch.bfloat16
+    want = es._qdot(x.float(), q[0], q[1]).to(cdt) + bias.to(cdt)
+    want_act = es._act(act)(want) if act else want
+    tile_ms, quant_ms = {}, []
+    for config in [None] + list(range(len(es.GEMM_TILES))):
+        got = es.w8a8_linear(x, q, bias, cdt, None, config)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"int8 {label}, tile {config}: {int((got != want).sum())} "
+                 f"of {got.numel()} outputs differ from _qdot + bias")
+        if act:
+            got = es.w8a8_linear(x, q, bias, cdt, act, config)
+            ulp = torch.exp2(torch.floor(torch.log2(
+                want_act.float().abs().clamp(min=2.0 ** -126))) - 7)
+            if not bool(((got.float() - want_act.float()).abs()
+                         <= ulp).all()):
+                fail(f"int8 {label}, tile {config}: the {act} output is "
+                     f"more than one bf16 ulp from torch's")
+        gemm, quant = w8a8_times(x, q, bias, act, config)
+        quant_ms.append(quant)
+        tile_ms["picked" if config is None else
+                "%dx%d" % es.GEMM_TILES[config]] = gemm
+    ms = tile_ms.pop("picked")
+    quant = min(quant_ms)
+    # with an activation: the same product without it, on the same tile
+    no_act_ms = w8a8_times(x, q, bias)[0] if act else None
+    tile = "%dx%d" % es.GEMM_TILES[es.gemm_config(M, N, K, torch.int8)]
+    plain_ms = device_times(lambda: es._act(act)(
+        es._qdot(x.float(), q[0], q[1]).to(cdt) + bias.to(cdt)) if act else
+        es._qdot(x.float(), q[0], q[1]).to(cdt) + bias.to(cdt), 3)[0]
+    a8 = torch.round(x.float() / (x.float().abs().amax(-1, keepdim=True)
+                                  .clamp(min=1e-8) / 127)).to(torch.int8)
     b8 = q[2].t()                          # [K, N], column-major
-    try:                                   # a yardstick only
-        int_mm = f"{device_times(lambda: torch._int_mm(a8, b8), 20)[0] * 1e3:.1f} us"
-    except RuntimeError as e:
-        int_mm = f"not measured ({str(e).splitlines()[0][:80]})"
-    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
-    bf16 = device_times(lambda: torch.matmul(xb, wb), 20)[0]
+    lib_ms = device_times(lambda: torch._int_mm(a8, b8), 20)[0]
+    if not torch.equal(torch._int_mm(a8, b8).double(),
+                       a8.double() @ q[0].double()):
+        fail(f"int8 {label}: torch._int_mm differs from the exact product")
+    xb, wb = x.to(cdt), w.to(cdt)
+    bf16_ms = device_times(lambda: torch.matmul(xb, wb), 20)[0]
     ops = 2.0 * M * K * N
-    log(f"[kernels] int8 product {M}x{K}x{N}: gemm_int8 {gemm * 1e3:.1f} us "
-        f"({ops / (gemm * 1e-3) / 1e12:.0f} TOP/s) + row quantiser "
-        f"{quant * 1e3:.1f} us; torch._int_mm {int_mm}; bf16 "
-        f"matmul {bf16 * 1e3:.1f} us; bound {ops / PEAK_INT8_OPS * 1e6:.1f} us")
+    nbytes = M * K + K * N + 4 * M + 4 * N + 2 * N + 2 * M * N
+    t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    q_bytes = M * K * (4 if x_f32 else 2) + M * K + 4 * M
+    q_bound = q_bytes / PEAK_BYTES * 1e3
+    log(f"[int8] {label} {M}x{K}x{N}{' +' + act if act else ''}: "
+        f"{ms * 1e3:.1f} us on {tile} ({ops / ms / 1e9:.0f} TOP/s; "
+        + ", ".join(f"{t} {v * 1e3:.1f}" for t, v in tile_ms.items())
+        + (f"; without the {act} {no_act_ms * 1e3:.1f}" if act else "")
+        + f" us), torch._int_mm {lib_ms * 1e3:.1f} us "
+        f"({ops / lib_ms / 1e9:.0f} TOP/s), bf16 torch.matmul "
+        f"{bf16_ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
+        f"{max(t_ops, t_bytes) * 1e3:.1f} us; row quantiser "
+        f"({'f32' if x_f32 else 'bf16'} rows) {quant * 1e3:.1f} us, bound "
+        f"{q_bound * 1e3:.1f} us; exact on every tile")
+    return {"product": label, "m": M, "k": K, "n": N, "tile": tile, "ms": ms,
+            "tiles_ms": tile_ms, "no_act_ms": no_act_ms,
+            "quantise": {"ms": quant, "bound_ms": q_bound},
+            "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bf16_matmul_ms": bf16_ms,
+            "bound_ms": max(t_ops, t_bytes), "tops": ops / ms / 1e9,
+            "max_abs_err": 0.0}
+
+
+def phase_int8(gen, device):
+    """A-int8's product at the ten serving product shapes (VI and EN, five
+    each), then a ragged shape (K = 208) and the tiny test geometry.
+    Returns the ten serving shapes' entries."""
+    from asr_streaming_tpu_torch.models.emformer import EmformerConfig
+    from asr_streaming_tpu_torch.models.rnnt import RNNTConfig
+    out = []
+    for lang, c in (("vi", EmformerConfig()), ("en", RNNTConfig().emformer)):
+        for name, M, K, N, act in gemm_shapes(
+                B_SLOTS, c.segment_length, c.right_context_length,
+                c.max_memory_size, c.d_model, c.ffn_dim, c.activation):
+            out.append(check_int8(f"{lang} {name}", M, K, N, act,
+                                  name in ("q", "ffn1"), gen, device))
+    for label, M, K, N, act in (("ragged", 300, 208, 136, None),
+                                ("tiny ffn1", 60, 64, 96, "gelu"),
+                                ("tiny kv", 84, 64, 128, None)):
+        check_int8(label, M, K, N, act, False, gen, device)
+    return out
 
 
 def check_append(B, max_t, U, V, gen, device, label):
@@ -662,7 +848,7 @@ def check_append(B, max_t, U, V, gen, device, label):
     del got, want
     buf = buf0
     ms_b = device_times(lambda: ea.emission_append(buf, rows, pos, decode),
-                        100)[0]
+                        100, need="emission_append")[0]
     plain_b = device_times(lambda: ea.emission_append_plain(buf, rows, pos,
                                                             decode), 20)[0]
     dec_b = decode.nonzero()[:, 0]
@@ -733,8 +919,9 @@ def phase_kernels(gen, device):
                                        advance, **kw)
 
     wall_ms = cuda_ms(kernel_a, 10)
-    ms = device_times(kernel_a, 5)[0]
+    ms = device_times(kernel_a, 5, need=A_KERNELS)[0]
     plain_ms = device_times(plain_a, 2)[0]
+    digest = stack_digest(vi, B, 0, device, "A vi bf16 L=20")[0]
     profile_top(kernel_a, "A emformer_stack, one VI step at 512 slots")
     L, D, Fd = vi.num_layers, vi.d_model, vi.ffn_dim
     parts = stack_parts(kernel_a, "A, one VI step", attention_bytes(
@@ -760,7 +947,7 @@ def phase_kernels(gen, device):
         "launches": 0, "max_abs_err": err_a, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None, "parts": parts})
+        "library_ms": None, "parts": parts, "sha256": digest})
 
     # ---- kernel B: VI serving shape, exact equality with the plain version
     results.append(check_append(B, 1024, 16, 803, gen, device, "B"))
@@ -779,9 +966,16 @@ def phase_kernels(gen, device):
                               "A-int8 vi bf16 L=20", relative=True,
                               quant="int8")
     params, x, mem, lck, lcv, eff, reset, advance, kw = last
-    ms_q = device_times(kernel_a, 5)[0]
+    ms_q = device_times(kernel_a, 5, need=A_INT8_KERNELS)[0]
     plain_q = device_times(plain_a, 2)[0]
     profile_top(kernel_a, "A emformer_stack int8, one VI step at 512 slots")
+    parts_q = stack_parts(kernel_a, "A-int8, one VI step", attention_bytes(
+        B, L, D, vi.segment_length, vi.right_context_length,
+        vi.max_memory_size, vi.left_context_length), need=A_INT8_KERNELS)
+    # the yardstick of the int8 GEMMs: the step's 100 products on
+    # torch._int_mm, timed together (no single call computes the step)
+    parts_q["gemm_int8"]["library_ms"] = int_mm_step(params, vi, B, gen,
+                                                     device)
     proj, attn = emformer_flops(B, L, D, Fd, vi.segment_length,
                                 vi.right_context_length, vi.max_memory_size,
                                 vi.left_context_length)
@@ -796,10 +990,9 @@ def phase_kernels(gen, device):
         "launches": 0, "max_abs_err": err_q, "ms": ms_q, "plain_ms": plain_q,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None})
+        "library_ms": None, "parts": parts_q})
     del params, mem, lck, lcv, last
     torch.cuda.empty_cache()
-    time_int8_product(vi, B, gen, device)
 
     # ---- C: bit for bit against A over the full stack (bf16 and int8),
     # and against its plain version one layer at a time
@@ -811,7 +1004,8 @@ def phase_kernels(gen, device):
     err_c, args, kw_c = check_layer_plain(vi, params, B, 3, 3e-2, gen, device,
                                           "C vi bf16 one layer")
     from asr_streaming_tpu_torch.ops import emformer_layer as el
-    ms_c = device_times(lambda: el.emformer_layer(*args, **kw_c), 10)[0]
+    ms_c = device_times(lambda: el.emformer_layer(*args, **kw_c), 10,
+                        need=A_KERNELS)[0]
     plain_c = device_times(
         lambda: el.emformer_layer_plain(*args[:8], args[8].bool(),
                                         args[9].bool(), **kw_c), 3)[0]
@@ -1135,8 +1329,10 @@ def _sync(device) -> None:
 def check_row_topk(gen, device):
     """Kernel E against its plain version iter_topk, values and indices
     exactly, and against the stable descending sort (indices), on the
-    beam's rows and the tie / sentinel / narrow / wide-k cases; device
-    times beside iter_topk's and torch.topk's.  Returns E's line entry."""
+    beam's rows and the tie / sentinel / narrow / wide-k / k=1 / k=N /
+    unaligned / -inf / widest-row cases; device times at the wide and the
+    two narrow beam shapes beside iter_topk's and torch.topk's.  Returns
+    E's line entry."""
     import torch
     from asr_streaming_tpu_torch.models.rnnt_beam import NEG
     from asr_streaming_tpu_torch.ops import row_topk as rk
@@ -1179,6 +1375,17 @@ def check_row_topk(gen, device):
         same(flat, W, f"flat table N={n}")
     same(logp[:32], 128, "k=128")
     same(logp[:64].to(torch.bfloat16), k, "bf16 rows")
+    same(logp[:64], 1, "k=1")
+    same(logp[:64, :, :40], 40, "k=N=40")
+    same(logp[:64, :, :20], 5, "N=20")
+    rows = logp[:16].reshape(-1, V)
+    shifted = torch.empty(rows.numel() + 1, device=device)
+    shifted[1:] = rows.reshape(-1)
+    same(shifted[1:].view(rows.shape), k, "rows 4 bytes off alignment")
+    same(torch.full((8, V), float("-inf"), device=device), k,
+         "whole rows of -inf")
+    same(torch.randn((2, rk.MAX_N), generator=gen).to(device), k,
+         f"N={rk.MAX_N}")
     for bad_k, bad_x in ((129, logp[:1]), (60, logp[:1, :1, :50])):
         try:
             rk.cuda_row_topk(bad_x, bad_k)
@@ -1186,27 +1393,39 @@ def check_row_topk(gen, device):
             continue
         fail(f"E: k={bad_k} on N={bad_x.shape[-1]} did not raise")
 
-    ms = device_times(lambda: rk.cuda_row_topk(logp, k), 20)[0]
+    ms = device_times(lambda: rk.cuda_row_topk(logp, k), 20,
+                      need="row_topk")[0]
     plain_ms = device_times(lambda: iter_topk(logp, k), 3)[0]
     lib_ms = device_times(lambda: torch.topk(logp, k, dim=-1), 20)[0]
     if not torch.equal(torch.topk(logp, k, dim=-1).values, gv):
         fail("E: torch.topk's values differ")
-    flat = torch.randn((B, W * k), generator=gen).to(device)
-    flat_ms = device_times(lambda: rk.cuda_row_topk(flat, W), 20)[0]
-    flat_plain = device_times(lambda: iter_topk(flat, W), 5)[0]
     nbytes = B * W * V * 4 + B * W * k * 8
     bound = nbytes / PEAK_BYTES * 1e3
     log(f"[kernels] E: [{B * W}, {V}] k={k}: {ms * 1e3:.1f} us (plain "
         f"iter_topk {plain_ms * 1e3:.1f} us, torch.topk {lib_ms * 1e3:.1f} "
         f"us, values equal), {nbytes / 1e6:.1f} MB, bound {bound * 1e3:.1f}"
-        f" us; flat [{B}, {W * k}] k={W}: {flat_ms * 1e3:.1f} us (plain "
-        f"{flat_plain * 1e3:.1f} us)")
+        f" us")
+    # the beam's two narrow selections: top-W of the [B, W * kcap]
+    # survivor table and of the [B, (K + 1) * W] end-of-frame table
+    narrow = {}
+    for n in (W * k, 50):
+        flat = torch.randn((B, n), generator=gen).to(device)
+        n_ms = device_times(lambda: rk.cuda_row_topk(flat, W), 50,
+                            need="row_topk")[0]
+        n_plain = device_times(lambda: iter_topk(flat, W), 5)[0]
+        n_lib = device_times(lambda: torch.topk(flat, W, dim=-1), 50)[0]
+        n_bound = (B * n * 4 + B * W * 8) / PEAK_BYTES * 1e3
+        log(f"[kernels] E narrow [{B}, {n}] k={W}: {n_ms * 1e3:.1f} us "
+            f"(plain {n_plain * 1e3:.1f} us, torch.topk {n_lib * 1e3:.1f} "
+            f"us, bound {n_bound * 1e3:.2f} us)")
+        narrow[f"{B}x{n}"] = {"ms": n_ms, "plain_ms": n_plain,
+                              "library_ms": n_lib, "bound_ms": n_bound}
     return {"name": "row_topk", "route": "cuda",
             "source": "asr_streaming_tpu_torch/csrc/row_topk.cu",
             "replaces": "asr_streaming_tpu/ops/pallas_topk.py:82",
             "launches": 0, "max_abs_err": 0.0, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "narrow": narrow}
 
 
 def check_stack_en(gen, device):
@@ -1248,7 +1467,7 @@ def check_stack_en(gen, device):
         return es.emformer_stack(params, x, mem, lck, lcv, eff, reset,
                                  advance, **kw)
 
-    ms = device_times(kernel_a, 5)[0]
+    ms = device_times(kernel_a, 5, need=A_KERNELS)[0]
     plain_ms = device_times(
         lambda: es.emformer_stack_plain(params, x, mem, lck, lcv, eff, reset,
                                         advance, **kw), 2)[0]
@@ -1268,7 +1487,9 @@ def check_stack_en(gen, device):
     return {"en": {"ms": ms, "plain_ms": plain_ms,
                    "bound_ms": max(t_ops, t_bytes),
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                   "max_abs_err": err, "parts": parts}}
+                   "max_abs_err": err, "parts": parts,
+                   "sha256": stack_digest(bf, B, 0, device,
+                                          "A en bf16 L=20")[0]}}
 
 
 def check_hash(gen, device):
@@ -1430,7 +1651,7 @@ def phase_en_serving(seed, gen, device, n_greedy=6, n_beam=4):
         dev_ms, launches = profile_top(
             lambda: step(params, cfg, segs[0], ones, ones, zeros, zeros,
                          state, ctx, buf),
-            f"one EN {label} tick at {B} slots", n=12)
+            f"one EN {label} tick at {B} slots", n=12, also=("row_topk",))
         peak = torch.cuda.max_memory_allocated() / 2**30
         steady = sorted(times[1:])
         log(f"[en serving] {label}: {len(times)} ticks x {B} slots: first "
@@ -1677,10 +1898,11 @@ def phase_en_golden(device):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("vi", "en", "gemm"), default=None,
-                    help="run one language's phases, or the GEMM phase "
-                         "alone (a partial run: the result line says so "
-                         "and the exit code is 4)")
+    ap.add_argument("--only", choices=("vi", "en", "gemm", "int8"),
+                    default=None,
+                    help="run one language's phases, or the bf16 or the "
+                         "int8 GEMM phase alone (a partial run: the result "
+                         "line says so and the exit code is 4)")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "asr_streaming_tpu_torch")):
         fail("asr_streaming_tpu_torch/ is not beside this script")
@@ -1695,16 +1917,19 @@ def main() -> None:
     phase_build()
     gen = torch.Generator().manual_seed(args.seed)
     vi, en = args.only in (None, "vi"), args.only in (None, "en")
-    if args.only == "gemm":
-        phase_gemm(gen, device)
+    if args.only in ("gemm", "int8"):
+        (phase_gemm if args.only == "gemm" else phase_int8)(gen, device)
         sys.exit(4)
     kernels = phase_kernels(gen, device) if vi else []
     if en:
         phase_kernels_en(gen, device, kernels)
     gemm = phase_gemm(gen, device)
+    int8 = phase_int8(gen, device)
     for k in kernels:
         if k["name"] == "emformer_stack":
             k["gemm"] = gemm
+        if k["name"] == "emformer_stack_int8":
+            k["int8"] = int8
 
     # the paths: each driven with the counts set to 0 just before it and
     # read just after; the worker phases add their child's counts

@@ -260,6 +260,76 @@ def test_row_topk_kernel_equals_iter_topk(shape, k, kind):
     assert torch.equal(gi.long(), si[..., :k])
 
 
+def _row_case(case, rng):
+    """(x on the CPU, k) of one edge case of kernel E's contract."""
+    from asr_streaming_tpu_torch.ops import row_topk as rk
+    if case == "k1":
+        return torch.from_numpy(rng.standard_normal((64, 4097)).astype(
+            np.float32)), 1
+    if case.startswith("k_eq_n"):                  # k = N, narrow rows
+        n = int(case[6:])
+        x = np.round(rng.standard_normal((64, n)) * 2) / 2
+        return torch.from_numpy(x.astype(np.float32)), n
+    if case.startswith("width"):                   # N <= 32
+        n = int(case[5:])
+        x = rng.standard_normal((37, n)).astype(np.float32)
+        return torch.from_numpy(x), min(n, 5)
+    if case == "neg_inf_rows":                     # whole rows of -inf
+        x = rng.standard_normal((48, 4097)).astype(np.float32)
+        x[::3] = -np.inf
+        x[1, 4000:] = -np.inf
+        x[2, :4090] = -np.inf
+        return torch.from_numpy(x), 10
+    if case == "sentinel_rows":                    # whole rows of -1e30
+        x = rng.standard_normal((48, 4097)).astype(np.float32)
+        x[::2] = -1.0e30
+        return torch.from_numpy(x), 10
+    if case.startswith("kl"):                      # each list size, wide rows
+        k = int(case[2:])
+        x = rng.standard_normal((40, 1000)).astype(np.float32)
+        return torch.from_numpy(x), k
+    if case == "chunks":                           # rows of many chunks
+        x = (rng.standard_normal((3, 100_003)) * 4).astype(np.float32)
+        x[1] = np.round(x[1])
+        return torch.from_numpy(x), 16
+    if case == "max_n":
+        x = rng.standard_normal((2, rk.MAX_N)).astype(np.float32)
+        return torch.from_numpy(x), 10
+    if case == "max_n_large_k":
+        x = rng.standard_normal((2, rk.MAX_N_LARGE_K)).astype(np.float32)
+        return torch.from_numpy(x), 20
+    raise ValueError(case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1, 3], ids=["aligned", "off4", "off12"])
+@pytest.mark.parametrize("case", [
+    "k1", "k_eq_n40", "k_eq_n128", "width1", "width20", "width32",
+    "neg_inf_rows",
+    "sentinel_rows", "kl3", "kl5", "kl12", "kl16", "chunks", "max_n",
+    "max_n_large_k"])
+def test_row_topk_kernel_edge_rows(case, offset):
+    """Kernel E == iter_topk (values and indices) on the contract's edges:
+    k = 1, k = N, N <= 32, whole rows of -inf or of -1e30, each list size
+    of the wide kernel, rows of several chunks, N at the wrapper's maxima;
+    with the tensor's storage ``offset`` values in, so that no row starts
+    16-byte aligned."""
+    from asr_streaming_tpu_torch.ops import row_topk as rk
+    from asr_streaming_tpu_torch.ops.topk import iter_topk
+    dev = _cuda()
+    x, k = _row_case(case, np.random.default_rng(14))
+    flat = torch.empty(x.numel() + offset, device=dev)
+    flat[offset:] = x.to(dev).reshape(-1)
+    xt = flat[offset:].view(x.shape)
+    assert xt.is_contiguous() and xt.data_ptr() % 16 == 4 * offset % 16
+    n0 = rk.LAUNCHES
+    gv, gi = rk.cuda_row_topk(xt, k)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES == n0 + 1
+    wv, wi = iter_topk(xt, k)
+    assert torch.equal(gv, wv) and torch.equal(gi, wi)
+
+
 @pytest.mark.gpu
 def test_row_topk_kernel_rejects_what_it_does_not_take():
     from asr_streaming_tpu_torch.ops import row_topk as rk
@@ -271,6 +341,8 @@ def test_row_topk_kernel_rejects_what_it_does_not_take():
         rk.cuda_row_topk(x[:, :50], 60)
     with pytest.raises(ValueError, match="N="):
         rk.cuda_row_topk(torch.zeros((1, rk.MAX_N + 1), device=dev), 4)
+    with pytest.raises(ValueError, match="N="):
+        rk.cuda_row_topk(torch.zeros((1, rk.MAX_N_LARGE_K + 1), device=dev), 17)
 
 
 @pytest.mark.gpu
@@ -355,10 +427,88 @@ def test_gemm_bf16_config_fills_the_card():
     _cuda()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for M, K, N, _ in GEMM_SHAPES.values():
-        c = es.gemm_bf16_config(M, N, K)
+        c = es.gemm_config(M, N, K)
         assert c in range(len(es.GEMM_TILES))
         if -(-M // 128) * -(-N // 128) < sms:
             assert es.GEMM_TILES[c][0] == 64, (M, N, es.GEMM_TILES[c])
+
+
+# The W8A8 products: the ten serving shapes, a ragged one (K = 208, no
+# multiple of 128), the tiny geometry of these tests (d_model 64, ffn 96,
+# kv 128) and each activation.
+INT8_SHAPES = {n: s for n, s in GEMM_SHAPES.items() if n[:3] in ("vi_", "en_")}
+INT8_SHAPES.update({
+    "ragged": (300, 208, 136, None),
+    "tiny_q": (66, 64, 64, None), "tiny_kv": (84, 64, 128, None),
+    "tiny_ffn1": (60, 64, 96, "gelu"), "tiny_ffn2": (60, 96, 64, None),
+    "relu": (333, 512, 264, "relu"), "silu": (333, 512, 264, "silu"),
+})
+
+
+def _check_int8(dev, M, K, N, act, dtype, config):
+    """The int8 wgmma GEMM == _qdot(...).to(dtype) + bias bit for bit (an
+    exact s32 sum, the same f32 dequant); with an activation, the kernel's
+    result is that exact value through the activation, held to torch's
+    within one ulp of the output type (the two compute GELU and SiLU in
+    f32 with other operation orders)."""
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy((rng.standard_normal((M, K)) * 2).astype(
+        np.float32)).to(dev)
+    w = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(dev)
+    q = es.quantized_weights({"w": w}, ["w"])["w"]
+    got = es.w8a8_linear(x, q, bias, dtype, None, config)
+    torch.cuda.synchronize()
+    want = es._qdot(x, q[0], q[1]).to(dtype) + bias.to(dtype)
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert torch.equal(got, want), (
+        f"{int((got != want).sum())} of {got.numel()} differ")
+    if act:
+        got_act = es.w8a8_linear(x, q, bias, dtype, act, config)
+        ref = es._act(act)(want)
+        tol = dict(rtol=2 ** -7, atol=1e-6) if dtype == torch.bfloat16 \
+            else dict(rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(got_act.float(), ref.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("config", [None] + list(range(len(es.GEMM_TILES))),
+                         ids=["picked"] + [f"{m}x{n}"
+                                           for m, n in es.GEMM_TILES])
+@pytest.mark.parametrize("name", list(INT8_SHAPES))
+def test_w8a8_gemm_equals_qdot_on_each_tile(name, config, dtype):
+    """A-int8's GEMM at every serving shape, on the tile run_layer picks
+    and on each tile forced, with bf16 and f32 outputs."""
+    _check_int8(_cuda(), *INT8_SHAPES[name], dtype, config)
+
+
+@pytest.mark.gpu
+def test_w8a8_config_fills_the_card():
+    """The tile picked for each W8A8 serving product is a valid index, and
+    a product with fewer 128-row tiles than SMs takes a 64-row tile."""
+    _cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for M, K, N, _ in INT8_SHAPES.values():
+        c = es.gemm_config(M, N, K, torch.int8)
+        assert c in range(len(es.GEMM_TILES))
+        if -(-M // 128) * -(-N // 128) < sms:
+            assert es.GEMM_TILES[c][0] == 64, (M, N, es.GEMM_TILES[c])
+
+
+@pytest.mark.gpu
+def test_w8a8_linear_rejects_what_it_does_not_take():
+    dev = _cuda()
+    w = torch.randn(64, 60, device=dev)
+    q = es.quantized_weights({"w": w}, ["w"])["w"]
+    with pytest.raises(ValueError, match="N of 8"):
+        es.w8a8_linear(torch.randn(4, 64, device=dev), q,
+                       torch.zeros(60, device=dev), torch.bfloat16)
+    q = es.quantized_weights({"w": w[:, :56]}, ["w"])["w"]
+    with pytest.raises(ValueError, match="config 4"):
+        es.w8a8_linear(torch.randn(4, 64, device=dev), q,
+                       torch.zeros(56, device=dev), torch.bfloat16, config=4)
 
 
 @pytest.mark.gpu

@@ -131,3 +131,26 @@ def test_kernel_wrapper_takes_cuda_tensors_only():
         rk.cuda_row_topk(x, 4)
     row_topk(x, 4)
     assert rk.LAUNCHES == n0
+
+
+@pytest.mark.parametrize("k,n_max", [(1, rk.MAX_N), (10, rk.MAX_N),
+                                     (16, rk.MAX_N), (17, rk.MAX_N_LARGE_K),
+                                     (128, rk.MAX_N_LARGE_K)])
+def test_kernel_limits_by_k(k, n_max):
+    """The kernel's row limit depends on k: the wide kernel (k <= 16)
+    streams rows up to 2^24 values, the block kernel (k > 16) stages up to
+    46,000 in shared memory; rows up to 256 take any k <= N.  The limits
+    are checked before the device."""
+    assert rk.max_n(k) == n_max
+    rk.check_args((3, n_max), k)
+    rk.check_args((3, 256), min(k, 256))
+    with pytest.raises(ValueError, match=f"N={n_max + 1} > {n_max}"):
+        rk.check_args((3, n_max + 1), k)
+
+
+@pytest.mark.parametrize("shape,k,match", [
+    ((3, 300), 0, "k=0 not in"), ((3, 300), 129, "k=129 not in"),
+    ((3, 20), 21, "N=20 < k=21"), ((), 1, "shape")])
+def test_kernel_rejects_what_it_does_not_take(shape, k, match):
+    with pytest.raises(ValueError, match=match):
+        rk.check_args(shape, k)

@@ -160,3 +160,34 @@ def test_int8_layer_route_equals_int8_stack_route():
                        rs, adv)
     for a, b in zip(stack[0], layer[0]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("config", [-1, 4, 7])
+def test_w8a8_linear_config_out_of_range_raises(config):
+    """The tile index is checked before the device: out of range raises
+    on the CPU too (as gemm_bf16's does)."""
+    w = torch.randn(64, 32)
+    q = es.quantized_weights({"w": w}, ["w"])["w"]
+    with pytest.raises(ValueError, match=f"config {config} not in 0..3"):
+        es.w8a8_linear(torch.randn(5, 64), q, torch.zeros(32),
+                       torch.bfloat16, config=config)
+    with pytest.raises(ValueError, match=f"config {config} not in 0..3"):
+        es.gemm_bf16(torch.randn(5, 64), w, torch.zeros(32), config=config)
+
+
+@pytest.mark.parametrize("config", [None, 0, 3])
+@pytest.mark.parametrize("activation", [None, "gelu"])
+def test_w8a8_linear_on_the_cpu_is_the_plain_version(config, activation):
+    """A forced tile changes nothing on a CPU tensor: the plain version,
+    _qdot then the bias and the activation in the compute type, exactly;
+    the card's tile entry is never reached."""
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.standard_normal((7, 64)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((64, 48)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(48).astype(np.float32))
+    q = es.quantized_weights({"w": w}, ["w"])["w"]
+    got = es.w8a8_linear(x, q, b, torch.bfloat16, activation, config)
+    want = es._qdot(x, q[0], q[1]).to(torch.bfloat16) + b.to(torch.bfloat16)
+    if activation:
+        want = torch.nn.functional.gelu(want, approximate="tanh")
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
