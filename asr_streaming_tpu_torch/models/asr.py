@@ -68,14 +68,21 @@ def with_kernel_route(cfg: ASRConfig, mode: str = "stack",
     ASR_PALLAS_QUANT=none|int8|int8_ffn.  There is no backend test: the
     route is a field of the config, and a CUDA tensor always takes the
     kernel."""
+    emf = emformer_route(cfg.encoder.emformer, mode, quant)
+    return dataclasses.replace(
+        cfg, encoder=dataclasses.replace(cfg.encoder, emformer=emf))
+
+
+def emformer_route(emf: EmformerConfig, mode: str = "stack",
+                   quant: str = "none") -> EmformerConfig:
+    """``with_kernel_route`` on a bare EmformerConfig (the English
+    transcriber's), with the same environment overrides."""
     mode = os.environ.get("ASR_PALLAS_MODE", mode)
     quant = os.environ.get("ASR_PALLAS_QUANT", quant)
     if mode not in _MODE_ROUTES:
         raise ValueError(f"mode {mode!r} not in {tuple(_MODE_ROUTES)}")
-    emf = dataclasses.replace(cfg.encoder.emformer, route=_MODE_ROUTES[mode],
-                              quant="none" if mode == "off" else quant)
-    return dataclasses.replace(
-        cfg, encoder=dataclasses.replace(cfg.encoder, emformer=emf))
+    return dataclasses.replace(emf, route=_MODE_ROUTES[mode],
+                               quant="none" if mode == "off" else quant)
 
 
 class StepOutput(NamedTuple):

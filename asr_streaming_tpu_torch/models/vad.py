@@ -4,7 +4,8 @@ Counterpart of asr_streaming_tpu/models/vad.py: 512-sample windows at
 16 kHz with 64 samples of carried context, STFT-magnitude frontend ->
 4-block conv encoder -> LSTM cell -> sigmoid head, state reset per chunk;
 plus the energy gate over 30 ms frames and the leading/trailing silence
-runs.  (The ONNX weight import is not ported: it needs onnx.)
+runs; and ``silero_params_from_onnx``, the name map from a
+silero_vad.onnx file's initializers (tools/onnx_weights.py) to these params.
 """
 
 from __future__ import annotations
@@ -74,6 +75,68 @@ def init_silero_params(gen: torch.Generator,
         params[f"conv{i}_b"] = torch.zeros(out_ch)
         in_ch = out_ch
     return {k: v.to(device) for k, v in params.items()}
+
+
+def silero_params_from_onnx(initializers: dict,
+                            cfg: SileroConfig = SileroConfig()) -> dict:
+    """Name-map silero_vad.onnx (v5) initializers onto the VAD's params,
+    as a tree of float32 numpy arrays (``overlay_params`` puts them on the
+    device).  The names are those of the JAX package's loader
+    (models/vad.py::silero_params_from_onnx):
+
+      _model.stft.forward_basis_buffer            [258, 1, 256]
+      _model.encoder.{i}.reparam_conv.weight/bias i=0..3
+      _model.decoder.rnn.weight_ih / weight_hh    [512, 128]
+      _model.decoder.rnn.bias_ih / bias_hh        [512]
+      _model.decoder.decoder.2.weight / bias      [1, 128, 1] / [1]
+
+    The LSTM weights are transposed to ``[in, 4H]`` (gate order i, f, g,
+    o, as torch keeps them) and the two biases summed."""
+    g = initializers
+
+    def pick(*names):
+        for n in names:
+            if n in g:
+                return np.asarray(g[n], np.float32)
+        raise KeyError(f"none of {names} in ONNX initializers "
+                       f"(have: {sorted(g)[:8]}...)")
+
+    basis = pick("_model.stft.forward_basis_buffer")
+    if basis.ndim == 2:
+        basis = basis[:, None, :]
+    if basis.shape != (2 * cfg.n_freqs, 1, cfg.n_fft):
+        raise ValueError(f"STFT basis shape {basis.shape}")
+    params = {"stft_basis": basis}
+    for i, out_ch in enumerate(cfg.encoder_channels):
+        w = pick(f"_model.encoder.{i}.reparam_conv.weight")
+        if w.shape[0] != out_ch:
+            raise ValueError(f"encoder {i} weight shape {w.shape}")
+        params[f"conv{i}_w"] = w
+        params[f"conv{i}_b"] = pick(f"_model.encoder.{i}.reparam_conv.bias")
+    params["lstm_wi"] = np.ascontiguousarray(
+        pick("_model.decoder.rnn.weight_ih").T)            # [E, 4H]
+    params["lstm_wh"] = np.ascontiguousarray(
+        pick("_model.decoder.rnn.weight_hh").T)            # [H, 4H]
+    params["lstm_b"] = (pick("_model.decoder.rnn.bias_ih")
+                        + pick("_model.decoder.rnn.bias_hh"))
+    head_w = pick("_model.decoder.decoder.2.weight")       # [1, H, 1]
+    params["out_w"] = np.ascontiguousarray(head_w.reshape(1, -1).T)
+    params["out_b"] = pick("_model.decoder.decoder.2.bias")
+    return params
+
+
+def load_vad_weights(path: str, cfg) -> dict:
+    """Trained Silero weights as a host tree: an ``.npz`` with a ``vad``
+    subtree (tools/onnx_weights.py writes one) or a raw silero_vad.onnx,
+    converted on the fly.  ``cfg`` is the ServingConfig."""
+    if path.endswith(".onnx"):
+        from asr_streaming_tpu_torch.tools.onnx_weights import (
+            load_onnx_initializers,
+        )
+        return silero_params_from_onnx(load_onnx_initializers(path),
+                                       cfg.silero)
+    from asr_streaming_tpu_torch.utils.checkpoint import load_params
+    return load_params(path)["vad"]
 
 
 def _window_features(params: dict, cfg: SileroConfig,

@@ -155,7 +155,8 @@ class DeviceWorkerClient:
 
     def stats(self, reset: bool = False, timeout: float = 600.0) -> dict:
         """The child's {"launches": {kernel: count}, "foreign_modules":
-        [...]}; ``reset`` zeroes the counts after reading."""
+        [...], "emformer": {"route", "quant"}}; ``reset`` zeroes the counts
+        after reading."""
         rid = self._send(("stats", bool(reset)))
         kind, payload = self._recv(rid, timeout)
         assert kind == "stats", payload
@@ -219,6 +220,7 @@ class _DeviceSide:
         from asr_streaming_tpu_torch.models.serving import (
             init_serving_params, make_emission_fetcher, make_serving_step,
         )
+        from asr_streaming_tpu_torch.models.vad import load_vad_weights
         from asr_streaming_tpu_torch.utils.checkpoint import (
             load_params, overlay_params,
         )
@@ -226,8 +228,8 @@ class _DeviceSide:
         self.torch = torch
         self.cfg = pickle.loads(cfg_bytes)
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            torch.cuda.set_device(self.device)
+        if self.device.type == "cuda" and self.device.index is not None:
+            torch.cuda.set_device(self.device)      # "cuda" keeps card 0
         params = init_serving_params(seed, self.cfg, self.device)
         if checkpoint:
             # an .npz of the JAX package's layout, possibly partial (a
@@ -235,11 +237,9 @@ class _DeviceSide:
             # ones
             params = overlay_params(params, load_params(checkpoint))
         if vad_weights:
-            if not vad_weights.endswith(".npz"):
-                raise NotImplementedError(
-                    f"vad_weights {vad_weights!r}: only .npz is ported")
-            params = overlay_params(
-                params, {"vad": load_params(vad_weights)["vad"]})
+            params = overlay_params(params,
+                                    {"vad": load_vad_weights(vad_weights,
+                                                             self.cfg)})
         self.params = params
         self.fetcher = make_emission_fetcher(self.cfg)
         self.step_fn = make_serving_step(self.cfg)
@@ -282,11 +282,13 @@ class _DeviceSide:
         if self.device.type == "cuda":
             self.torch.cuda.synchronize(self.device)
 
-    @staticmethod
-    def stats(reset: bool) -> dict:
+    def stats(self, reset: bool) -> dict:
         from asr_streaming_tpu_torch.ops import _cuda
+        emf = (self.cfg.rnnt if self.cfg.model_kind == "rnnt"
+               else self.cfg.asr.encoder).emformer
         return {"launches": _cuda.launch_counts(reset),
-                "foreign_modules": _foreign_modules()}
+                "foreign_modules": _foreign_modules(),
+                "emformer": {"route": emf.route, "quant": emf.quant}}
 
 
 def _worker_main(conn, init: WorkerInit, staging_name: str,
@@ -535,7 +537,8 @@ class PipelinedWorkerClient:
 
     def stats(self, reset: bool = False, timeout: float = 600.0) -> dict:
         """The child's {"launches": {kernel: count}, "foreign_modules":
-        [...]}; ``reset`` zeroes the counts after reading."""
+        [...], "emformer": {"route", "quant"}}; ``reset`` zeroes the counts
+        after reading."""
         kind, payload = self._request(("stats", bool(reset))).result(timeout)
         assert kind == "stats", payload
         return payload

@@ -1,13 +1,16 @@
 """Per-stage timers and counters.
 
-Copied from asr_streaming_tpu/utils/observability.py (StageTimers).
+Copied from asr_streaming_tpu/utils/observability.py (StageTimers,
+AudioArchiver).
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import time
+import wave as wave_mod
 from collections import defaultdict
 from typing import Dict
 
@@ -57,3 +60,30 @@ class StageTimers:
 
     def to_json(self) -> str:
         return json.dumps(self.snapshot())
+
+
+class AudioArchiver:
+    """Per-stream WAV capture (reference save_audio feature)."""
+
+    def __init__(self, directory: str, sample_rate: int = 16000):
+        self.directory = directory
+        self.sample_rate = sample_rate
+        os.makedirs(directory, exist_ok=True)
+        self._files: Dict[str, wave_mod.Wave_write] = {}
+
+    def append(self, stream_id: str, samples: np.ndarray) -> None:
+        f = self._files.get(stream_id)
+        if f is None:
+            f = wave_mod.open(
+                os.path.join(self.directory, f"{stream_id}.wav"), "wb")
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(self.sample_rate)
+            self._files[stream_id] = f
+        pcm = (np.clip(np.asarray(samples), -1, 1) * 32767).astype(np.int16)
+        f.writeframes(pcm.tobytes())
+
+    def close(self, stream_id: str) -> None:
+        f = self._files.pop(stream_id, None)
+        if f is not None:
+            f.close()

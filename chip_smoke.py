@@ -54,7 +54,20 @@ Phases (any failure exits non-zero; nothing is caught):
      streams through the in-process scheduler and through
      GroupedScheduler(groups=2) over the device worker in beam mode; and
      assets/test_fixtures/overfit_rnnt.npz serving its golden sentence in
-     greedy and beam mode, in process and through the worker.
+     greedy and beam mode, in process and through the worker;
+  7. the websocket server (``--only server``: this phase with the golden
+     phases it compares with): (a) StreamingServer around
+     GroupedScheduler(groups=2) over the device worker at 512 slots on a
+     loopback socket, the overfit fixtures' streams sent as 0.25 s int16
+     packets then EOS: every connection completes and its finals over the
+     wire are the golden phases' ("ab cd"; "a b" in beam mode); (b)
+     ``python -m asr_streaming_tpu_torch.server`` with configs/server-vi.yaml
+     (16 connections) and server-en.yaml (8; its joiner sharpened through a
+     checkpoint, as the EN phases do) at full width, clients streaming 6 s
+     at real-time pace: start-up, chunk-to-partial p50/p95 and
+     EOS-to-completed, /metrics.json, no failed tick, exit 0 on SIGINT with
+     no child left, the kernel launches the server logs at shutdown; (c)
+     the VI finals' native C++ beam (decode/beam_native.py).
 Every path is driven with the kernels' launch counts set to 0 just
 before it and read just after, the worker child's counts included; a
 kernel that no path launched fails the run.  The last line is the result
@@ -1266,7 +1279,8 @@ def _fixture_events(sched, golden):
 def phase_golden(device):
     """The overfit fixture at 512 slots: in process, then through the
     grouped worker; the same events stream by stream and the golden
-    final.  Returns the worker child's launch counts."""
+    final.  Returns the worker child's launch counts and the in-process
+    events, stream by stream."""
     import numpy as np
     from asr_streaming_tpu_torch.models.asr import ASRConfig
     from asr_streaming_tpu_torch.models.serving import (
@@ -1315,7 +1329,7 @@ def phase_golden(device):
     log(f"[golden] overfit_ctc at {B_SLOTS} slots on the card: finals "
         f"{finals}, partials of t0 {partials}; GroupedScheduler(groups=2) "
         f"over the device worker gives the same events for all 3 streams")
-    return launches
+    return launches, want
 
 
 # ------------------------------------------------- the English (RNNT) path
@@ -1820,7 +1834,8 @@ def phase_en_golden(device):
     beam mode (width 4, the trained VAD gating silence, as the fixture was
     accepted), each in process and through the grouped worker: the same
     events, and the golden sentence as every non-empty final.  Returns the
-    worker children's launch counts."""
+    worker children's launch counts and the beam mode's in-process
+    events."""
     import dataclasses
     import tempfile
     import numpy as np
@@ -1892,17 +1907,521 @@ def phase_en_golden(device):
                 f"finals {finals}, partials of t0 {partials}; "
                 f"GroupedScheduler(groups=2) over the device worker gives "
                 f"the same events")
-    return totals
+    return totals, want
+
+
+# ------------------------------------------------------- the websocket server
+
+SERVER_PACKET_S = 0.25          # the reference client's packet
+
+
+class ServerThread:
+    """A StreamingServer on a free loopback port, its event loop on a
+    thread of this process (the in-process half of the server phase)."""
+
+    def __init__(self, server):
+        import asyncio
+        import threading
+        self.server = server
+        self._loop = asyncio.new_event_loop()
+        self._task = None
+        self._ready = threading.Event()
+        self._thread = threading.Thread(target=self._main, daemon=True)
+        self._thread.start()
+        if not self._ready.wait(900):
+            fail("the in-process server did not start serving")
+        self.port = server.port
+
+    def _main(self):
+        import asyncio
+
+        async def run():
+            self._task = asyncio.ensure_future(
+                self.server.run(0, host="127.0.0.1"))
+            while self.server.serving is None or \
+                    not self.server.serving.is_set():
+                if self._task.done():
+                    self._ready.set()
+                    self._task.result()
+                await asyncio.sleep(0.01)
+            self._ready.set()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+        self._loop.run_until_complete(run())
+
+    def close(self):
+        if self._task is not None:
+            self._loop.call_soon_threadsafe(self._task.cancel)
+        self._thread.join(timeout=60)
+        self.server.stop_ticks()
+        self.server.scheduler.close()
+
+
+async def _ws_stream(url, pcm, paced, rate=16000):
+    """One client connection: ``pcm`` (int16) in 0.25 s binary packets
+    (at real-time pace when ``paced``), then EOS.  Returns the messages
+    with their arrival times, each segment's completion time (the send of
+    the packet that completed it), the EOS send time and the
+    __REQUEST_COMPLETED__ arrival time."""
+    import asyncio
+    import numpy as np
+    import websockets
+    step = int(rate * SERVER_PACKET_S)
+    loop = asyncio.get_running_loop()
+    got = []
+    async with websockets.connect(url, max_size=None) as ws:
+        async def receive():
+            while True:
+                msg = await asyncio.wait_for(ws.recv(), timeout=600)
+                got.append((loop.time(), msg))
+                if msg == "__REQUEST_COMPLETED__":
+                    return
+        rx = asyncio.create_task(receive())
+        t0 = loop.time()
+        sends = []
+        for k, i in enumerate(range(0, len(pcm), step)):
+            if paced:
+                await asyncio.sleep(max(0.0, t0 + k * SERVER_PACKET_S
+                                        - loop.time()))
+            await ws.send(np.ascontiguousarray(pcm[i:i + step]).tobytes())
+            sends.append((loop.time(), min(i + step, len(pcm))))
+        t_eos = loop.time()
+        await ws.send(json.dumps({"__COMMAND__": "__EOS__"}))
+        await rx
+    return got, sends, t_eos
+
+
+def _wire_texts(got):
+    """(finals, partials) transcripts of one connection's messages."""
+    if not got or got[-1][1] != "__REQUEST_COMPLETED__":
+        fail(f"a connection got no __REQUEST_COMPLETED__: {got[-3:]}")
+    finals, partials = [], []
+    for _, m in got[:-1]:
+        r = json.loads(m)["result"]
+        text = r["hypotheses"][0]["transcript"].strip()
+        (finals if r["final"] else partials).append(text)
+    return finals, partials
+
+
+def _serve_clients(port, pcms, paced, rate=16000):
+    import asyncio
+    url = (f"ws://127.0.0.1:{port}/voice/api/asr/v1/ws/decode_online?"
+           f"content-type=audio/x-raw,+layout=(string)interleaved,"
+           f"+rate=(int){rate}")
+
+    async def run():
+        return await asyncio.gather(*(_ws_stream(url, p, paced, rate)
+                                      for p in pcms))
+    return asyncio.run(run())
+
+
+def _pcm16(audio):
+    import numpy as np
+    return (np.clip(audio, -1, 1) * 32767).astype(np.int16)
+
+
+def _need_launched(label, launches, names):
+    """Fail unless every kernel in ``names`` was launched on this path."""
+    missing = [k for k in names if not launches.get(k)]
+    if missing:
+        fail(f"{label}: no launch of {missing} on this path "
+             f"(launches {launches})")
+
+
+def server_golden_vi(device, want):
+    """(a) VI: the overfit fixture behind a StreamingServer over
+    GroupedScheduler(groups=2) and the device worker at 512 slots; three
+    connections stream phase_golden's audio over a loopback socket.  The
+    finals over the wire are phase_golden's.  Returns the child's launch
+    counts over the served streams."""
+    import numpy as np
+    from asr_streaming_tpu_torch.models.asr import ASRConfig
+    from asr_streaming_tpu_torch.models.serving import ServingConfig
+    from asr_streaming_tpu_torch.server.ws_server import StreamingServer
+    from asr_streaming_tpu_torch.streaming.endpoint import EndpointRule
+    from asr_streaming_tpu_torch.streaming.scheduler import GroupedScheduler
+    path = os.path.join(HERE, "assets", "test_fixtures", "overfit_ctc.npz")
+    with np.load(path) as z:
+        golden = json.loads(str(z["__meta__"]))["golden"]
+    vocab = ["-", "|", "a", "b", "c", "d"]
+    cfg = ServingConfig(asr=ASRConfig.tiny(vocab_size=len(vocab)),
+                        use_silero=False, use_energy_gate=False,
+                        energy_threshold_db=-200.0)
+    sched = GroupedScheduler(
+        None, cfg, vocab, max_slots=B_SLOTS, groups=2,
+        rules={"trained": EndpointRule(True, 0.8, 0.0, float("inf"))},
+        device_worker={"seed": 1, "checkpoint": path, "device": str(device)})
+    st = ServerThread(StreamingServer(sched, tick_idle_sleep=0.002))
+    try:
+        sched.client.stats(reset=True)
+        one = _sentence_audio(golden, 3.84)
+        audio = [one, np.concatenate([np.zeros(10240, np.float32), one]),
+                 np.concatenate([one, one])]
+        t0 = time.perf_counter()
+        results = _serve_clients(st.port, [_pcm16(a) for a in audio],
+                                 paced=False)
+        dt = time.perf_counter() - t0
+        launches = sched.client.stats()["launches"]
+    finally:
+        st.close()
+    got = [_wire_texts(got)[0] for got, _, _ in results]
+    expect = [[t for k, t in want[f"t{i}"] if k == "final" and t]
+              for i in range(len(audio))]
+    if got != expect:
+        fail(f"server VI finals over the wire {got} != phase_golden's "
+             f"{expect}")
+    if golden not in got[0]:
+        fail(f"server VI: golden {golden!r} not among {got}")
+    _need_launched("server VI (a)", launches,
+                   ("emformer_stack", "emission_append"))
+    log(f"[server] (a) VI overfit_ctc over a loopback socket, "
+        f"GroupedScheduler(groups=2) over the device worker at {B_SLOTS} "
+        f"slots: 3 connections completed in {dt:.2f} s, finals {got} = "
+        f"phase_golden's; child launches "
+        f"{({k: v for k, v in launches.items() if v})}")
+    return launches
+
+
+def server_golden_en(device, want):
+    """(a) EN: overfit_rnnt in beam-partials mode (width 4, the trained
+    VAD), as phase_en_golden's beam mode, behind the server over the
+    grouped worker; finals "a b" / "a b", "a b" as in process."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    from asr_streaming_tpu_torch.models.asr import ASRConfig
+    from asr_streaming_tpu_torch.models.rnnt import RNNTConfig
+    from asr_streaming_tpu_torch.models.serving import ServingConfig
+    from asr_streaming_tpu_torch.server.ws_server import StreamingServer
+    from asr_streaming_tpu_torch.streaming.endpoint import EndpointRule
+    from asr_streaming_tpu_torch.streaming.scheduler import GroupedScheduler
+    from asr_streaming_tpu_torch.utils.audio import EN_AUDIO
+    from asr_streaming_tpu_torch.utils.checkpoint import (
+        load_params, save_params,
+    )
+    fixtures = os.path.join(HERE, "assets", "test_fixtures")
+    path = os.path.join(fixtures, "overfit_rnnt.npz")
+    with np.load(path) as z:
+        golden = json.loads(str(z["__meta__"]))["beam_golden"]
+    cfg = ServingConfig(
+        asr=dataclasses.replace(ASRConfig.tiny(), audio=EN_AUDIO),
+        model_kind="rnnt", rnnt=RNNTConfig.tiny(vocab_size=len(EN_PIECES)),
+        use_silero=True, use_energy_gate=False, energy_threshold_db=-200.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        vad_path = os.path.join(tmp, "vad.npz")
+        save_params(vad_path, {"vad": load_params(
+            os.path.join(fixtures, "overfit_rnnt_vad.npz"))})
+        sched = GroupedScheduler(
+            None, cfg, EN_PIECES, max_slots=B_SLOTS, groups=2, language="en",
+            rules={"trained": EndpointRule(True, 0.8, 0.0, float("inf"))},
+            en_beam_partials=True, en_beam_width=4,
+            device_worker={"seed": 1, "checkpoint": path,
+                           "vad_weights": vad_path, "device": str(device)})
+        st = ServerThread(StreamingServer(sched, tick_idle_sleep=0.002))
+        try:
+            sched.client.stats(reset=True)
+            one = _en_sentence_audio(golden)
+            t0 = time.perf_counter()
+            results = _serve_clients(
+                st.port, [_pcm16(one), _pcm16(np.concatenate([one, one]))],
+                paced=False)
+            dt = time.perf_counter() - t0
+            launches = sched.client.stats()["launches"]
+        finally:
+            st.close()
+    got = [_wire_texts(got)[0] for got, _, _ in results]
+    expect = [[t for k, t in want[f"t{i}"] if k == "final" and t]
+              for i in range(2)]
+    if got != expect or got != [[golden], [golden, golden]]:
+        fail(f"server EN finals over the wire {got} != in process {expect} "
+             f"(golden {golden!r})")
+    _need_launched("server EN (a)", launches,
+                   ("emformer_stack", "emission_append", "row_topk"))
+    log(f"[server] (a) EN overfit_rnnt, beam partials, over a loopback "
+        f"socket at {B_SLOTS} slots: 2 connections completed in {dt:.2f} s, "
+        f"finals {got}; child launches "
+        f"{({k: v for k, v in launches.items() if v})}")
+    return launches
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _children(pid: int) -> list:
+    """Pids whose parent is ``pid`` (from /proc)."""
+    out = []
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    if int(f.read().rsplit(")", 1)[1].split()[1]) == pid:
+                        out.append(int(d))
+            except (OSError, IndexError, ValueError):
+                pass
+    return out
+
+
+def _alive(pids) -> dict:
+    """{pid: command line} of the pids still running (zombies, which an
+    init that does not reap may keep, count as gone)."""
+    out = {}
+    for p in pids:
+        try:
+            with open(f"/proc/{p}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] == "Z":
+                    continue
+            with open(f"/proc/{p}/cmdline", "rb") as f:
+                out[p] = f.read().replace(b"\0", b" ").decode()[:200]
+        except (OSError, IndexError):
+            pass
+    return out
+
+
+def _speechlike(seconds, seed, sr=16000):
+    """Tones with vibrato plus noise, well above the energy gate."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(sr * seconds)) / sr
+    f0 = 150 + 100 * rng.random()
+    audio = sum(0.08 * np.sin(2 * np.pi * f0 * h * t
+                              + 3 * np.sin(2 * np.pi * 4 * t))
+                for h in (1, 2, 3))
+    audio = audio + 0.03 * rng.standard_normal(t.size)
+    return audio.astype(np.float32)
+
+
+def _latencies(results, seg_samples):
+    """Per connection: chunk-to-partial seconds, EOS-to-completed seconds
+    and the (partials, segments) counts.  Partials come in chunk order,
+    at most one per chunk, but a chunk whose text did not change sends
+    none, so each partial is timed from the newest segment completed when
+    it arrived (exact while the server keeps up)."""
+    lat, eos, counts = [], [], []
+    for got, sends, t_eos in results:
+        done = [t for t, m in got if m == "__REQUEST_COMPLETED__"][0]
+        eos.append(done - t_eos)
+        seg_times = []
+        for t, n in sends:
+            while (len(seg_times) + 1) * seg_samples <= n:
+                seg_times.append(t)
+        partials = [t for t, m in got if m != "__REQUEST_COMPLETED__"
+                    and not json.loads(m)["result"]["final"] and t <= t_eos]
+        counts.append((len(partials), len(seg_times)))
+        for r in partials:
+            newest = sum(1 for t in seg_times if t <= r) - 1
+            if newest >= 0:
+                lat.append(r - seg_times[newest])
+    return lat, eos, counts
+
+
+def _pct(xs, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(xs), q)) * 1e3
+
+
+def server_entry_point(config, n_conn, card, label, seconds=6.0):
+    """(b) ``python -m asr_streaming_tpu_torch.server --config <config>``
+    at full width (512 slots, device worker, groups 2, the bf16 stack
+    route, mu-law upload) as a subprocess; ``n_conn`` connections stream
+    ``seconds`` of audio each at real-time pace.  Returns the server's
+    kernel launch counts (from its shutdown log line) and the numbers."""
+    import signal
+    import tempfile
+    import threading
+    import urllib.request
+    from asr_streaming_tpu_torch.server.config import ServerSettings
+    settings = ServerSettings.load(config, env={})
+    seg_samples = settings.audio.segment_length
+    port = _free_port()
+    lines = []
+    with tempfile.TemporaryDirectory() as logdir:
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("PORT", "LANGUAGE", "NORM_PORT")}
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "asr_streaming_tpu_torch.server",
+             "--config", config, "--port", str(port),
+             "--allow-random-weights", "--log-dir", logdir],
+            cwd=HERE, env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)
+        serving = threading.Event()
+
+        def read():
+            for line in proc.stderr:
+                lines.append(line.rstrip("\n"))
+                if "serving on port" in line:
+                    serving.set()
+        reader = threading.Thread(target=read, daemon=True)
+        reader.start()
+        try:
+            while not serving.wait(0.5):
+                if proc.poll() is not None or time.perf_counter() - t0 > 600:
+                    fail(f"{label}: the server did not come up:\n"
+                         + "\n".join(lines[-40:]))
+            startup = time.perf_counter() - t0
+            base = f"http://127.0.0.1:{port}/metrics.json"
+            with urllib.request.urlopen(base, timeout=30) as r:
+                before = json.loads(r.read())
+            pcms = [_pcm16(_speechlike(seconds, seed=i))
+                    for i in range(n_conn)]
+            results = _serve_clients(port, pcms, paced=True)
+            with urllib.request.urlopen(base, timeout=30) as r:
+                after = json.loads(r.read())
+            children = _children(proc.pid)
+        finally:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGINT)
+            try:
+                rc = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                fail(f"{label}: the server did not exit within 60 s of SIGINT")
+            reader.join(timeout=10)
+    for got, _, _ in results:
+        _wire_texts(got)                 # every connection completed
+    if rc != 0:
+        fail(f"{label}: the server exited {rc}:\n" + "\n".join(lines[-40:]))
+    failed = [ln for ln in lines if "tick failed" in ln]
+    if failed:
+        fail(f"{label}: the server logged failed ticks: {failed[:3]}")
+    if after.get("ticks", 0) <= 0 or after.get("max_slots") != B_SLOTS:
+        fail(f"{label}: /metrics.json after the run: {after}")
+    deadline = time.perf_counter() + 15
+    while _alive(children) and time.perf_counter() < deadline:
+        time.sleep(0.2)
+    if _alive(children):
+        fail(f"{label}: the server left processes behind: {_alive(children)}")
+    launch_lines = [ln for ln in lines if "kernel launches:" in ln]
+    if not launch_lines:
+        fail(f"{label}: no kernel launch line in the server's log")
+    launches = json.loads(launch_lines[-1].split("kernel launches:", 1)[1])
+    lat, eos, counts = _latencies(results, seg_samples)
+    if not lat:
+        fail(f"{label}: no partial arrived before EOS ({counts})")
+    numbers = {
+        "connections": n_conn, "audio_s": seconds,
+        "segment_s": seg_samples / 16000, "startup_s": startup,
+        "chunk_to_partial_p50_ms": _pct(lat, 50),
+        "chunk_to_partial_p95_ms": _pct(lat, 95),
+        "eos_to_completed_p50_ms": _pct(eos, 50),
+        "eos_to_completed_max_ms": max(eos) * 1e3,
+        "partials_vs_segments": [list(c) for c in counts],
+        "ticks": after["ticks"], "ticks_before_clients": before.get("ticks"),
+        "tick_p50_ms": after.get("stages", {}).get("tick", {}).get("p50_ms"),
+    }
+    log(f"[server] (b) {label} | {card} | {json.dumps(numbers)}")
+    log(f"[server] (b) {label}: exit {rc} after SIGINT, no failed tick, "
+        f"its {len(children)} child processes gone; server-side launches "
+        f"{({k: v for k, v in launches.items() if v})}")
+    return launches, numbers
+
+
+def _en_sharpened_config(tmp):
+    """server-en.yaml with a checkpoint of the seed-0 joiner scaled by
+    EN_JOINER_GAIN (the rest of the weights stay the worker's seed-0
+    draw), so the random beam holds tokens and partials flow."""
+    import torch
+    from asr_streaming_tpu_torch.models.serving import init_serving_params
+    from asr_streaming_tpu_torch.server.__main__ import build_config
+    from asr_streaming_tpu_torch.server.config import ServerSettings
+    from asr_streaming_tpu_torch.utils.checkpoint import save_params
+    src = os.path.join(HERE, "configs", "server-en.yaml")
+    cfg = build_config(ServerSettings.load(src, env={}))
+    params = init_serving_params(0, cfg, torch.device("cpu"))
+    ckpt = os.path.join(tmp, "en_joiner.npz")
+    save_params(ckpt, {"joiner": {"w": params["joiner"]["w"]
+                                  * EN_JOINER_GAIN}})
+    with open(src) as f:
+        text = f.read()
+    if "\ncheckpoint: null" not in text:
+        fail("configs/server-en.yaml has no 'checkpoint: null' line")
+    path = os.path.join(tmp, "server-en.yaml")
+    with open(path, "w") as f:
+        f.write(text.replace("\ncheckpoint: null", f"\ncheckpoint: {ckpt}"))
+    return path
+
+
+def server_native_rescorer():
+    """(c) The VI finals' beam decoder on this machine is the C++ one."""
+    import tempfile
+    import types
+    import numpy as np
+    from asr_streaming_tpu_torch.decode.beam_native import (
+        library_path, make_native_rescorer,
+    )
+    vocab = ["-", "|", "a", "b", "c"]
+    with tempfile.TemporaryDirectory() as tmp:
+        lex = os.path.join(tmp, "lexicon.txt")
+        with open(lex, "w") as f:
+            f.write("ab\ta b |\nba\tb a |\nabc\ta b c |\na\ta |")
+        arpa = os.path.join(tmp, "lm.arpa")
+        with open(arpa, "w") as f:
+            f.write("\\data\\\nngram 1=6\nngram 2=2\n\n\\1-grams:\n"
+                    "-0.3\tab\t-0.2\n-0.9\tba\t-0.1\n-1.2\tabc\t0.0\n"
+                    "-0.8\ta\t-0.3\n-0.5\t</s>\n-99\t<s>\t-0.4\n\n"
+                    "\\2-grams:\n-0.1\tab ba\n-0.2\t<s> ab\n\n\\end\\\n")
+        rescore = make_native_rescorer(vocab, lex, arpa, lm_weight=1.5)
+        if rescore is None:
+            fail("make_native_rescorer returned None: no native beam")
+        em = np.full((6, 5), -12.0, np.float32)
+        em[np.arange(6), [2, 3, 1, 3, 2, 1]] = 0.0
+        words = [a["word"] for a in rescore(types.SimpleNamespace(
+            emission=em, length=6, offset=0))]
+    if words != ["ab", "ba"]:
+        fail(f"native rescorer words {words} != ['ab', 'ba']")
+    log(f"[server] (c) VI finals rescore with the native C++ beam "
+        f"({os.path.relpath(library_path(), HERE)}): {words}")
+
+
+def phase_server(device, card, vi_want, en_want, counted):
+    """The websocket server: (a) exact transcripts over a real socket in
+    process, (b) full width through the normal entry point, (c) the native
+    rescorer.  ``counted(fn, *args)`` runs a path with the counts zeroed
+    before and read after; the worker's and the subprocess's counts are
+    returned and added by the caller."""
+    import tempfile
+    import torch
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    add(counted(server_golden_vi, device, vi_want))
+    add(counted(server_golden_en, device, en_want))
+    torch.cuda.empty_cache()
+    vi_launches, vi_numbers = server_entry_point(
+        os.path.join(HERE, "configs", "server-vi.yaml"), 16, card,
+        "server-vi.yaml")
+    _need_launched("server-vi.yaml (b)", vi_launches,
+                   ("emformer_stack", "emission_append"))
+    add(vi_launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        en_launches, en_numbers = server_entry_point(
+            _en_sharpened_config(tmp), 8, card, "server-en.yaml")
+    _need_launched("server-en.yaml (b)", en_launches,
+                   ("emformer_stack", "emission_append", "row_topk"))
+    add(en_launches)
+    server_native_rescorer()
+    return totals, {"vi": vi_numbers, "en": en_numbers}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("vi", "en", "gemm", "int8"),
+    ap.add_argument("--only", choices=("vi", "en", "gemm", "int8", "server"),
                     default=None,
-                    help="run one language's phases, or the bf16 or the "
-                         "int8 GEMM phase alone (a partial run: the result "
-                         "line says so and the exit code is 4)")
+                    help="run one language's phases, the bf16 or the int8 "
+                         "GEMM phase, or the server phase (with the golden "
+                         "phases it compares with) alone (a partial run: "
+                         "the result line says so and the exit code is 4)")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "asr_streaming_tpu_torch")):
         fail("asr_streaming_tpu_torch/ is not beside this script")
@@ -1917,19 +2436,21 @@ def main() -> None:
     phase_build()
     gen = torch.Generator().manual_seed(args.seed)
     vi, en = args.only in (None, "vi"), args.only in (None, "en")
+    server = args.only in (None, "server")
     if args.only in ("gemm", "int8"):
         (phase_gemm if args.only == "gemm" else phase_int8)(gen, device)
         sys.exit(4)
     kernels = phase_kernels(gen, device) if vi else []
     if en:
         phase_kernels_en(gen, device, kernels)
-    gemm = phase_gemm(gen, device)
-    int8 = phase_int8(gen, device)
-    for k in kernels:
-        if k["name"] == "emformer_stack":
-            k["gemm"] = gemm
-        if k["name"] == "emformer_stack_int8":
-            k["int8"] = int8
+    if vi or en:
+        gemm = phase_gemm(gen, device)
+        int8 = phase_int8(gen, device)
+        for k in kernels:
+            if k["name"] == "emformer_stack":
+                k["gemm"] = gemm
+            if k["name"] == "emformer_stack_int8":
+                k["int8"] = int8
 
     # the paths: each driven with the counts set to 0 just before it and
     # read just after; the worker phases add their child's counts
@@ -1954,13 +2475,21 @@ def main() -> None:
         del params
         torch.cuda.empty_cache()
         add(path(phase_worker, args.seed, p50, device))
-        add(path(phase_golden, device))
+    if vi or server:
+        launches, vi_want = path(phase_golden, device)
+        add(launches)
     if en:
         params = path(phase_en_serving, args.seed, gen, device)
         add(path(phase_en_scheduler, params, args.seed, device))
         del params
         torch.cuda.empty_cache()
-        add(path(phase_en_golden, device))
+    if en or server:
+        launches, en_want = path(phase_en_golden, device)
+        add(launches)
+    if server:
+        # the worker's and the server subprocesses' counts come back
+        launches, _ = phase_server(device, card, vi_want, en_want, path)
+        add(launches)
     for k in kernels:
         k["launches"] = totals[k["name"]]
         if k["launches"] == 0 and args.only is None:

@@ -18,8 +18,13 @@ bad = sorted(m for m in sys.modules
              or m == "asr_streaming_tpu" or m.startswith("asr_streaming_tpu."))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 24, names
-for new in ("models.rnnt", "models.rnnt_beam", "ops.topk", "ops.row_topk"):
+assert len(names) >= 44, names
+for new in ("models.rnnt", "models.rnnt_beam", "ops.topk", "ops.row_topk",
+            "server.__main__", "server.config", "server.ws_server",
+            "server.protocol", "server.http_static", "decode.beam",
+            "decode.beam_native", "decode.kenlm_binary", "decode.kenlm_trie",
+            "text.corpus", "text.spm", "tools.onnx_weights", "utils.logs",
+            "utils.noise", "utils.resample"):
     assert "asr_streaming_tpu_torch." + new in names, new
 """
 
