@@ -16,10 +16,15 @@ and the process exits non-zero.  SIGINT or SIGTERM drains the server: the
 tick thread stops, the worker's kernel launch counts are logged, the
 child is joined, and the process exits 0.
 
-Settings that need a later slice of the port raise at startup, naming
-their ROADMAP.md item: ``speaker_wav`` (ECAPA), a ``.ckpt``/``.pt``
-checkpoint (convert it to ``.npz`` first) and ``data_parallel`` other
-than 1.
+``checkpoint:`` takes an ``.npz`` (possibly partial) or a reference
+``.ckpt``/``.pt``, converted at load (utils/checkpoint.py::
+load_params_auto), here and in the worker child alike.  ``speaker_wav``
+enrolls a speaker: ECAPA (models/ecapa.py, ``speaker_weights`` as
+``.npz``, ``.ckpt`` or ``.pt``, else random weights with a warning) runs
+on the card in this process, so this process opens a CUDA context only
+when ``speaker_wav`` is set, and every final with a word window carries
+its ``is_speaker``.  ``data_parallel`` other than 1 (multi-GPU serving,
+ROADMAP.md queue 1, item 4) raises at startup.
 """
 
 from __future__ import annotations
@@ -36,16 +41,6 @@ import threading
 
 def _check_ported(settings) -> None:
     """Raise on a setting whose code is a later slice of the port."""
-    if settings.speaker_wav:
-        raise NotImplementedError(
-            "speaker_wav: speaker verification (models/ecapa.py) is not "
-            "ported yet (ROADMAP.md, queue 1, item 3)")
-    if settings.checkpoint and settings.checkpoint.endswith((".ckpt", ".pt")):
-        raise NotImplementedError(
-            f"checkpoint {settings.checkpoint!r}: on-the-fly conversion "
-            "(load_params_auto) is not ported yet (ROADMAP.md, queue 1, "
-            "item 5); convert it to .npz with tools/convert_checkpoint.py "
-            "or tools/convert_rnnt_checkpoint.py first")
     if settings.data_parallel != 1:
         raise NotImplementedError(
             f"data_parallel: {settings.data_parallel}: multi-GPU serving is "
@@ -116,7 +111,7 @@ def build_server(settings, max_slots=None, device=None):
         load_vocab, placeholder_vocab,
     )
     from asr_streaming_tpu_torch.utils.checkpoint import (
-        load_params, overlay_params,
+        load_params_auto, overlay_params,
     )
 
     _check_ported(settings)
@@ -160,7 +155,9 @@ def build_server(settings, max_slots=None, device=None):
         params = init_serving_params(
             0, cfg, torch.device("cpu") if worker else device)
         if settings.checkpoint:
-            params = overlay_params(params, load_params(settings.checkpoint))
+            # .npz (possibly partial) or a reference .ckpt / .pt,
+            # converted at load
+            params = load_params_auto(settings.checkpoint, like=params)
             logging.info("loaded checkpoint %s", settings.checkpoint)
         if settings.vad_weights and not worker:
             params = overlay_params(
@@ -277,11 +274,53 @@ def build_server(settings, max_slots=None, device=None):
         scheduler, rescorer=rescorer, rescorers=rescorers,
         normalizer=normalizer,
         en_rescorer=en_rescorer,
+        speaker_verifier=build_speaker_verifier(settings, device),
         doc_root=settings.doc_root, certificate=settings.certificate,
         send_internal=settings.send_internal,
         filter_noise=settings.filter_noise,
         noise_threshold_db=settings.noise_threshold_db,
         save_audio_dir="audio_cache" if settings.save_audio else None)
+
+
+def build_speaker_verifier(settings, device):
+    """The enrolled speaker's SpeakerVerifier on ``device`` (this process's;
+    the device worker does not hold it), or None without ``speaker_wav``.
+    Logs its device, the seconds its construction took (the CUDA context,
+    the weights, one embedding per bucket) and the device memory it
+    holds."""
+    if not settings.speaker_wav:
+        return None
+    import time
+
+    import torch
+
+    from asr_streaming_tpu_torch.models.ecapa import (
+        EcapaConfig, SpeakerVerifier, init_ecapa_params, load_ecapa_weights,
+    )
+    from asr_streaming_tpu_torch.utils.audio import read_wav
+
+    t0 = time.perf_counter()
+    ecfg = EcapaConfig()
+    if settings.speaker_weights:
+        eparams = load_ecapa_weights(settings.speaker_weights, ecfg)
+        logging.info("loaded ECAPA speaker weights from %s",
+                     settings.speaker_weights)
+    else:
+        # a random-init verifier still exercises the pipeline end to end,
+        # but is_speaker is noise — ship speaker_weights in production
+        eparams = init_ecapa_params(1, ecfg, "cpu")
+        logging.warning("speaker verification running with RANDOM ECAPA "
+                        "weights (set speaker_weights:)")
+    wave, _sr = read_wav(settings.speaker_wav)
+    verifier = SpeakerVerifier(eparams, ecfg, wave,
+                               threshold=settings.speaker_threshold,
+                               device=device)
+    mib = (torch.cuda.memory_reserved(verifier.device) / 2 ** 20
+           if verifier.device.type == "cuda" else 0.0)
+    logging.info("speaker verifier on %s: built in %.2f s, %.1f MiB "
+                 "reserved on the device", verifier.device,
+                 time.perf_counter() - t0, mib)
+    return verifier
 
 
 def launch_counts(scheduler) -> dict:

@@ -222,7 +222,7 @@ class _DeviceSide:
         )
         from asr_streaming_tpu_torch.models.vad import load_vad_weights
         from asr_streaming_tpu_torch.utils.checkpoint import (
-            load_params, overlay_params,
+            load_params_auto, overlay_params,
         )
 
         self.torch = torch
@@ -233,9 +233,9 @@ class _DeviceSide:
         params = init_serving_params(seed, self.cfg, self.device)
         if checkpoint:
             # an .npz of the JAX package's layout, possibly partial (a
-            # fixture's frontend + encoder): its keys replace the random
-            # ones
-            params = overlay_params(params, load_params(checkpoint))
+            # fixture's frontend + encoder), or a reference .ckpt / .pt
+            # converted at load: its keys replace the random ones
+            params = load_params_auto(checkpoint, like=params)
         if vad_weights:
             params = overlay_params(params,
                                     {"vad": load_vad_weights(vad_weights,

@@ -5,8 +5,12 @@ Vietnamese CTC tick and the English RNNT ticks.  Streams occupy fixed
 slots of a ``[max_slots, ...]`` device-resident state.  Each tick:
 
   1. gather one ready chunk per stream (from streams with no chunk in
-     flight when ``pipeline_depth`` > 1), encode it (mu-law LUT or int16)
-     into a staging buffer and start its host->device copy;
+     flight when ``pipeline_depth`` > 1), encode it (mu-law or int16)
+     into a staging buffer and start its host->device copy.  The encode
+     is the native fused gather (utils/codec_native.py: each stream's
+     segment view straight into its staging row, as the JAX scheduler
+     does) unless ``ASR_NO_FUSED_GATHER`` is set or no C++ compiler is
+     there, then the numpy LUT; ``stats()`` names the one that ran;
   2. harvest the OLDEST in-flight batch (its ``[B, 5 + U]`` pack) and
      scatter it to the ``Stream`` state machines, which produce partial
      and final ``StreamEvent``s;
@@ -53,6 +57,7 @@ from asr_streaming_tpu_torch.models.serving import (
 )
 from asr_streaming_tpu_torch.streaming.endpoint import NgramEndpointCost
 from asr_streaming_tpu_torch.streaming.stream import FinalSegment, Stream
+from asr_streaming_tpu_torch.utils import codec_native
 from asr_streaming_tpu_torch.utils.checkpoint import params_from_numpy
 from asr_streaming_tpu_torch.utils.observability import StageTimers
 
@@ -220,6 +225,10 @@ class Scheduler:
         self.timers = StageTimers()
         self.last_tick_seconds = 0.0
         self.ticks = 0
+        # the encoder of the newest gather: "native" (the fused C++ pass,
+        # utils/codec_native.py) or "numpy" (the LUT; no compiler, or
+        # ASR_NO_FUSED_GATHER set); None before the first gather
+        self.gather_encoder: Optional[str] = None
 
     # ------------------------------------------------------------- lifecycle
 
@@ -258,6 +267,11 @@ class Scheduler:
             self._harvest_pool = None
         if self.worker is not None:
             self.worker.close()
+
+    def stats(self) -> dict:
+        """What this scheduler ran: the encoder of its newest gather
+        (``gather_encoder``) and its tick count."""
+        return {"gather_encoder": self.gather_encoder, "ticks": self.ticks}
 
     def warmup(self) -> float:
         """Run one all-idle step (builds the CUDA kernels on first use)
@@ -334,14 +348,27 @@ class Scheduler:
             self._staging_idx = (staged_idx + 1) % len(self._segment)
             # encode only the ready rows; idle rows keep stale bytes,
             # which the step ignores (not active: no decode, no context)
-            slots = np.array([slot for slot, _ in ready])
-            audio = np.stack([s.pop_chunk() for _, s in ready])
-            if self._mulaw:
-                encoded = mulaw_encode_host(audio)
+            staging = self._segment[staged_idx]
+            if (not os.environ.get("ASR_NO_FUSED_GATHER")
+                    and codec_native.native_available()):
+                # each ready stream's segment view straight into its
+                # staging row, in one native pass
+                views = [s.pop_chunk_view() for _, s in ready]
+                slots = np.array([slot for slot, _ in ready], np.int32)
+                codec_native.gather_encode_into(views, slots, staging,
+                                                self._mulaw)
+                del views
+                self.gather_encoder = "native"
             else:
-                encoded = np.clip(audio * 32767.0, -32768,
-                                  32767).astype(np.int16)
-            self._segment[staged_idx][slots] = encoded
+                slots = np.array([slot for slot, _ in ready])
+                audio = np.stack([s.pop_chunk() for _, s in ready])
+                if self._mulaw:
+                    encoded = mulaw_encode_host(audio)
+                else:
+                    encoded = np.clip(audio * 32767.0, -32768,
+                                      32767).astype(np.int16)
+                staging[slots] = encoded
+                self.gather_encoder = "numpy"
             self.timers.observe("gather_encode", time.perf_counter() - t0)
             if self.worker is None:
                 self._seg_dev = self._upload(self._staging[staged_idx])
@@ -576,6 +603,14 @@ class GroupedScheduler:
                 return out
 
         return _Merged()
+
+    def stats(self) -> dict:
+        """The groups' stats: ``gather_encoder`` is the one encoder every
+        group that gathered used, or their names joined by "+"."""
+        encoders = sorted({g.gather_encoder for g in self.groups}
+                          - {None})
+        return {"gather_encoder": "+".join(encoders) or None,
+                "ticks": self.ticks}
 
     def warmup(self) -> float:
         return sum(g.warmup() for g in self.groups)

@@ -1,7 +1,8 @@
-"""Audio stream geometry.
+"""Audio stream geometry, and the WAV reader of the speaker enrolment.
 
 Copied from asr_streaming_tpu/utils/audio.py (AudioConfig, VI_AUDIO,
-EN_AUDIO).
+EN_AUDIO); ``read_wav`` is copied from asr_streaming_tpu/train/data.py
+(the server's ``speaker_wav``).
 
 For the Vietnamese production geometry:
 
@@ -17,6 +18,9 @@ For the Vietnamese production geometry:
 from __future__ import annotations
 
 import dataclasses
+import wave as wave_mod
+
+import numpy as np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,3 +78,14 @@ VI_AUDIO = AudioConfig(sample_rate=16000, hop_seconds=0.01, segment_size=64,
                        context_size=16, bias=4, framerate=4)
 EN_AUDIO = AudioConfig(sample_rate=16000, hop_seconds=0.01, segment_size=16,
                        context_size=4, bias=0, framerate=1)
+
+
+def read_wav(path: str) -> tuple[np.ndarray, int]:
+    """16-bit PCM WAV -> (float32 mono [-1,1], sample_rate)."""
+    with wave_mod.open(path) as f:
+        sr = f.getframerate()
+        n_ch = f.getnchannels()
+        pcm = np.frombuffer(f.readframes(f.getnframes()), dtype=np.int16)
+    if n_ch > 1:
+        pcm = pcm.reshape(-1, n_ch)[:, 0]
+    return pcm.astype(np.float32) / 32768.0, sr

@@ -18,13 +18,15 @@ bad = sorted(m for m in sys.modules
              or m == "asr_streaming_tpu" or m.startswith("asr_streaming_tpu."))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 44, names
+assert len(names) >= 50, names
 for new in ("models.rnnt", "models.rnnt_beam", "ops.topk", "ops.row_topk",
             "server.__main__", "server.config", "server.ws_server",
             "server.protocol", "server.http_static", "decode.beam",
             "decode.beam_native", "decode.kenlm_binary", "decode.kenlm_trie",
             "text.corpus", "text.spm", "tools.onnx_weights", "utils.logs",
-            "utils.noise", "utils.resample"):
+            "utils.noise", "utils.resample", "bench", "models.ecapa",
+            "utils.codec_native", "tools.convert_checkpoint",
+            "tools.convert_rnnt_checkpoint", "tools.convert_ecapa"):
     assert "asr_streaming_tpu_torch." + new in names, new
 """
 

@@ -418,3 +418,56 @@ def test_en_beam_partials_golden_over_the_wire():
         st.close()
     assert [f for f, _ in got] == [f for f, _ in want] == \
         [[golden], [golden, golden]]
+
+
+# ---------------------------------------------------- speaker verification
+
+def test_is_speaker_at_finals_with_the_fixture_verifier():
+    """The trained speaker fixture's verifier in the port's server: every
+    final with a word window carries a boolean is_speaker, true on the
+    enrolled voice's connection and false on the other voice's
+    (tests/test_speaker_loop.py's server check, on the port).  A stub
+    rescorer gives each final a fixed word window, the audio that the
+    verifier embeds."""
+    from asr_streaming_tpu_torch.models.ecapa import (
+        EcapaConfig, SpeakerVerifier, load_ecapa_weights,
+    )
+    from tests.test_torch_ecapa import _utt
+
+    path = asset_path("speaker_loop")
+    with np.load(path) as z:
+        threshold = json.loads(str(z["__meta__"]))["threshold"]
+    ecfg = EcapaConfig.tiny()
+    verifier = SpeakerVerifier(load_ecapa_weights(path, ecfg), ecfg,
+                               _utt("A", 200), threshold=threshold,
+                               device="cpu")
+    cfg = ServingConfig(asr=ASRConfig.tiny(vocab_size=4), use_silero=False,
+                        use_energy_gate=False)
+    sched = Scheduler(init_serving_params(0, cfg, "cpu"), cfg,
+                      ["-", "|", "a", "b"], max_slots=2,
+                      rules={"flush": EndpointRule(True, 0.0, 1.5,
+                                                   float("inf"))},
+                      device="cpu")
+
+    def stub_rescorer(seg):
+        return [{"beg": 0.10, "end": 1.80, "word": "x", "confidence": 1.0}]
+
+    st = Running(StreamingServer(sched, rescorer=stub_rescorer,
+                                 speaker_verifier=verifier,
+                                 tick_idle_sleep=0.002))
+    try:
+        got = _serve_all(st.port, [_pcm(_utt("A", 103)),
+                                   _pcm(_utt("B", 103))])
+    finally:
+        st.close()
+    first = []
+    for messages in got:
+        finals = [m for m in map(json.loads, messages[:-1])
+                  if m["result"]["final"] and m.get("word_start") is not None]
+        assert finals, messages
+        assert all(isinstance(m["is_speaker"], bool) for m in finals)
+        first.append(finals[0]["is_speaker"])
+    # the first final's window [0.1, 1.8] s is the voice; a later final's
+    # fixed window lies before the audio the stream still keeps (an empty
+    # slice, which never verifies)
+    assert first == [True, False]

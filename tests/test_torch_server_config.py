@@ -6,8 +6,9 @@ file, with one intended difference: a flat ``endpoint_rules`` also
 replaces ``endpoint_rulesets["DEFAULT"]``, so ``Stream`` serves it (the
 JAX loader loses it when the file also has ``Endpointing_rules``).
 ``build_server`` hands ``quant`` to the device-worker child inside the
-pickled config, raises on settings of a later slice, and never falls back
-to the CPU.
+pickled config, raises on settings of a later slice (``data_parallel``),
+builds the speaker verifier of ``speaker_wav``, and never falls back to
+the CPU; the worker child converts a ``.ckpt`` checkpoint at load.
 """
 
 import dataclasses
@@ -19,7 +20,7 @@ import sys
 import pytest
 
 from asr_streaming_tpu.server.config import ServerSettings as JSettings
-from asr_streaming_tpu_torch.server.__main__ import build_server
+from asr_streaming_tpu_torch.server.__main__ import _check_ported, build_server
 from asr_streaming_tpu_torch.server.config import ServerSettings
 from asr_streaming_tpu_torch.streaming.stream import Stream
 from asr_streaming_tpu_torch.text.vocab import placeholder_vocab
@@ -105,13 +106,109 @@ def test_quant_reaches_the_device_worker_child():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(speaker_wav="enrolled.wav"), "item 3"),
-    (dict(checkpoint="asr-online.ckpt"), "item 5"),
+    (dict(speaker_wav="enrolled.wav"), None),
+    (dict(checkpoint="asr-online.ckpt"), None),
     (dict(data_parallel=0), "item 4"),
 ], ids=["speaker_wav", "ckpt", "data_parallel"])
 def test_later_slice_settings_raise_naming_their_item(kw, item):
+    """Only a setting of a later slice raises at startup, naming its
+    ROADMAP item: ``data_parallel`` (multi-GPU serving).  Speaker
+    verification and ``.ckpt``/``.pt`` checkpoints are served now."""
+    settings = _settings(**kw)
+    if item is None:
+        _check_ported(settings)
+        return
     with pytest.raises(NotImplementedError, match=item):
-        build_server(_settings(**kw), max_slots=2, device="cpu")
+        _check_ported(settings)
+    with pytest.raises(NotImplementedError, match=item):
+        build_server(settings, max_slots=2, device="cpu")
+
+
+def test_worker_child_converts_a_ckpt_checkpoint(tmp_path):
+    """The device-worker child's loader takes a reference Lightning
+    .ckpt, converted at load (load_params_auto), as the JAX child does."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from asr_streaming_tpu_torch.models.asr import ASRConfig
+    from asr_streaming_tpu_torch.models.emformer import EmformerConfig
+    from asr_streaming_tpu_torch.models.encoder import EncoderConfig
+    from asr_streaming_tpu_torch.models.serving import ServingConfig
+    from asr_streaming_tpu_torch.streaming.device_worker import _DeviceSide
+    from tests.test_convert_checkpoint import (
+        D, FFN, H, L, MELS, V, _synthetic_reference_state_dicts,
+    )
+
+    enc, dec = _synthetic_reference_state_dicts()
+    path = str(tmp_path / "asr-online.ckpt")
+    torch.save({"state_dict": {"encoder": enc, "decoder": dec}}, path)
+    cfg = ServingConfig(asr=ASRConfig(encoder=EncoderConfig(
+        input_dim=MELS, d_model=D, vocab_size=V, ctc_hidden_dim=H,
+        emformer=EmformerConfig(d_model=D, num_heads=4, ffn_dim=FFN,
+                                num_layers=L))), use_silero=False)
+    side = _DeviceSide(pickle.dumps(cfg), 0, path, None, "cpu")
+    enc_p = side.params["encoder"]
+    np.testing.assert_array_equal(enc_p["ctc"]["w2"].numpy(),
+                                  dec["linear2.weight"].numpy().T)
+    np.testing.assert_array_equal(
+        enc_p["emformer"]["ff_w1"][1].numpy(),
+        enc["encoder_layers.emformer_layers.1.pos_ff.1.weight"].numpy().T)
+
+
+def test_speaker_wav_builds_a_verifier(tmp_path):
+    """``speaker_wav`` with ``speaker_weights`` as a speechbrain .ckpt:
+    build_server hands StreamingServer a full-width SpeakerVerifier on
+    the device it was given, and logs that device."""
+    import logging
+    import wave
+
+    import numpy as np
+    import torch
+
+    from asr_streaming_tpu_torch.models.ecapa import (
+        EcapaConfig, SpeakerVerifier,
+    )
+    from tests.test_ecapa_convert import synthetic_state_dict
+    from asr_streaming_tpu.models.ecapa import EcapaConfig as JEcapaConfig
+
+    wav = str(tmp_path / "enrolled.wav")
+    rng = np.random.default_rng(0)
+    with wave.open(wav, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(16000)
+        f.writeframes((rng.standard_normal(24000) * 3000).astype(
+            np.int16).tobytes())
+    ckpt = str(tmp_path / "embedding_model.ckpt")
+    torch.save({"embedding_model." + k: torch.from_numpy(v) for k, v in
+                synthetic_state_dict(JEcapaConfig(), seed=2).items()}, ckpt)
+    settings = _settings(speaker_wav=wav, speaker_weights=ckpt,
+                         device_worker=False)
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logging.getLogger().addHandler(handler)
+    old_level = logging.getLogger().level
+    logging.getLogger().setLevel(logging.INFO)
+    try:
+        server = build_server(settings, max_slots=2, device="cpu")
+    finally:
+        logging.getLogger().removeHandler(handler)
+        logging.getLogger().setLevel(old_level)
+    try:
+        v = server.speaker_verifier
+        assert isinstance(v, SpeakerVerifier)
+        assert v.cfg == EcapaConfig() and v.device.type == "cpu"
+        assert v.threshold == settings.speaker_threshold
+        assert v(np.zeros(0, np.float32)) is False
+        assert isinstance(v(rng.standard_normal(8000).astype(np.float32)),
+                          bool)
+    finally:
+        server.scheduler.close()
+    msgs = [r.getMessage() for r in records]
+    assert any(m.startswith("speaker verifier on cpu") for m in msgs), msgs
 
 
 def test_no_cuda_no_silent_cpu_fallback(tmp_path):
