@@ -1164,21 +1164,31 @@ int gemm_setup_one(int* blocks) {
 }
 
 // the kernels' shared-memory limits, their blocks per SM and the SM
-// count, once per process
+// count, once per device: a function's shared-memory limit is an
+// attribute of the device that was current when it was set, so each card
+// the process launches on is set up on its first launch there (the
+// wrappers make the tensors' device current around every launch)
+constexpr int kMaxDevices = 64;
+
 const GemmSetup& gemm_setup() {
-  static GemmSetup s;
-  static std::once_flag once;
-  std::call_once(once, [] {
-    int dev = 0;
-    s.status = (int)cudaGetDevice(&dev);
-    if (s.status == 0)
-      s.status = (int)cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount, dev);
+  static GemmSetup table[kMaxDevices];
+  static std::once_flag once[kMaxDevices];
+  int dev = 0;
+  const int e = (int)cudaGetDevice(&dev);
+  if (e != 0 || dev < 0 || dev >= kMaxDevices) {
+    thread_local GemmSetup failed;
+    failed.status = e != 0 ? e : kErrShape;
+    return failed;
+  }
+  std::call_once(once[dev], [dev] {
+    GemmSetup& s = table[dev];
+    s.status = (int)cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount, dev);
     if (s.status == 0) s.status = gemm_setup_one<2, 256, 3>(&s.blocks[0]);
     if (s.status == 0) s.status = gemm_setup_one<2, 128, 5>(&s.blocks[1]);
     if (s.status == 0) s.status = gemm_setup_one<1, 256, 4>(&s.blocks[2]);
     if (s.status == 0) s.status = gemm_setup_one<1, 128, 3>(&s.blocks[3]);
   });
-  return s;
+  return table[dev];
 }
 
 long gemm_tiles(int i, int M, int N) {

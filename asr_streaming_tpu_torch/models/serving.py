@@ -202,10 +202,21 @@ def emission_width(cfg: ServingConfig) -> int:
             else cfg.asr.encoder.vocab_size)
 
 
+def slot_rows(buf, slot: int):
+    """(tensor, row) holding ``slot`` of a per-slot device buffer: the
+    buffer itself, or with a mesh (a list of the shards' blocks, in slot
+    order) the block of the shard that owns it."""
+    if isinstance(buf, list):
+        shard, row = divmod(int(slot), buf[0].shape[0])
+        return buf[shard], row
+    return buf, int(slot)
+
+
 def make_emission_fetcher(cfg: ServingConfig):
     """fetch(buf, slot, length) -> np [length, V] float32."""
-    def fetch(buf: torch.Tensor, slot: int, length: int) -> np.ndarray:
-        return buf[int(slot), :int(length)].to(torch.float32).cpu().numpy()
+    def fetch(buf, slot: int, length: int) -> np.ndarray:
+        buf, row = slot_rows(buf, slot)
+        return buf[row, :int(length)].to(torch.float32).cpu().numpy()
     return fetch
 
 

@@ -26,6 +26,8 @@ import tempfile
 import time
 from typing import List, Optional, Tuple
 
+import torch
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
@@ -45,6 +47,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib: Optional[ctypes.CDLL] = None      # the process's loaded library
+# every entry's launches by CUDA device ordinal: which cards a mesh's
+# shards really ran on
+DEVICE_LAUNCHES: dict = {}
 
 
 def _nvcc() -> str:
@@ -153,6 +158,18 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = lib().asr_cuda_error_string(code).decode()
         raise RuntimeError(f"{what} failed: {msg} (code {code})")
+
+
+def launch(device: torch.device, entry: str, what: str, *args) -> None:
+    """Call the library's C entry ``entry`` with ``device`` the current
+    CUDA device, and raise if it returned an error.  The kernels launch on
+    the runtime's current device, so a stream of another card would be an
+    invalid handle, and the per-device setup (``gemm_setup``) would read
+    the wrong card."""
+    with torch.cuda.device(device):
+        check(getattr(lib(), entry)(*args), what)
+        ordinal = torch.cuda.current_device()
+    DEVICE_LAUNCHES[ordinal] = DEVICE_LAUNCHES.get(ordinal, 0) + 1
 
 
 def launch_counts(reset: bool = False) -> dict:

@@ -118,12 +118,13 @@ def _emformer_attention_cuda(q, k, v, m_m, m_kv, *, num_heads, M, R, Lc, U,
     m_m = m_m.to(device=dev, dtype=torch.int32).contiguous()
     m_kv = m_kv.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty((B, Q, D), dtype=out_dtype, device=dev)
-    _cuda.check(_cuda.lib().asr_emformer_attention(
+    _cuda.launch(
+        dev, "asr_emformer_attention", "emformer_attention",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), m_m.data_ptr(),
         m_kv.data_ptr(), out.data_ptr(), B, Q, K, D, num_heads, M, R, Lc,
         int(use_mem), float(neg_inf), int(q.dtype == torch.bfloat16),
         int(out_dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream), "emformer_attention")
+        torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES += 1
     return out
 

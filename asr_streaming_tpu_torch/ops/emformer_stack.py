@@ -387,6 +387,10 @@ def run_chain(entry: str, w: dict, qw: dict, x, length, reset, advance, mem,
                              f"{(L, B, rows, D)} {cdt}")
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
+    for name, t in w.items():
+        # a cached kernel copy lives on its source weight's device
+        if t.device != dev:
+            raise ValueError(f"weight {name} is on {t.device}, x on {dev}")
     if use_mem and M == 0:
         raise ValueError("use_mem requires M > 0")
     check_geometry(R + U + int(use_mem), M + R + Lc + U, D // H, cdt,
@@ -446,7 +450,7 @@ def run_chain(entry: str, w: dict, qw: dict, x, length, reset, advance, mem,
         **{k: _ptr(v) for k, v in s.items()},
         **{k: _ptr(v) for k, v in q.items()},
         stream=torch.cuda.current_stream(dev).cuda_stream)
-    _cuda.check(getattr(_cuda.lib(), entry)(ctypes.byref(args)), entry)
+    _cuda.launch(dev, entry, entry, ctypes.byref(args))
     return y, new_mem, new_lck, new_lcv, s["hin"]
 
 
@@ -479,13 +483,14 @@ def w8a8_linear(x2d: torch.Tensor, q: tuple, bias: torch.Tensor,
     aq = torch.empty((M, K), dtype=torch.int8, device=x2d.device)
     a_scale = torch.empty(M, dtype=torch.float32, device=x2d.device)
     y = torch.empty((M, N), dtype=cdt, device=x2d.device)
-    _cuda.check(_cuda.lib().asr_w8a8_linear(
+    _cuda.launch(
+        x2d.device, "asr_w8a8_linear", "w8a8_linear",
         1 if cdt == torch.bfloat16 else 0, int(x_f32), x2d.data_ptr(),
         aq.data_ptr(), a_scale.data_ptr(), w8t.data_ptr(), scale.data_ptr(),
         bias.data_ptr(), y.data_ptr(), M, N, K,
         _ACTS[activation] if activation else 0,
         -1 if config is None else config,
-        torch.cuda.current_stream(x2d.device).cuda_stream), "w8a8_linear")
+        torch.cuda.current_stream(x2d.device).cuda_stream)
     return y
 
 
@@ -563,11 +568,11 @@ def gemm_bf16(x2d: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     wt = _kernel_tensor(w, torch.bfloat16, transpose=True)
     bias = bias.to(torch.bfloat16).contiguous()
     y = torch.empty((M, N), dtype=torch.bfloat16, device=x2d.device)
-    _cuda.check(_cuda.lib().asr_gemm_bf16(
-        x2d.data_ptr(), wt.data_ptr(), bias.data_ptr(), y.data_ptr(), M, N, K,
+    _cuda.launch(
+        x2d.device, "asr_gemm_bf16", "gemm_bf16", x2d.data_ptr(), wt.data_ptr(), bias.data_ptr(), y.data_ptr(), M, N, K,
         _ACTS[activation] if activation else 0,
         -1 if config is None else config,
-        torch.cuda.current_stream(x2d.device).cuda_stream), "gemm_bf16")
+        torch.cuda.current_stream(x2d.device).cuda_stream)
     return y
 
 

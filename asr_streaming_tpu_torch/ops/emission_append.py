@@ -62,9 +62,9 @@ def emission_append(buf: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor,
     rows = rows.to(torch.float32).contiguous()
     pos = pos.to(torch.int32).contiguous()
     decode = decode.to(torch.uint8).contiguous()
-    code = _cuda.lib().asr_emission_append(
+    _cuda.launch(
+        buf.device, "asr_emission_append", "emission_append",
         buf.data_ptr(), rows.data_ptr(), pos.data_ptr(), decode.data_ptr(),
         B, max_t, U, V, torch.cuda.current_stream(buf.device).cuda_stream)
-    _cuda.check(code, "emission_append")
     LAUNCHES += 1
     return buf

@@ -72,9 +72,9 @@ def cuda_row_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor,
     vals = torch.empty((R, k), dtype=torch.float32, device=x.device)
     idx = torch.empty((R, k), dtype=torch.int32, device=x.device)
     if R:
-        code = _cuda.lib().asr_row_topk(
+        _cuda.launch(
+            x.device, "asr_row_topk", "row_topk",
             xf.data_ptr(), vals.data_ptr(), idx.data_ptr(), R, N, k,
             torch.cuda.current_stream(x.device).cuda_stream)
-        _cuda.check(code, "row_topk")
         LAUNCHES += 1
     return vals.to(x.dtype).reshape(*lead, k), idx.reshape(*lead, k)

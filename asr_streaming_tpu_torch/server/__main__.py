@@ -23,8 +23,11 @@ enrolls a speaker: ECAPA (models/ecapa.py, ``speaker_weights`` as
 ``.npz``, ``.ckpt`` or ``.pt``, else random weights with a warning) runs
 on the card in this process, so this process opens a CUDA context only
 when ``speaker_wav`` is set, and every final with a word window carries
-its ``is_speaker``.  ``data_parallel`` other than 1 (multi-GPU serving,
-ROADMAP.md queue 1, item 4) raises at startup.
+its ``is_speaker``.  ``data_parallel`` 0 (every card) or ``n > 1``
+splits the scheduler's slots over the local cards (parallel/serving.py)
+when the step runs in this process; with ``device_worker: true`` the
+child owns the card, so the setting is dropped with a warning, as the
+JAX server does.
 """
 
 from __future__ import annotations
@@ -40,11 +43,11 @@ import threading
 
 
 def _check_ported(settings) -> None:
-    """Raise on a setting whose code is a later slice of the port."""
-    if settings.data_parallel != 1:
-        raise NotImplementedError(
-            f"data_parallel: {settings.data_parallel}: multi-GPU serving is "
-            "not ported yet (ROADMAP.md, queue 1, item 4)")
+    """Raise on a setting the port cannot serve.  Every setting of the
+    JAX server is ported; ``data_parallel`` must count cards (0: all)."""
+    if settings.data_parallel < 0:
+        raise ValueError(f"data_parallel: {settings.data_parallel}: the "
+                         "number of cards to split the slots over (0: all)")
 
 
 def build_config(settings, vocab_size=None):
@@ -186,6 +189,20 @@ def build_server(settings, max_slots=None, device=None):
         en_beam_partials=settings.en_beam_partials,
         en_beam_width=settings.en_beam_width,
         en_beam_impl=settings.en_beam_impl)
+    dp = settings.data_parallel
+    if dp != 1 and worker:
+        logging.warning("device_worker is exclusive with data_parallel — "
+                        "data_parallel ignored")
+    elif dp != 1:
+        # multi-GPU serving: the slot axis split over the local cards
+        # (parallel/serving.py); 0 means all of them
+        from asr_streaming_tpu_torch.parallel.serving import (
+            make_serving_mesh,
+        )
+        sched_kwargs["mesh"] = make_serving_mesh(dp, device=device)
+        logging.info("serving data-parallel over %d shards: %s",
+                     sched_kwargs["mesh"].shape["data"],
+                     [str(d) for d in sched_kwargs["mesh"].devices])
     if worker:
         if settings.en_beam_partials and settings.en_beam_impl == "host":
             logging.warning("en_beam_partials host impl needs in-process "
@@ -195,7 +212,7 @@ def build_server(settings, max_slots=None, device=None):
         sched_kwargs["device_worker"] = dict(
             seed=0, checkpoint=settings.checkpoint,
             vad_weights=settings.vad_weights, device=str(device))
-    else:
+    elif "mesh" not in sched_kwargs:
         sched_kwargs["device"] = device
     groups = settings.scheduler_groups
     if groups > 1 or worker:

@@ -30,7 +30,12 @@ greedy tokens, or, with ``en_beam_partials`` (``en_beam_impl="device"``,
 the default), the device beam's best hypothesis ``[n_tokens, tokens...]``;
 ``en_beam_impl="host"`` runs the host oracle ``RNNTBeamDecoder`` on every
 chunk instead (parity and debugging; needs the device in this process).
-Meshes are not ported yet and raise if asked.
+
+With ``mesh`` (parallel/mesh.py) the slots are split over the mesh's
+cards (parallel/serving.py): each shard's state, context and emission
+buffer live on its card, each tick uploads every shard's block of the
+staging rows to its card and runs the step once per shard, and the
+shards' packs are joined in slot order on the host.
 """
 
 from __future__ import annotations
@@ -53,7 +58,10 @@ from asr_streaming_tpu_torch.models.serving import (
     PACK_DATA, PACK_DECODED, PACK_LEAD, PACK_TRAIL, ServingConfig,
     init_audio_context,
     init_emission_buffer, init_serving_state, make_emission_fetcher,
-    make_serving_step, mulaw_encode_host,
+    make_serving_step, mulaw_encode_host, slot_rows,
+)
+from asr_streaming_tpu_torch.parallel.serving import (
+    make_sharded_stepper, replicate_params, shard_serving_arrays, split_rows,
 )
 from asr_streaming_tpu_torch.streaming.endpoint import NgramEndpointCost
 from asr_streaming_tpu_torch.streaming.stream import FinalSegment, Stream
@@ -88,16 +96,13 @@ def _apply_beam_cfg(cfg: ServingConfig, en_beam_partials: bool,
     return cfg
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh is not ported yet (one device per scheduler; multi-GPU "
-            "serving is a later slice)")
-
-
-def start_pack_copy(pack: torch.Tensor):
+def start_pack_copy(pack):
     """Start the pack's device->host copy without waiting: returns (host
-    tensor, CUDA event or None).  On the CPU the pack is already there."""
+    tensor, CUDA event or None).  On the CPU the pack is already there.
+    A sharded pack (a list, one per shard) gives the lists of both."""
+    if isinstance(pack, list):
+        copies = [start_pack_copy(p) for p in pack]
+        return [h for h, _ in copies], [e for _, e in copies]
     if pack.device.type != "cuda":
         return pack, None
     host = torch.empty(pack.shape, dtype=pack.dtype, pin_memory=True)
@@ -107,11 +112,29 @@ def start_pack_copy(pack: torch.Tensor):
     return host, event
 
 
-def wait_pack(host: torch.Tensor, event) -> np.ndarray:
-    """Block until a started pack copy has landed; a numpy copy of it."""
+def wait_pack(host, event) -> np.ndarray:
+    """Block until a started pack copy has landed; a numpy copy of it
+    (the shards' packs joined in slot order)."""
+    if isinstance(host, list):
+        return np.concatenate([wait_pack(h, e) for h, e in zip(host, event)])
     if event is not None:
         event.synchronize()
     return host.numpy().copy()
+
+
+def _landed(event) -> bool:
+    """Has a started pack copy (of every shard) landed?"""
+    if isinstance(event, list):
+        return all(map(_landed, event))
+    return event is None or event.query()
+
+
+def _flag_columns(flags):
+    """The uploaded [B, 4] flags (or one block per shard) as (contain,
+    active, new_stream, reset)."""
+    if isinstance(flags, list):
+        return [[f[:, j] for f in flags] for j in range(4)]
+    return [flags[:, j] for j in range(4)]
 
 
 class Scheduler:
@@ -138,8 +161,17 @@ class Scheduler:
         ``en_beam_partials`` (RNNT only): the carried-hypothesis beam on
         every chunk, partials being true deltas of the best hypothesis's
         text; ``en_beam_impl`` "device" rides the serving step, "host" is
-        the per-stream oracle loop."""
-        _no_mesh(mesh)
+        the per-stream oracle loop.  ``mesh``: split the slots over its
+        cards (parallel/serving.py; ``device`` is then not used)."""
+        if mesh is not None and (device_worker is not None
+                                 or worker is not None):
+            raise ValueError(
+                "device_worker and mesh are exclusive: the worker child "
+                "owns the device(s); use data_parallel without "
+                "device_worker, or device_worker alone")
+        if mesh is not None and max_slots % mesh.shape["data"]:
+            raise ValueError(f"max_slots={max_slots} is not a multiple of "
+                             f"the mesh's data axis ({mesh.shape['data']})")
         cfg = _apply_beam_cfg(cfg, en_beam_partials, en_beam_width,
                               en_beam_impl)
         self.step_fn = make_serving_step(cfg)
@@ -156,6 +188,7 @@ class Scheduler:
         self.rulesets = rulesets
         self.mapping_rule = mapping_rule
         self.pipeline_depth = max(1, pipeline_depth)
+        self.mesh = mesh
 
         self.worker = worker
         if device_worker is not None and worker is None:
@@ -178,17 +211,27 @@ class Scheduler:
         self._seg_len = cfg.asr.audio.segment_length
         n_stage = self.pipeline_depth + 1
         if self.worker is None:
-            self.device = resolve_device(device)
-            self.params = params_from_numpy(params, self.device)
+            if mesh is None:
+                self.device = resolve_device(device)
+                self.params = params_from_numpy(params, self.device)
+            else:
+                self.device = mesh.devices[0]
+                self.step_fn = make_sharded_stepper(cfg, mesh, params)
+                self.params = self.step_fn.params
             self.device_state = init_serving_state(cfg, max_slots,
                                                    self.device)
             self.emission_buf = init_emission_buffer(cfg, max_slots,
                                                      self.device)
             self.audio_ctx = init_audio_context(cfg, max_slots, self.device)
+            if mesh is not None:
+                self.device_state, self.audio_ctx, self.emission_buf = \
+                    shard_serving_arrays(cfg, mesh, self.device_state,
+                                         self.audio_ctx, self.emission_buf)
             self._fetch_emission = make_emission_fetcher(cfg)
             if self.en_beam_partials and not self._beam_device:
-                self._beam = RNNTBeamDecoder(self.params, cfg.rnnt,
-                                             beam_width=en_beam_width)
+                self._beam = RNNTBeamDecoder(
+                    self.params if mesh is None else self.params[0],
+                    cfg.rnnt, beam_width=en_beam_width)
             pin = self.device.type == "cuda"
             self._staging = torch.zeros(
                 (n_stage, max_slots, self._seg_len),
@@ -280,16 +323,21 @@ class Scheduler:
         if self.worker is not None:
             return self.worker.warmup()
         t0 = time.perf_counter()
-        seg = torch.zeros(self._staging.shape[1:], dtype=self._staging.dtype,
-                          device=self.device)
-        idle = torch.zeros(self.max_slots, dtype=torch.bool,
-                           device=self.device)
-        self._run_step(seg, idle, idle, idle, idle)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        seg = self._upload(torch.zeros(self._staging.shape[1:],
+                                       dtype=self._staging.dtype))
+        idle = self._upload(torch.zeros((self.max_slots, 4),
+                                        dtype=torch.bool))
+        self._run_step(seg, *_flag_columns(idle))
+        for dev in set(self.mesh.devices if self.mesh else [self.device]):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return time.perf_counter() - t0
 
-    def _upload(self, host: torch.Tensor) -> torch.Tensor:
+    def _upload(self, host: torch.Tensor):
+        """Start a per-slot host tensor's copy to the device (to each
+        shard's device, its block of rows, with a mesh)."""
+        if self.mesh is not None:
+            return split_rows(host, self.mesh)
         if self.device.type == "cuda":
             return host.to(self.device, non_blocking=True)
         return host.clone()             # the staging buffer is reused
@@ -319,7 +367,7 @@ class Scheduler:
             return fut.done()
         if self.worker is not None:
             return False
-        return event is None or event.query()
+        return _landed(event)
 
     def is_pending(self, stream: Stream) -> bool:
         """Is this stream's chunk in an in-flight batch?"""
@@ -414,8 +462,7 @@ class Scheduler:
                 flags[:, 0], flags[:, 1] = contain, active
                 flags[:, 2], flags[:, 3] = self._new_stream, self._needs_reset
                 f = self._upload(self._flags[staged_idx])
-                out = self._run_step(self._seg_dev, f[:, 0], f[:, 1],
-                                     f[:, 2], f[:, 3])
+                out = self._run_step(self._seg_dev, *_flag_columns(f))
                 host, event = start_pack_copy(out.pack)
                 if self._async_harvest:
                     if self._harvest_pool is None:
@@ -505,8 +552,8 @@ class Scheduler:
             # host-impl oracle: the carried-hypothesis beam over this
             # chunk's device-buffered transcriber encodings
             pos = int(s.emission_length)
-            enc = self.emission_buf[slot, pos:pos + U].to(
-                torch.float32).cpu().numpy()
+            buf, row = slot_rows(self.emission_buf, slot)
+            enc = buf[row, pos:pos + U].to(torch.float32).cpu().numpy()
             try:
                 s.hypotheses = self._beam.step_chunk(
                     enc, getattr(s, "hypotheses", None))
@@ -545,7 +592,6 @@ class GroupedScheduler:
     def __init__(self, params: dict, cfg: ServingConfig,
                  vocab: Sequence[str], max_slots: int = 512,
                  groups: int = 4, **kwargs):
-        _no_mesh(kwargs.get("mesh"))
         # resolve the EN beam mode BEFORE the shared worker client is built
         # (it sizes the pack's shared memory from cfg); each group's
         # Scheduler applies it again, idempotently
@@ -554,7 +600,15 @@ class GroupedScheduler:
                               kwargs.get("en_beam_impl", "device"))
         groups = max(1, min(groups, max_slots))
         per = -(-max_slots // groups)          # ceil; capacity >= max_slots
+        mesh = kwargs.get("mesh")
+        if mesh is not None:
+            # each group's slots split over the mesh's data axis: round the
+            # group size up so any (groups, data_parallel) pair works
+            dp = mesh.shape["data"]
+            per = -(-per // dp) * dp
         device_worker = kwargs.pop("device_worker", None)
+        if device_worker is not None and mesh is not None:
+            raise ValueError("device_worker and mesh are exclusive")
         self.client = None
         if device_worker is not None:
             from asr_streaming_tpu_torch.streaming.device_worker import (
@@ -569,7 +623,10 @@ class GroupedScheduler:
                                      **kwargs)
                            for g in range(groups)]
         else:
-            if kwargs.get("worker") is None:
+            if kwargs.get("worker") is None and mesh is not None:
+                # one copy of the weights per card for every group
+                params = replicate_params(params, mesh)
+            elif kwargs.get("worker") is None:
                 # one device copy of the weights for every group
                 params = params_from_numpy(
                     params, resolve_device(kwargs.get("device")))

@@ -1,7 +1,8 @@
-"""Per-stage timers and counters.
+"""Per-stage timers and counters, a profiler hook, Audacity labels.
 
 Copied from asr_streaming_tpu/utils/observability.py (StageTimers,
-AudioArchiver).
+AudioArchiver, export_audacity_labels); ``torch_profile`` is the
+counterpart of its ``jax_profile``.
 """
 
 from __future__ import annotations
@@ -62,6 +63,23 @@ class StageTimers:
         return json.dumps(self.snapshot())
 
 
+@contextlib.contextmanager
+def torch_profile(log_dir: str, trace_name: str = "trace.json"):
+    """Profile a block with ``torch.profiler`` (the CPU, and the CUDA
+    card when there is one) and write its Chrome trace to
+    ``log_dir/trace_name``; yields the profiler, whose ``key_averages()``
+    give the time by kernel once the block has ended."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, trace_name))
+
+
 class AudioArchiver:
     """Per-stream WAV capture (reference save_audio feature)."""
 
@@ -87,3 +105,11 @@ class AudioArchiver:
         f = self._files.pop(stream_id, None)
         if f is not None:
             f.close()
+
+
+def export_audacity_labels(segments, output_file: str) -> None:
+    """Write Audacity label-track lines (reference export_audacity.py:1-23).
+    segments: iterable of (start_s, end_s, label)."""
+    with open(output_file, "w", encoding="utf-8") as f:
+        for start, end, label in segments:
+            f.write(f"{start}\t{end}\t{label}\n")

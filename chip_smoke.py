@@ -78,7 +78,26 @@ Phases (any failure exits non-zero; nothing is caught):
      the native gather-encode, one window of A and of B, then C; a
      ``[bench]`` line with its keys;
   9. ECAPA (with the server phase): the full-width verifier's embedding
-     on the card against the CPU plain version at every bucket, timed.
+     on the card against the CPU plain version at every bucket, timed;
+ 10. multi-GPU serving (``--only mesh``: this phase with the VI golden
+     phase): make_serving_mesh(0) over every card; the VI, EN greedy and
+     EN beam ticks at 512 slots, 3 chained ticks with churn, split 1, 2
+     and 4 ways on ``[cuda:0] * n`` (the split's cost, not scaling)
+     against the unsplit tick: flags, argmax and tokens exact, floats
+     bit for bit or within 3e-2 relative L2 (printed which), A, B (and E)
+     launched, each split's tick time; the overfit fixture through
+     Scheduler(mesh=...) and GroupedScheduler(groups=2, mesh=...) gives
+     phase 5's events; the CLI with server-vi.yaml, ``device_worker:
+     false`` and ``data_parallel: 0`` answers a connection and exits 0 on
+     SIGINT; with two cards or more, every tick also split over all of
+     them (make_serving_mesh(0)), every card launching;
+ 11. the offline API (``--only offline``): A at batch 1 and 3 in f32
+     against its plain version (1e-4); ASRModel at full width (VI f32)
+     against the CPU plain version (1e-3 on log-probs) and its time per
+     second of audio; the fixture's golden text and word windows through
+     ASRModel; ``python -m asr_streaming_tpu_torch.tools.transcribe``
+     printing the in-process greedy line; tools/profile_beam.py's table
+     (kernel E launched); a torch_profile Chrome trace.
 Every path is driven with the kernels' launch counts set to 0 just
 before it and read just after, the worker child's counts included; a
 kernel that no path launched fails the run.  The last line is the result
@@ -2713,17 +2732,469 @@ def _verifier_context_cost(enrol):
     return out
 
 
+# ------------------------------------- multi-GPU serving and the offline API
+
+MESH_SPLITS = (1, 2, 4)
+SPLIT_REL_L2 = 3e-2            # A's relative L2 bound (bf16 at 20 layers)
+
+
+def _churn_inputs(cfg, B, n_ticks, gen):
+    """n_ticks of pinned host inputs (segment, contain, active,
+    new_stream, reset): every slot fresh on the first tick, then random
+    holds (15%), resets with new streams (10%) and contain flags."""
+    import torch
+    seg_len = cfg.asr.audio.segment_length
+    out = []
+    for t in range(n_ticks):
+        seg = torch.randint(0, 256, (B, seg_len), generator=gen,
+                            dtype=torch.uint8)
+        contain = torch.rand(B, generator=gen) < 0.5
+        active = torch.rand(B, generator=gen) >= (0.15 if t else 0.0)
+        reset = torch.rand(B, generator=gen) < (0.1 if t else 2.0)
+        out.append([x.pin_memory() if torch.cuda.is_available() else x
+                    for x in (seg, contain, active, reset.clone(), reset)])
+    return out
+
+
+def run_split(params, cfg, ticks, device, mesh):
+    """Chained serving ticks over ``ticks`` (``_churn_inputs``) at
+    len(rows) slots, unsplit on ``device`` (mesh None) or split over
+    ``mesh``'s shards.  Returns (packs per tick, final
+    state, ctx, emission, host seconds per tick, the CTC head's f32
+    log-probs per tick or None for RNNT), the split ones joined in slot
+    order.  The log-probs are read by wrapping models/encoder.py's
+    ``ctc_head`` for the run, here only."""
+    import torch
+    from asr_streaming_tpu_torch.models import encoder as enc_mod
+    from asr_streaming_tpu_torch.models.serving import (
+        init_audio_context, init_emission_buffer, init_serving_state,
+        make_serving_step,
+    )
+    from asr_streaming_tpu_torch.parallel import serving as ps
+    B = ticks[0][0].shape[0]
+    arrays = (init_serving_state(cfg, B, device),
+              init_audio_context(cfg, B, device),
+              init_emission_buffer(cfg, B, device))
+    if mesh is None:
+        step, p = make_serving_step(cfg), params
+        state, ctx, em = arrays
+    else:
+        step = ps.make_sharded_stepper(cfg, mesh, params)
+        p = step.params
+        state, ctx, em = ps.shard_serving_arrays(cfg, mesh, *arrays)
+        del arrays
+    heads, head = [], enc_mod.ctc_head
+
+    def recording_head(*args, **kw):
+        out = head(*args, **kw)
+        heads.append(out.clone())
+        return out
+
+    packs, times, logps = [], [], []
+    enc_mod.ctc_head = recording_head
+    try:
+        cards = set(mesh.devices) if mesh is not None else {device}
+        for tick in ticks:
+            for d in cards:
+                _sync(d)
+            t0 = time.perf_counter()
+            if mesh is None:
+                host = [x.to(device, non_blocking=True) for x in tick]
+            else:
+                host = [ps.split_rows(x, mesh) for x in tick]
+            out = step(p, cfg, *host, state, ctx, em)
+            for d in cards:
+                _sync(d)
+            times.append(time.perf_counter() - t0)
+            state, ctx, em = out.state, out.ctx, out.emission
+            packs.append(out.pack.clone() if mesh is None
+                         else ps.join_shards(out.pack, 0, device))
+            logps.append(torch.cat([h.to(device) for h in heads])
+                         if heads else None)
+            heads.clear()
+    finally:
+        enc_mod.ctc_head = head
+    if mesh is not None:
+        axes = ps.serving_state_slot_axes(cfg)
+        state = ps.join_shards(state, axes, device)
+        ctx, em = ps.join_shards(ctx, 0, device), ps.join_shards(em, 0,
+                                                                 device)
+    return packs, state, ctx, em, times, logps
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, tuple):
+        return [x for name, part in zip(tree._fields, tree)
+                for x in _leaves(part, prefix + name + ".")]
+    return [(prefix.rstrip("."), tree)]
+
+
+def _near_ties(label, t, want_lp, got_lp, wa, ga):
+    """Every CTC argmax that differs between two runs is a near-tie
+    their log-probs explain: in the unsplit run the split's pick trails
+    the best by at most twice the frame's largest log-prob difference
+    between the runs (a flip needs each run's noise to close half the
+    gap).  Fails otherwise; returns the number of flips."""
+    import torch
+    flips = (wa != ga).nonzero().tolist()
+    for s, u in flips:
+        w, g = want_lp[s, u], got_lp[s, u]
+        gap = (w[int(wa[s, u])] - w[int(ga[s, u])]).item()
+        noise = (w - g).abs().max().item()
+        if not gap <= 2 * noise:
+            fail(f"{label} tick {t}: slot {s} frame {u}: argmax "
+                 f"{int(wa[s, u])} -> {int(ga[s, u])} with a log-prob gap "
+                 f"{gap:.3e} > 2 x the runs' difference {noise:.3e}")
+    return len(flips)
+
+
+def compare_split(label, want, got):
+    """The split run against the unsplit one.  Exact: the pack's flags,
+    lead and trail, every integer state leaf, the RNNT token columns and
+    the CTC argmax where the CTC head's log-probs are bit for bit; where
+    they are not (cuBLAS may pick another algorithm for its products at
+    another row count), each argmax that differs must be a near-tie that
+    the two runs' log-probs explain (``_near_ties``).  Floats: bit for
+    bit or within SPLIT_REL_L2.  Returns what held, as a phrase."""
+    import torch
+    from asr_streaming_tpu_torch.models.serving import PACK_DATA
+    flips = 0
+    for t, (w, g) in enumerate(zip(want[0], got[0])):
+        if not torch.equal(w[:, :PACK_DATA], g[:, :PACK_DATA]):
+            fail(f"{label} tick {t}: pack flags / lead / trail differ")
+        if torch.equal(w[:, PACK_DATA:], g[:, PACK_DATA:]):
+            continue
+        bad = int((w[:, PACK_DATA:] != g[:, PACK_DATA:]).sum())
+        if want[5][t] is None:
+            fail(f"{label} tick {t}: {bad} token entries differ (the RNNT "
+                 "tokens are held exact)")
+        if torch.equal(want[5][t], got[5][t]):
+            fail(f"{label} tick {t}: {bad} argmax entries differ with the "
+                 "same log-probs behind them")
+        flips += _near_ties(label, t, want[5][t], got[5][t],
+                            w[:, PACK_DATA:], g[:, PACK_DATA:])
+    worst, diffs = 0.0, []
+    named = _leaves(want[1]) + [("ctx", want[2]), ("emission", want[3])]
+    for (name, w), (_, g) in zip(named, _leaves(got[1]) + [
+            ("ctx", got[2]), ("emission", got[3])]):
+        if torch.equal(w, g):
+            continue
+        if not w.is_floating_point():
+            fail(f"{label}: integer state {name} differs")
+        rel = ((g.float() - w.float()).norm()
+               / w.float().norm().clamp(min=1e-30)).item()
+        worst = max(worst, rel)
+        diffs.append(name)
+        if not rel <= SPLIT_REL_L2:
+            fail(f"{label}: {name} relative L2 {rel:.3e} > {SPLIT_REL_L2}")
+    if want[5][0] is not None and any(
+            not torch.equal(a, b) for a, b in zip(want[5], got[5])):
+        diffs.append("CTC log-probs")
+    if not diffs:
+        return "bit for bit"
+    return (f"{', '.join(diffs)} within relative L2 {worst:.3e}, integers "
+            f"exact" + (f" but {flips} argmax near-tie flip(s)" if flips
+                        else ""))
+
+
+def check_splits(label, params, cfg, ticks, device, card, need=()):
+    """The unsplit ticks, then the same ticks split 1, 2 and 4 ways on
+    one card and, on a host with two cards or more, over all of them
+    (make_serving_mesh(0), every card launching): equal results, each
+    split's tick time; ``need``: kernels every split run must launch."""
+    import torch
+    from asr_streaming_tpu_torch.ops import _cuda
+    from asr_streaming_tpu_torch.parallel.mesh import make_mesh
+    from asr_streaming_tpu_torch.parallel.serving import make_serving_mesh
+    want = run_split(params, cfg, ticks, device, None)
+    times = {"unsplit": _median_ms(want[4])}
+    verdicts = {}
+    meshes = [(str(n), make_mesh(devices=[device] * n)) for n in MESH_SPLITS]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        meshes.append((f"{n_cards} cards", make_serving_mesh(0)))
+    for name, mesh in meshes:
+        before = _cuda.launch_counts()
+        on_card = dict(_cuda.DEVICE_LAUNCHES)
+        got = run_split(params, cfg, ticks, device, mesh)
+        ran = {k: v - before[k] for k, v in _cuda.launch_counts().items()}
+        _need_launched(f"{label} split {name}", ran, need)
+        idle = sorted({d.index for d in mesh.devices if d.type == "cuda"
+                       and _cuda.DEVICE_LAUNCHES.get(d.index, 0)
+                       <= on_card.get(d.index, 0)})
+        if idle:
+            fail(f"{label} split {name}: cards {idle} launched nothing")
+        verdicts[name] = compare_split(f"{label} split {name}", want, got)
+        times[name] = _median_ms(got[4])
+        del got
+    log(f"[mesh] {label}: {len(ticks)} chained ticks x "
+        f"{ticks[0][0].shape[0]} slots with churn, split n ways on one card "
+        f"({card}; the split's cost, not scaling)"
+        + (f" and over all {n_cards} cards" if n_cards >= 2 else "") + ": "
+        + "; ".join(f"n={k} {v}" for k, v in verdicts.items())
+        + "; tick median ms " + json.dumps(
+            {k: round(v, 3) for k, v in times.items()}))
+    return times
+
+
+def _mesh_golden(device, want):
+    """The overfit fixture through Scheduler(mesh=...) and
+    GroupedScheduler(groups=2, mesh=...) on ``[device] * 2``: the events
+    of phase_golden's in-process scheduler."""
+    import numpy as np
+    from asr_streaming_tpu_torch.models.asr import ASRConfig
+    from asr_streaming_tpu_torch.models.serving import (
+        ServingConfig, init_serving_params,
+    )
+    from asr_streaming_tpu_torch.parallel.mesh import make_mesh
+    from asr_streaming_tpu_torch.streaming.endpoint import EndpointRule
+    from asr_streaming_tpu_torch.streaming.scheduler import (
+        GroupedScheduler, Scheduler,
+    )
+    from asr_streaming_tpu_torch.utils.checkpoint import (
+        load_params, overlay_params,
+    )
+    path = os.path.join(HERE, "assets", "test_fixtures", "overfit_ctc.npz")
+    with np.load(path) as z:
+        golden = json.loads(str(z["__meta__"]))["golden"]
+    vocab = ["-", "|", "a", "b", "c", "d"]
+    cfg = ServingConfig(asr=ASRConfig.tiny(vocab_size=len(vocab)),
+                        use_silero=False, use_energy_gate=False,
+                        energy_threshold_db=-200.0)
+    params = overlay_params(init_serving_params(1, cfg, device),
+                            load_params(path))
+    rules = {"trained": EndpointRule(True, 0.8, 0.0, float("inf"))}
+    mesh = make_mesh(devices=[device] * 2)
+    for label, sched in (
+            ("Scheduler(mesh)", Scheduler(params, cfg, vocab,
+                                          max_slots=B_SLOTS, rules=rules,
+                                          mesh=mesh)),
+            ("GroupedScheduler(groups=2, mesh)", GroupedScheduler(
+                params, cfg, vocab, max_slots=B_SLOTS, groups=2,
+                rules=rules, mesh=mesh))):
+        got = _fixture_events(sched, golden)
+        sched.close()
+        if got != want:
+            fail(f"{label}: events {got} != in process {want}")
+    log(f"[mesh] overfit_ctc at {B_SLOTS} slots through Scheduler(mesh=...)"
+        f" and GroupedScheduler(groups=2, mesh=...) on {[str(device)] * 2}: "
+        f"the in-process events, golden {golden!r}")
+
+
+def _dp_config(tmp):
+    """server-vi.yaml with the step in process and data_parallel: 0."""
+    src = os.path.join(HERE, "configs", "server-vi.yaml")
+    with open(src) as f:
+        text = f.read()
+    for old, new in (("\ndevice_worker: true", "\ndevice_worker: false"),
+                     ("\n# data_parallel: 0", "\ndata_parallel: 0")):
+        if old not in text:
+            fail(f"configs/server-vi.yaml has no {old.strip()!r} line")
+        text = text.replace(old, new)
+    path = os.path.join(tmp, "server-vi-dp.yaml")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def phase_mesh(seed, device, card, vi_want):
+    """Multi-GPU serving (parallel/): the serving mesh over every card;
+    the VI, EN greedy and EN beam ticks split 1, 2 and 4 ways on one
+    card (and, on two cards or more, over all of them) against the
+    unsplit tick; the fixture through both schedulers with a mesh; the
+    CLI with data_parallel: 0.  Returns the CLI's launches."""
+    import tempfile
+    import torch
+    from asr_streaming_tpu_torch.models.serving import init_serving_params
+    from asr_streaming_tpu_torch.parallel.serving import make_serving_mesh
+    n_cards = torch.cuda.device_count()
+    mesh = make_serving_mesh(0)
+    if mesh.shape["data"] != n_cards:
+        fail(f"make_serving_mesh(0): {mesh.shape} on {n_cards} cards")
+    # the phase's own generator: its inputs do not depend on which other
+    # phases ran before it
+    gen = torch.Generator().manual_seed(seed + 8)
+    cfg = vi_serving_cfg()
+    params = init_serving_params(gen, cfg, device)
+    ticks = _churn_inputs(cfg, B_SLOTS, 3, gen)
+    times = {"vi": check_splits("VI stack", params, cfg, ticks, device,
+                                card, need=("emformer_stack",
+                                            "emission_append"))}
+    del params
+    for label, width in (("EN greedy", None), ("EN beam", 10)):
+        cfg = en_serving_cfg(width)
+        params = en_random_params(seed, cfg, device)
+        need = ("emformer_stack", "emission_append") + (
+            ("row_topk",) if width else ())
+        times[label] = check_splits(label, params, cfg,
+                                    _churn_inputs(cfg, B_SLOTS, 3, gen),
+                                    device, card, need=need)
+        del params
+    torch.cuda.empty_cache()
+    _mesh_golden(device, vi_want)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, numbers = server_entry_point(
+            _dp_config(tmp), 1, card, "server-vi.yaml, device_worker: "
+            "false, data_parallel: 0", seconds=3.0)
+    _need_launched("the data_parallel: 0 CLI", launches,
+                   ("emformer_stack", "emission_append"))
+    log(f"[mesh] {card} | " + json.dumps({"tick_ms": times}))
+    return launches
+
+
+def offline_kernel_checks(gen, device):
+    """A at batch 1 and 3 in f32 (``ASRModel``'s shape) against its plain
+    version at 1e-4 (f32: summation order only); A at batch 1 timed
+    beside its plain version and its bound.  Returns A's entry for the
+    kernels line: {"b1_f32": {ms, plain_ms, bound_ms, bound_by,
+    max_abs_err}}."""
+    from asr_streaming_tpu_torch.models.asr import ASRConfig
+    from asr_streaming_tpu_torch.ops import emformer_stack as es
+    emf = ASRConfig.vietnamese().encoder.emformer
+    errs = {}
+    for B in (1, 3):
+        errs[B], last = check_stack(emf, B, 3, 1e-4, gen, device,
+                                    f"A f32 B={B} (offline)")
+        if B == 1:
+            params, x, mem, lck, lcv, eff, reset, advance, kw = last
+            args = (params, x, mem, lck, lcv, eff, reset, advance)
+            ms = device_times(lambda: es.emformer_stack(*args, **kw), 3,
+                              need=("gemm_f32", "attention_kernel"))[0]
+            plain_ms = cuda_ms(lambda: es.emformer_stack_plain(*args, **kw),
+                               3)
+    L, D, Fd = emf.num_layers, emf.d_model, emf.ffn_dim
+    t_ops = stack_flops(1, L, D, Fd, emf.segment_length,
+                        emf.right_context_length, emf.max_memory_size,
+                        emf.left_context_length) / PEAK_F32_FLOPS * 1e3
+    t_bytes = emformer_bytes(emf, 1, L, 4) / PEAK_BYTES * 1e3
+    entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "max_abs_err": max(errs.values())}
+    log(f"[kernels] A f32 at B=1 (the offline API's shape): {ms:.3f} ms "
+        f"device, plain {plain_ms:.3f} ms, bound {entry['bound_ms']:.4f} ms "
+        f"({entry['bound_by']})")
+    return {"b1_f32": entry}
+
+
+def phase_offline(seed, device, card):
+    """The offline API and its tools on the card: ASRModel at full width
+    (VI f32, kernel A at batch 1) against the CPU plain version and
+    timed; the overfit fixture's golden text and word windows through
+    ASRModel; the transcribe CLI's greedy line against ASRModel in
+    process; profile_beam's table (kernel E); a torch_profile trace."""
+    import tempfile
+    import numpy as np
+    import torch
+    from asr_streaming_tpu_torch.models.api import ASRModel
+    from asr_streaming_tpu_torch.models.asr import ASRConfig
+    from asr_streaming_tpu_torch.ops import _cuda
+    from asr_streaming_tpu_torch.tools.profile_beam import main as beam_main
+    from asr_streaming_tpu_torch.utils.audio import read_wav
+    from asr_streaming_tpu_torch.utils.observability import torch_profile
+    model = ASRModel(seed=seed, device=device)
+    wave = _speechlike(10.0, seed=3)
+    t0 = time.perf_counter()
+    first = model.emissions(wave)
+    first_s = time.perf_counter() - t0
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        em = model.emissions(wave)
+        runs.append(time.perf_counter() - t0)
+    if not np.array_equal(em, first):
+        fail("ASRModel.emissions differs between two calls on the card")
+    cpu = ASRModel(seed=seed, device="cpu").emissions(wave)
+    err = float(np.abs(em - cpu).max())
+    if em.shape != cpu.shape or not err <= 1e-3:
+        fail(f"ASRModel emissions card vs CPU: {em.shape} vs {cpu.shape}, "
+             f"max |err| {err:.3e} > 1e-3")
+    n_chunks = len(em) // model.cfg.encoder.emformer.segment_length
+    steady = sorted(runs)[1]
+    log(f"[offline] ASRModel (VI f32, 20 layers, kernel A at B=1) | {card}"
+        f" | 10 s of audio, {n_chunks} chunks: {steady * 1e3:.2f} ms "
+        f"(median of 3; first call {first_s:.2f} s), "
+        f"{steady * 1e3 / n_chunks:.3f} ms a chunk, "
+        f"{steady * 1e3 / 10.0:.3f} ms per second of audio; card vs CPU "
+        f"max |err| {err:.3e} (check 1e-3)")
+    profile_top(lambda: model.emissions(wave[:16000]),
+                "ASRModel.emissions, 1 s of audio (3 chunks, B=1, f32)",
+                n=8)
+
+    path = os.path.join(HERE, "assets", "test_fixtures", "overfit_ctc.npz")
+    with np.load(path) as z:
+        golden = json.loads(str(z["__meta__"]))["golden"]
+    tiny = ASRModel(cfg=ASRConfig.tiny(vocab_size=6), checkpoint=path,
+                    vocab=["-", "|", "a", "b", "c", "d"],
+                    lexicon={"ab": ["a", "b", "|"], "cd": ["c", "d", "|"]},
+                    use_corpus=False, device=device)
+    sentence = _sentence_audio(golden, 3.84)
+    text = tiny.transcribe(sentence)
+    if text != golden:
+        fail(f"ASRModel on the fixture: {text!r} != golden {golden!r}")
+    _, words = tiny.force_alignment(sentence, golden)
+    bounds = [x for w in words for x in (w.start, w.end)]
+    if [w.label for w in words] != golden.split() or \
+            bounds != sorted(bounds) or bounds[0] < 0 or bounds[-1] > 3.84:
+        fail(f"force_alignment word windows {[vars(w) for w in words]}")
+    log(f"[offline] overfit_ctc through ASRModel on the card: {text!r}; "
+        f"word windows " + ", ".join(f"{w.label} {w.start:.2f}-{w.end:.2f} s"
+                                     for w in words))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = os.path.join(tmp, "speech.wav")
+        import wave as wave_mod
+        with wave_mod.open(wav, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes(_pcm16(_speechlike(3.0, seed=4)).tobytes())
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "asr_streaming_tpu_torch.tools.transcribe",
+             wav], cwd=HERE, capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        if cli.returncode != 0:
+            fail(f"transcribe CLI exited {cli.returncode}:\n{cli.stderr[-2000:]}")
+        want = "greedy: " + ASRModel(seed=0, device=device).transcribe(
+            read_wav(wav)[0])
+        lines = cli.stdout.splitlines()
+        if lines != [want]:
+            fail(f"transcribe CLI printed {lines[:3]}, in process {want!r}")
+        log(f"[offline] python -m asr_streaming_tpu_torch.tools.transcribe "
+            f"(3 s, seed-0 weights) in {cli_s:.1f} s prints the in-process "
+            f"greedy line ({len(want) - 8} characters)")
+
+        before = _cuda.launch_counts()["row_topk"]
+        beam_main(["--reps", "5"])
+        if _cuda.launch_counts()["row_topk"] <= before:
+            fail("profile_beam launched no kernel E")
+
+        with torch_profile(tmp) as prof:
+            model.emissions(wave[:16000])
+        trace = os.path.join(tmp, "trace.json")
+        names = [e.key for e in prof.key_averages()]
+        if not os.path.getsize(trace) or not any(
+                "attention_kernel" in k for k in names):
+            fail(f"torch_profile: trace {os.path.getsize(trace)} bytes, "
+                 f"no kernel A among {names[:8]}")
+        log(f"[offline] torch_profile wrote a {os.path.getsize(trace)}-byte "
+            f"Chrome trace holding kernel A's kernels")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", choices=("vi", "en", "gemm", "int8", "server",
-                                       "bench"),
+                                       "bench", "mesh", "offline"),
                     default=None,
                     help="run one language's phases, the bf16 or the int8 "
                          "GEMM phase, the server phase (with the golden "
-                         "phases it compares with and ECAPA's) or the "
-                         "bench phase alone (a partial run: the result line "
-                         "says so and the exit code is 4)")
+                         "phases it compares with and ECAPA's), the bench "
+                         "phase, the multi-GPU serving phase (with the VI "
+                         "golden phase) or the offline API's phase alone (a "
+                         "partial run: the result line says so and the exit "
+                         "code is 4)")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "asr_streaming_tpu_torch")):
         fail("asr_streaming_tpu_torch/ is not beside this script")
@@ -2739,6 +3210,7 @@ def main() -> None:
     gen = torch.Generator().manual_seed(args.seed)
     vi, en = args.only in (None, "vi"), args.only in (None, "en")
     server = args.only in (None, "server")
+    mesh, offline = args.only in (None, "mesh"), args.only in (None, "offline")
     if args.only in ("gemm", "int8"):
         (phase_gemm if args.only == "gemm" else phase_int8)(gen, device)
         sys.exit(4)
@@ -2785,7 +3257,7 @@ def main() -> None:
         del params
         torch.cuda.empty_cache()
         add(path(phase_worker, args.seed, p50, device))
-    if vi or server:
+    if vi or server or mesh:
         launches, vi_want = path(phase_golden, device)
         add(launches)
     if en:
@@ -2802,6 +3274,17 @@ def main() -> None:
         # the worker's and the server subprocesses' counts come back
         launches, _ = phase_server(device, card, vi_want, en_want, path)
         add(launches)
+    if mesh:
+        torch.cuda.empty_cache()
+        # the CLI's server process reports its own counts
+        add(path(phase_mesh, args.seed, device, card, vi_want))
+    if offline:
+        torch.cuda.empty_cache()
+        a_offline = offline_kernel_checks(gen, device)
+        for k in kernels:
+            if k["name"] == "emformer_stack":
+                k.update(a_offline)
+        path(phase_offline, args.seed, device, card)
     for k in kernels:
         k["launches"] = totals[k["name"]]
         if k["launches"] == 0 and args.only is None:

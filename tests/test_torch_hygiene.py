@@ -26,7 +26,10 @@ for new in ("models.rnnt", "models.rnnt_beam", "ops.topk", "ops.row_topk",
             "text.corpus", "text.spm", "tools.onnx_weights", "utils.logs",
             "utils.noise", "utils.resample", "bench", "models.ecapa",
             "utils.codec_native", "tools.convert_checkpoint",
-            "tools.convert_rnnt_checkpoint", "tools.convert_ecapa"):
+            "tools.convert_rnnt_checkpoint", "tools.convert_ecapa",
+            "parallel.mesh", "parallel.serving", "models.api",
+            "models.segmenter", "decode.alignment", "text.tokenizer",
+            "tools.transcribe", "tools.evaluate", "tools.profile_beam"):
     assert "asr_streaming_tpu_torch." + new in names, new
 """
 

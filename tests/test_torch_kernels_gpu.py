@@ -542,3 +542,54 @@ def test_emformer_attention_bf16_inputs_equal_widened_f32(use_mem, out_dtype):
                                        **kw)
     tol = 1e-4 if out_dtype == torch.float32 else 8e-3
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_sharded_step_on_two_cards_equals_one_card():
+    """The VI tick (kernels A and B) split over the first two cards
+    (parallel/serving.py) equals the tick on one card: the pack exactly,
+    the carried f32 state within 1e-4; each card launches its shard's
+    kernels."""
+    _cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from asr_streaming_tpu_torch.models import asr as ta
+    from asr_streaming_tpu_torch.models import serving as ts
+    from asr_streaming_tpu_torch.ops import _cuda as cu
+    from asr_streaming_tpu_torch.parallel import serving as ps
+    cfg = ts.ServingConfig(asr=ta.ASRConfig.tiny(vocab_size=21),
+                           use_silero=False, max_emission_frames=64)
+    B, dev = 8, torch.device("cuda", 0)
+    params = ts.init_serving_params(0, cfg, dev)
+    mesh = ps.make_serving_mesh(2)
+    step = ps.make_sharded_stepper(cfg, mesh, params)
+    full = (ts.init_serving_state(cfg, B, dev),
+            ts.init_audio_context(cfg, B, dev),
+            ts.init_emission_buffer(cfg, B, dev))
+    sharded = ps.shard_serving_arrays(
+        cfg, mesh, ts.init_serving_state(cfg, B, dev),
+        ts.init_audio_context(cfg, B, dev),
+        ts.init_emission_buffer(cfg, B, dev))
+    rng = np.random.default_rng(0)
+    before = dict(cu.DEVICE_LAUNCHES)
+    for tick in range(3):
+        seg = torch.from_numpy(rng.integers(
+            -3000, 3000, (B, cfg.asr.audio.segment_length)).astype(np.int16))
+        flags = [torch.from_numpy(f) for f in (
+            rng.random(B) < 0.3, np.ones(B, bool), np.full(B, tick == 0),
+            np.full(B, tick == 0) | (np.arange(B) == 5))]
+        want = ts.serving_step(params, cfg, seg.to(dev),
+                               *(f.to(dev) for f in flags), *full)
+        full = (want.state, want.ctx, want.emission)
+        got = step(step.params, cfg, ps.split_rows(seg.pin_memory(), mesh),
+                   *(ps.split_rows(f.pin_memory(), mesh) for f in flags),
+                   *sharded)
+        sharded = (got.state, got.ctx, got.emission)
+        assert [p.device.index for p in got.pack] == [0, 1]
+        assert torch.equal(ps.join_shards(got.pack, 0, dev), want.pack)
+        state = ps.join_shards(got.state, ps.serving_state_slot_axes(cfg),
+                               dev)
+        for a, b in zip(state, want.state):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    for ordinal in (0, 1):
+        assert cu.DEVICE_LAUNCHES.get(ordinal, 0) > before.get(ordinal, 0)

@@ -134,9 +134,16 @@ def test_unported_options_raise_and_cuda_is_the_default():
                         use_silero=False)
     params = init_serving_params(0, cfg, device="cpu")
     from asr_streaming_tpu_torch.streaming.scheduler import GroupedScheduler
+    # meshes are ported: exclusive with the device worker, and the slots
+    # must divide over the shards
+    from asr_streaming_tpu_torch.parallel.serving import make_serving_mesh
+    mesh = make_serving_mesh(2, device="cpu")
     for cls in (Scheduler, GroupedScheduler):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            cls(params, cfg, VOCAB, device="cpu", mesh=object())
+        with pytest.raises(ValueError, match="exclusive"):
+            cls(params, cfg, VOCAB, mesh=mesh,
+                device_worker={"device": "cpu"})
+    with pytest.raises(ValueError, match="multiple"):
+        Scheduler(params, cfg, VOCAB, max_slots=3, mesh=mesh)
     # en_beam_partials is ported; on a CTC config it is ignored, as in the
     # JAX scheduler
     sched = Scheduler(params, cfg, VOCAB, device="cpu", en_beam_partials=True)

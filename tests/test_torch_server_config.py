@@ -6,7 +6,7 @@ file, with one intended difference: a flat ``endpoint_rules`` also
 replaces ``endpoint_rulesets["DEFAULT"]``, so ``Stream`` serves it (the
 JAX loader loses it when the file also has ``Endpointing_rules``).
 ``build_server`` hands ``quant`` to the device-worker child inside the
-pickled config, raises on settings of a later slice (``data_parallel``),
+pickled config, splits the slots over a mesh for ``data_parallel``,
 builds the speaker verifier of ``speaker_wav``, and never falls back to
 the CPU; the worker child converts a ``.ckpt`` checkpoint at load.
 """
@@ -111,17 +111,24 @@ def test_quant_reaches_the_device_worker_child():
     (dict(data_parallel=0), "item 4"),
 ], ids=["speaker_wav", "ckpt", "data_parallel"])
 def test_later_slice_settings_raise_naming_their_item(kw, item):
-    """Only a setting of a later slice raises at startup, naming its
-    ROADMAP item: ``data_parallel`` (multi-GPU serving).  Speaker
-    verification and ``.ckpt``/``.pt`` checkpoints are served now."""
+    """No setting of the JAX server is left for a later slice: speaker
+    verification, ``.ckpt``/``.pt`` checkpoints and, since ROADMAP queue 1
+    item 4, ``data_parallel`` (multi-GPU serving) pass the start-up
+    check.  ``data_parallel: 0`` without the device worker splits the
+    slots over every shard: on the CPU, the 8 CPU shards."""
     settings = _settings(**kw)
+    _check_ported(settings)
     if item is None:
-        _check_ported(settings)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        _check_ported(settings)
-    with pytest.raises(NotImplementedError, match=item):
-        build_server(settings, max_slots=2, device="cpu")
+    settings = dataclasses.replace(settings, device_worker=False)
+    server = build_server(settings, max_slots=8, device="cpu")
+    try:
+        for group in server.scheduler.groups:      # scheduler_groups: 2
+            assert group.mesh.shape == {"data": 8, "model": 1}
+            assert {d.type for d in group.mesh.devices} == {"cpu"}
+            assert len(group.device_state) == 8
+    finally:
+        server.scheduler.close()
 
 
 def test_worker_child_converts_a_ckpt_checkpoint(tmp_path):
