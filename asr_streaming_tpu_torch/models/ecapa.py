@@ -12,7 +12,8 @@ checkpoint loads: tools/convert_ecapa.py):
      BN -> tanh -> conv, -1e9 outside the mask) -> BN -> Linear
   -> the embedding, unit-normed (the norm clipped at 1e-9).
 
-BatchNorm is in eval mode (eps 1e-5).  Everything runs in f32 with TF32
+BatchNorm uses the running statistics (eps 1e-5), or the batch's with
+``training=True``.  Everything runs in f32 with TF32
 off (the package's switches); no TPU kernel lies under ECAPA, so the
 convolutions are ``torch.nn.functional.conv1d``.  The parameter tree is
 the JAX package's: ``blocks``, ``res2`` and ``res2_bn`` are lists, and an
@@ -176,20 +177,26 @@ def _conv1d(p, x, dilation=1):
     return F.conv1d(x, p["w"], dilation=dilation) + p["b"][:, None]
 
 
-def _bn(p, x):
-    """Eval-mode BatchNorm over [B, C, T] with [C, 1] statistics."""
-    return (x - p["mean"]) * torch.rsqrt(p["var"] + 1e-5) * p["scale"] \
-        + p["bias"]
+def _bn(p, x, training=False):
+    """BatchNorm over [B, C, T] with [C, 1] statistics: the running ones,
+    or with ``training`` the batch's (mean and biased variance over batch
+    and time, as models/ecapa.py:78-84 of the JAX package)."""
+    if training:
+        mean = x.mean(dim=(0, 2), keepdim=True)[0]
+        var = x.var(dim=(0, 2), unbiased=False, keepdim=True)[0]
+    else:
+        mean, var = p["mean"], p["var"]
+    return (x - mean) * torch.rsqrt(var + 1e-5) * p["scale"] + p["bias"]
 
 
 def _masked_mean(x, mask, denom):
     return torch.sum(x * mask, dim=2, keepdim=True) / denom
 
 
-def _se_res2block(p, x, dilation, scale, mask, denom):
+def _se_res2block(p, x, dilation, scale, mask, denom, training=False):
     """SE-Res2Net block.  x: [B, C, T]; mask: [B, 1, T] (0/1)."""
     residual = x
-    h = _bn(p["bn1"], F.relu(_conv1d(p["conv1"], x)))
+    h = _bn(p["bn1"], F.relu(_conv1d(p["conv1"], x)), training)
     # Res2Net: `scale` channel groups, each conv fed the previous output
     chunks = torch.chunk(h, scale, dim=1)
     outs = [chunks[0]]
@@ -197,11 +204,11 @@ def _se_res2block(p, x, dilation, scale, mask, denom):
     for i in range(1, scale):
         inp = chunks[i] if prev is None else chunks[i] + prev
         y = _bn(p["res2_bn"][i - 1],
-                F.relu(_conv1d(p["res2"][i - 1], inp, dilation)))
+                F.relu(_conv1d(p["res2"][i - 1], inp, dilation)), training)
         outs.append(y)
         prev = y
     h = torch.cat(outs, dim=1)
-    h = _bn(p["bn3"], F.relu(_conv1d(p["conv3"], h)))
+    h = _bn(p["bn3"], F.relu(_conv1d(p["conv3"], h)), training)
     # squeeze-excitation over the masked mean over time
     s = F.relu(_conv1d(p["se_down"], _masked_mean(h, mask, denom)))
     s = torch.sigmoid(_conv1d(p["se_up"], s))
@@ -209,8 +216,11 @@ def _se_res2block(p, x, dilation, scale, mask, denom):
 
 
 def ecapa_embed(params: dict, cfg: EcapaConfig, feats: torch.Tensor,
-                feat_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """feats [B, T, n_mels] -> unit-norm embeddings [B, embedding_dim]."""
+                feat_lens: Optional[torch.Tensor] = None,
+                training: bool = False) -> torch.Tensor:
+    """feats [B, T, n_mels] -> unit-norm embeddings [B, embedding_dim].
+    ``training`` normalises with the batch's statistics (speaker
+    training); serving uses the running ones."""
     B, T, _ = feats.shape
     if feat_lens is None:
         feat_lens = torch.full((B,), T, device=feats.device)
@@ -221,21 +231,23 @@ def ecapa_embed(params: dict, cfg: EcapaConfig, feats: torch.Tensor,
     maskf = mask.to(feats.dtype)
     x = feats.transpose(1, 2) * maskf                   # [B, F, T]
 
-    h = _bn(params["in_bn"], F.relu(_conv1d(params["in_conv"], x))) * maskf
+    h = _bn(params["in_bn"], F.relu(_conv1d(params["in_conv"], x)),
+            training) * maskf
     outs = []
     for block, d in zip(params["blocks"], cfg.dilations):
         h = _se_res2block(block, h, d, cfg.res2net_scale, maskf,
-                          denom) * maskf
+                          denom, training) * maskf
         outs.append(h)
     h = _bn(params["mfa_bn"],
-            F.relu(_conv1d(params["mfa"], torch.cat(outs, dim=1))))
+            F.relu(_conv1d(params["mfa"], torch.cat(outs, dim=1))), training)
 
     # attentive statistics pooling with global context
     mean = _masked_mean(h, maskf, denom)
     var = _masked_mean((h - mean) ** 2, maskf, denom)
     std = torch.sqrt(torch.clamp(var, min=1e-9))
     ctx = torch.cat([h, mean.expand_as(h), std.expand_as(h)], dim=1)
-    att = _bn(params["att_bn"], F.relu(_conv1d(params["att_conv1"], ctx)))
+    att = _bn(params["att_bn"], F.relu(_conv1d(params["att_conv1"], ctx)),
+              training)
     att = _conv1d(params["att_conv2"], torch.tanh(att))
     att = torch.where(mask, att, torch.full_like(att, -1e9))
     att = torch.softmax(att, dim=2)
@@ -243,7 +255,8 @@ def ecapa_embed(params: dict, cfg: EcapaConfig, feats: torch.Tensor,
     mu = torch.sum(h * att, dim=2)
     sg = torch.sqrt(torch.clamp(torch.sum((h ** 2) * att, dim=2) - mu ** 2,
                                 min=1e-9))
-    pooled = _bn(params["out_bn"], torch.cat([mu, sg], dim=1)[:, :, None])
+    pooled = _bn(params["out_bn"], torch.cat([mu, sg], dim=1)[:, :, None],
+                 training)
     emb = pooled[:, :, 0] @ params["out_w"] + params["out_b"]
     return emb / torch.clamp(torch.linalg.norm(emb, dim=-1, keepdim=True),
                              min=1e-9)

@@ -172,6 +172,33 @@ def launch(device: torch.device, entry: str, what: str, *args) -> None:
     DEVICE_LAUNCHES[ordinal] = DEVICE_LAUNCHES.get(ordinal, 0) + 1
 
 
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        yield from _tensors(list(tree.values()))
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def refuse_grad(what: str, *inputs) -> None:
+    """Raise when autograd would record a kernel call: gradients are on
+    and an input (a tensor, or a dict/list/tuple of them, such as a
+    parameter tree) requires grad.  The kernels have no backward, and
+    their outputs leave the graph, so every weight behind them would get
+    no gradient at all; training runs the eager route instead."""
+    if not torch.is_grad_enabled():
+        return
+    for t in _tensors(inputs):
+        if t.requires_grad:
+            raise RuntimeError(
+                f"{what}: the CUDA kernel has no backward, and an input "
+                "requires grad; train on the eager route "
+                "(EmformerConfig(route='eager')) or call under "
+                "torch.no_grad()")
+
+
 def launch_counts(reset: bool = False) -> dict:
     """Each kernel's launch count in this process ({row name: count});
     ``reset`` sets them to 0 after reading."""

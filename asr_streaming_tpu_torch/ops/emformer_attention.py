@@ -97,6 +97,7 @@ def check_geometry(Q: int, K: int, Dh: int, dtype: torch.dtype,
 def _emformer_attention_cuda(q, k, v, m_m, m_kv, *, num_heads, M, R, Lc, U,
                              use_mem, neg_inf, out_dtype):
     global LAUNCHES
+    _cuda.refuse_grad("emformer_attention", q, k, v)
     dev = q.device
     B, Q, D = q.shape
     K = k.shape[1]

@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from asr_streaming_tpu_torch.ops import _cuda
 from asr_streaming_tpu_torch.ops import emformer_stack as es
 
 # launches of the CUDA kernel (one per layer call that reaches the card)
@@ -63,6 +64,8 @@ def _emformer_layer_cuda(p, utt, rc, mem_row, mem_state, lc_k, lc_v, length,
                          reset, advance, *, quant, qweights, kweights,
                          mem_row_from_utt, **kw):
     global LAUNCHES
+    _cuda.refuse_grad("emformer_layer", p, utt, rc, mem_row, mem_state,
+                      lc_k, lc_v)
     B, U, D = utt.shape
     qw = _layer_weights(p, quant, qweights)
     if kweights is None:

@@ -469,6 +469,7 @@ def w8a8_linear(x2d: torch.Tensor, q: tuple, bias: torch.Tensor,
         return _act(activation)(y) if activation else y
     if x2d.device.type != "cuda":
         raise ValueError(f"w8a8_linear: unsupported device {x2d.device}")
+    _cuda.refuse_grad("w8a8_linear", x2d, bias)
     w8t, scale = q[2], q[1].contiguous()
     M, K = x2d.shape
     N = w8t.shape[0]
@@ -557,6 +558,7 @@ def gemm_bf16(x2d: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         return gemm_bf16_plain(x2d, w, bias, activation)
     if x2d.device.type != "cuda":
         raise ValueError(f"gemm_bf16: unsupported device {x2d.device}")
+    _cuda.refuse_grad("gemm_bf16", x2d, w, bias)
     M, K = x2d.shape
     N = w.shape[-1]
     if K % 8 or N % 8 or tuple(w.shape) != (K, N) or \
@@ -579,6 +581,7 @@ def gemm_bf16(x2d: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 def _emformer_stack_cuda(params, x, mem, lc_k, lc_v, length, reset, advance,
                          *, quant, **kw):
     global LAUNCHES, LAUNCHES_INT8
+    _cuda.refuse_grad("emformer_stack", params, x, mem, lc_k, lc_v)
     names = _kernel_quant_names(quant)
     w = kernel_weights(params, kw["cdt"], skip=names)
     qw = quantized_weights(params, names)

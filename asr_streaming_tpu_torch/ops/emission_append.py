@@ -47,6 +47,7 @@ def emission_append(buf: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor,
         return emission_append_plain(buf, rows, pos, decode)
     if buf.device.type != "cuda":
         raise ValueError(f"emission_append: unsupported device {buf.device}")
+    _cuda.refuse_grad("emission_append", buf, rows)
     B, max_t, V = buf.shape
     U = rows.shape[1]
     if buf.dtype != torch.float16 or not buf.is_contiguous():

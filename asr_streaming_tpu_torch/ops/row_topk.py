@@ -66,6 +66,7 @@ def cuda_row_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor,
     if not x.is_floating_point() or x.ndim < 1:
         raise ValueError(f"cuda_row_topk: {x.dtype} {tuple(x.shape)}")
     check_args(x.shape, k)
+    _cuda.refuse_grad("row_topk", x)
     lead, N = x.shape[:-1], x.shape[-1]
     xf = x.reshape(-1, N).to(torch.float32).contiguous()
     R = xf.shape[0]

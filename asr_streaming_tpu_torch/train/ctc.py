@@ -1,0 +1,106 @@
+"""CTC training for the streaming encoder (the Vietnamese model).
+
+Counterpart of asr_streaming_tpu/train/ctc.py: the same chunk-scanned
+encoder forward that serving runs (train == serve), the CTC loss, the
+Noam warmup schedule (the reference's NoamAnnealing, streaming_decoder_v1,
+lightspeech, optims, scheduler.py:5-50) and clip + AdamW.  Only ``params["encoder"]`` is
+trained; the frontend buffers pass through.
+
+The Emformer trains on its eager route (``training_config``): the CUDA
+kernels of the stack, layer and attention routes have no backward, and
+their wrappers refuse a call that autograd would record.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from asr_streaming_tpu_torch.models.asr import ASRConfig
+from asr_streaming_tpu_torch.models.emformer import EmformerConfig
+from asr_streaming_tpu_torch.models.encoder import encoder_forward
+from asr_streaming_tpu_torch.ops.sequence import make_padding_mask
+from asr_streaming_tpu_torch.train import optim
+from asr_streaming_tpu_torch.train.losses import ctc_loss
+
+
+def eager_emformer(emf: EmformerConfig) -> EmformerConfig:
+    """The Emformer config a trainer runs: the eager route (the JAX
+    trainers' XLA path), set on the dataclass whatever ASR_PALLAS_MODE
+    says."""
+    return dataclasses.replace(emf, route="eager", fused_attention=False,
+                               quant="none")
+
+
+def training_config(cfg: ASRConfig) -> ASRConfig:
+    return dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, emformer=eager_emformer(cfg.encoder.emformer)))
+
+
+def noam_annealing(base_lr: float, d_model: int, warmup_steps: int,
+                   min_lr: float = 0.0, max_lr: Optional[float] = None):
+    """NoamAnnealing: lr = base * d_model^-0.5 * min(step^-0.5,
+    step * warmup^-1.5), clamped to [min_lr, max_lr], step clamped to at
+    least 1 (so updates 0 and 1 share a rate), in f32 as the JAX
+    schedule computes it."""
+    norm = d_model ** -0.5
+
+    def schedule(count: int) -> float:
+        step = torch.tensor(max(count, 1), dtype=torch.float32)
+        lr = base_lr * norm * torch.minimum(step ** -0.5,
+                                            step * warmup_steps ** -1.5)
+        if max_lr is not None:
+            lr = torch.clamp(lr, max=max_lr)
+        return float(torch.clamp(lr, min=min_lr))
+
+    return schedule
+
+
+class Batch(NamedTuple):
+    feats: torch.Tensor        # [B, T, n_mels]
+    feat_lens: torch.Tensor    # [B] int
+    labels: torch.Tensor       # [B, Lmax] int (blank=0 padding)
+    label_lens: torch.Tensor   # [B] int
+
+
+def ctc_loss_fn(params: dict, cfg: ASRConfig, batch: Batch) -> torch.Tensor:
+    """Mean per-sequence CTC loss of the encoder on ``batch``, the
+    Emformer on its eager route whatever ``cfg`` names."""
+    cfg = training_config(cfg)
+    log_probs, out_lens = encoder_forward(
+        params["encoder"], cfg.encoder, batch.feats, batch.feat_lens)
+    logit_pad = (~make_padding_mask(out_lens, log_probs.shape[1])).to(
+        torch.float32)
+    label_pad = (~make_padding_mask(batch.label_lens,
+                                    batch.labels.shape[1])).to(torch.float32)
+    return ctc_loss(log_probs, logit_pad, batch.labels, label_pad,
+                    blank_id=0).mean()
+
+
+def make_optimizer(cfg: ASRConfig, base_lr: float = 1.0,
+                   warmup_steps: int = 10_000,
+                   weight_decay: float = 1e-6
+                   ) -> optim.GradientTransformation:
+    schedule = noam_annealing(base_lr, cfg.encoder.d_model, warmup_steps)
+    return optim.chain(
+        optim.clip_by_global_norm(5.0),
+        optim.adamw(schedule, b1=0.9, b2=0.98, eps=1e-9,
+                    weight_decay=weight_decay))
+
+
+def make_train_step(cfg: ASRConfig, optimizer: optim.GradientTransformation):
+    """train_step(params, opt_state, batch) -> (params, opt_state, loss).
+    Only params['encoder'] is trained; init opt_state with
+    optimizer.init(params['encoder'])."""
+
+    def train_step(params, opt_state, batch: Batch):
+        enc = params["encoder"]
+        loss, grads = optim.value_and_grad(
+            lambda e: ctc_loss_fn({"encoder": e}, cfg, batch), enc)
+        updates, opt_state = optimizer.update(grads, opt_state, enc)
+        enc = optim.apply_updates(enc, updates)
+        return {**params, "encoder": enc}, opt_state, loss
+
+    return train_step

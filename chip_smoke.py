@@ -97,7 +97,19 @@ Phases (any failure exits non-zero; nothing is caught):
      second of audio; the fixture's golden text and word windows through
      ASRModel; ``python -m asr_streaming_tpu_torch.tools.transcribe``
      printing the in-process greedy line; tools/profile_beam.py's table
-     (kernel E launched); a torch_profile Chrome trace.
+     (kernel E launched); a torch_profile Chrome trace;
+ 12. the training stack (``--only train``): (a) the kernels refuse a call
+     autograd would record (fault 16) and the eager route gives every
+     encoder leaf a finite, nonzero gradient; (b) one step of the CTC,
+     RNNT, VAD and speaker trainers on the card against the CPU at tiny
+     geometry (loss 1e-5 relative, each leaf's gradient 1e-4 relative
+     L2); (c) ``train.run`` at full width (ASRConfig.vietnamese, f32,
+     batch 8, 4 s) for 5 steps, its checkpoint through the server's
+     loader into a 512-slot tick; (d) ``train.rnnt`` (RNNTConfig(),
+     V=4097, streaming features), ``train.vad`` and ``train.speaker``
+     (EcapaConfig()) for 3 steps each, ms per step and peak memory; (e)
+     the tiny model trained on the overfit task, then the Scheduler's
+     transcript from its ``.npz`` equal to the offline greedy decode.
 Every path is driven with the kernels' launch counts set to 0 just
 before it and read just after, the worker child's counts included; a
 kernel that no path launched fails the run.  The last line is the result
@@ -1274,11 +1286,12 @@ def phase_worker(seed, inproc_p50, device):
     return launches
 
 
-def _sentence_audio(s, total, sr=16000):
-    """The tone sentences of tests/test_overfit_e2e.py."""
+def _sentence_audio(s, total, sr=16000, lead=0.0):
+    """The tone sentences of tests/test_overfit_e2e.py (``lead`` seconds
+    of silence first)."""
     import numpy as np
     tone_hz = {"a": 350.0, "b": 700.0, "c": 1400.0, "d": 2100.0, " ": 1000.0}
-    parts = []
+    parts = [np.zeros(int(sr * lead), np.float32)]
     for ch in s:
         t = np.arange(int(sr * 0.24)) / sr
         wave = 0.3 * np.sin(2 * np.pi * tone_hz[ch] * t)
@@ -3182,19 +3195,522 @@ def phase_offline(seed, device, card):
             f"Chrome trace holding kernel A's kernels")
 
 
+# ------------------------------------------------- the training stack
+
+TRAIN_VOCAB = ["-", "|", "a", "b", "c", "d"]
+TRAIN_SENTENCES = ["a", "b", "c", "d",
+                   "ab cd", "dc ba", "ad bc", "ca db", "bd", "acd b"]
+GOLDEN_CANDIDATES = ["ab cd", "dc ba", "ad bc", "acd b", "ca db"]
+# leaves whose gradient is 0 in exact arithmetic (both sides hold
+# rounding noise): att_conv2's bias shifts a channel's attention logits
+# alike over time, and the softmax over time removes it
+ZERO_GRADS = ("ecapa/att_conv2/b",)
+
+
+def _tree_pairs(a, b, path=""):
+    if isinstance(a, dict):
+        for k in a:
+            yield from _tree_pairs(a[k], b[k], f"{path}/{k}" if path else k)
+    elif isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            yield from _tree_pairs(x, y, f"{path}/{i}")
+    else:
+        yield path, a, b
+
+
+def _grad_errors(got, want):
+    """{leaf: relative L2 of got against want} (both on the CPU), the
+    leaves of ZERO_GRADS as their peak over the tree's largest peak."""
+    import torch
+    pairs = [(p, g.detach().cpu().double(), w.detach().cpu().double())
+             for p, g, w in _tree_pairs(got, want)]
+    scale = max(float(w.abs().max()) for _, _, w in pairs)
+    out = {}
+    for p, g, w in pairs:
+        if p in ZERO_GRADS:
+            out[p] = float(torch.maximum(g.abs().max(), w.abs().max())) / scale
+        elif float(w.norm()) == 0.0:
+            out[p] = float(g.norm())
+        else:
+            out[p] = float((g - w).norm() / w.norm())
+    return out
+
+
+def _check_grads(label, grads, need_nonzero=True):
+    """Every leaf finite and (unless it is a running statistic) nonzero."""
+    import torch
+    bad = []
+    for p, g, _ in _tree_pairs(grads, grads):
+        if not torch.isfinite(g).all():
+            bad.append((p, "non-finite"))
+        elif need_nonzero and not bool(g.abs().max() > 0) and \
+                not p.endswith(("/mean", "/var")):
+            bad.append((p, "zero"))
+    if bad:
+        fail(f"{label}: gradients {bad[:6]}")
+
+
+def _wav(path, audio, sr=16000):
+    import wave as wave_mod
+    with wave_mod.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(_pcm16(audio).tobytes())
+
+
+def _manifest(tmp, name, entries):
+    """Write each entry's audio as a wav; returns the manifest's path."""
+    lines = []
+    for i, (audio, extra) in enumerate(entries):
+        path = os.path.join(tmp, f"{name}{i}.wav")
+        _wav(path, audio)
+        lines.append(json.dumps({"audio_filepath": path,
+                                 "duration": len(audio) / 16000, **extra}))
+    path = os.path.join(tmp, f"{name}.jsonl")
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+    return path
+
+
+def _train_log(label, log_, steps, card):
+    """Check a trainer CLI's TrainLog; print ms per step and the peak."""
+    import numpy as np
+    import torch
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if len(log_.losses) != steps or not np.isfinite(log_.losses).all():
+        fail(f"{label}: losses {log_.losses}")
+    ms = float(np.median(log_.seconds[1:])) * 1e3
+    log(f"[train] {label} | {card} | {steps} steps: losses "
+        + ", ".join(f"{x:.4f}" for x in log_.losses)
+        + f"; {ms:.1f} ms per step (median after the first, "
+        f"{log_.seconds[0] * 1e3:.1f} ms first), peak "
+        f"{peak:.2f} GiB (max_memory_allocated)")
+    return {"ms_per_step": ms, "first_ms": log_.seconds[0] * 1e3,
+            "peak_gib": peak, "losses": log_.losses}
+
+
+def train_guard(device):
+    """(a) fault 16: with gradients on, the stack, layer and fused
+    attention routes refuse on the card; the eager route trains every
+    encoder leaf."""
+    import dataclasses
+    import torch
+    from asr_streaming_tpu_torch.models.asr import ASRConfig, init_asr_params
+    from asr_streaming_tpu_torch.models.encoder import encoder_forward
+    from asr_streaming_tpu_torch.train import optim
+    from asr_streaming_tpu_torch.train.ctc import Batch, ctc_loss_fn
+    cfg = ASRConfig.tiny(vocab_size=24)
+    params = init_asr_params(torch.Generator().manual_seed(0), cfg, device)
+    feats = torch.randn((2, 100, 128), generator=torch.Generator()
+                        .manual_seed(1)).to(device)
+    enc = optim.tree_map(lambda t: t.clone().requires_grad_(True),
+                         params["encoder"])
+    emf = cfg.encoder.emformer
+    for route, fused in (("stack", False), ("layer", False),
+                         ("eager", True)):
+        e = dataclasses.replace(emf, route=route, fused_attention=fused)
+        ecfg = dataclasses.replace(cfg.encoder, emformer=e)
+        try:
+            encoder_forward(enc, ecfg, feats)
+        except RuntimeError as err:
+            if "no backward" not in str(err):
+                raise
+        else:
+            fail(f"route {route} (fused_attention={fused}) ran a kernel "
+                 "under autograd on the card")
+    with torch.no_grad():
+        encoder_forward(enc, cfg.encoder, feats)     # serving: no refusal
+    batch = Batch(feats, torch.tensor([100, 71], device=device),
+                  torch.tensor([[3, 4, 5], [6, 7, 0]], device=device),
+                  torch.tensor([3, 2], device=device))
+    loss, grads = optim.value_and_grad(       # the stack route's cfg
+        lambda p: ctc_loss_fn({"encoder": p}, cfg, batch), params["encoder"])
+    _check_grads("(a) eager route", grads)
+    n = len(optim.tree_leaves(grads))
+    log(f"[train] (a) fault 16: the stack, layer and fused-attention "
+        f"routes raise under autograd on the card; the eager route's loss "
+        f"{float(loss):.4f}, all {n} encoder leaves finite and nonzero")
+
+
+def _card_vs_cpu(label, loss_fn, params_cpu, args_cpu, device):
+    """One loss and gradient on the CPU and on the card from the same
+    weights and batch: (relative loss error, worst leaf, its error)."""
+    from asr_streaming_tpu_torch.train import optim
+    args_gpu = optim.tree_map(lambda x: x.to(device), args_cpu)
+    l_cpu, g_cpu = optim.value_and_grad(
+        lambda p: loss_fn(p, *args_cpu), params_cpu)
+    l_gpu, g_gpu = optim.value_and_grad(
+        lambda p: loss_fn(p, *args_gpu),
+        optim.tree_map(lambda x: x.to(device), params_cpu))
+    _check_grads(f"(b) {label} on the card", g_gpu, need_nonzero=False)
+    rel = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
+    errs = _grad_errors(g_gpu, g_cpu)
+    worst = max(errs, key=errs.get)
+    if not rel <= 1e-5 or not errs[worst] <= 1e-4:
+        fail(f"(b) {label}: loss {float(l_gpu)} vs {float(l_cpu)} (rel "
+             f"{rel:.2e}, check 1e-5); worst gradient {worst} "
+             f"{errs[worst]:.2e} (check 1e-4)")
+    log(f"[train] (b) {label}, card vs CPU: loss {float(l_gpu):.6f} rel "
+        f"{rel:.2e} (1e-5); worst leaf {worst} rel L2 {errs[worst]:.2e} "
+        f"(1e-4) over {len(errs)} leaves")
+    return {"loss_rel": rel, "grad_rel_l2": errs[worst]}
+
+
+def train_card_vs_cpu(device):
+    """(b) one step's loss and gradients, card against CPU, tiny
+    geometry, TF32 off."""
+    import numpy as np
+    import torch
+    from asr_streaming_tpu_torch.models.asr import ASRConfig, init_asr_params
+    from asr_streaming_tpu_torch.models.rnnt import (
+        RNNTConfig, init_rnnt_params,
+    )
+    from asr_streaming_tpu_torch.models.vad import (
+        SileroConfig, init_silero_params,
+    )
+    from asr_streaming_tpu_torch.train import ctc, rnnt, speaker, vad
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        fail("TF32 is on")
+    rng = np.random.default_rng(0)
+    out = {}
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a))
+
+    cfg = ASRConfig.tiny(vocab_size=24)
+    p = init_asr_params(gen(1), cfg, "cpu")
+    batch = ctc.Batch(t(rng.standard_normal((2, 100, 128), np.float32)),
+                      t(np.array([100, 63])),
+                      t(rng.integers(1, 24, (2, 6))), t(np.array([6, 4])))
+    out["ctc"] = _card_vs_cpu(
+        "CTC (ASRConfig.tiny)",
+        lambda e, b: ctc.ctc_loss_fn({"encoder": e}, cfg, b),
+        p["encoder"], (batch,), device)
+    rcfg = RNNTConfig.tiny()
+    p = init_rnnt_params(gen(2), rcfg, "cpu")
+    batch = rnnt.RNNTBatch(t(rng.standard_normal((2, 40, 16), np.float32)),
+                           t(np.array([40, 29])),
+                           t(rng.integers(0, rcfg.blank, (2, 4))),
+                           t(np.array([4, 2])))
+    out["rnnt"] = _card_vs_cpu(
+        "RNNT (RNNTConfig.tiny, offline)",
+        lambda q, b: rnnt.rnnt_loss_fn(q, rcfg, b), p, (batch,), device)
+    scfg = SileroConfig()
+    p = init_silero_params(gen(3), scfg, "cpu")
+    waves = (rng.standard_normal((2, 3000)) * 0.005).astype(np.float32)
+    waves[0, 600:1500] += 0.4
+    labels = vad.window_labels(waves, scfg)
+    out["vad"] = _card_vs_cpu(
+        "VAD (SileroConfig)",
+        lambda q, w, lab: vad.vad_loss_fn(q, scfg, w, lab),
+        p, (t(waves), t(labels)), device)
+    kcfg = speaker.SpeakerTrainConfig.tiny(4)
+    p = speaker.init_speaker_params(gen(4), kcfg, "cpu")
+    out["speaker"] = _card_vs_cpu(
+        "speaker (SpeakerTrainConfig.tiny)",
+        lambda q, f, n, lab: speaker.speaker_loss_fn(q, kcfg, f, n, lab),
+        p, (t(rng.standard_normal((4, 50, 16), np.float32)),
+            t(np.array([50, 41, 50, 33])), t(np.array([0, 1, 2, 1]))),
+        device)
+    return out
+
+
+def train_full_ctc(tmp, device, card, seed):
+    """(c) the CTC CLI at full width (ASRConfig.vietnamese, f32, eager,
+    the placeholder vocab): 5 steps, batch 8, a 4 s bucket; every encoder
+    leaf's gradient finite and nonzero; the checkpoint through the
+    server's loader into one serving tick at 512 slots."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from asr_streaming_tpu_torch.models.asr import ASRConfig, init_asr_params
+    from asr_streaming_tpu_torch.models.serving import init_serving_params
+    from asr_streaming_tpu_torch.text.vocab import placeholder_vocab
+    from asr_streaming_tpu_torch.train import optim
+    from asr_streaming_tpu_torch.train.ctc import Batch, ctc_loss_fn
+    from asr_streaming_tpu_torch.train.data import (
+        SpeechRecognitionDataset, bucket_batches,
+    )
+    from asr_streaming_tpu_torch.train.run import main as run_main
+    from asr_streaming_tpu_torch.ops.frontend import log_mel
+    from asr_streaming_tpu_torch.utils.checkpoint import (
+        load_params, load_params_auto,
+    )
+    rng = np.random.default_rng(seed)
+    entries = [(_speechlike(3.0 + 0.1 * i, seed=10 + i),
+                {"text": " ".join(f"t{k}" for k in rng.integers(0, 22, 12))})
+               for i in range(8)]
+    manifest = _manifest(tmp, "vi", entries)
+    ckpt = os.path.join(tmp, "vi_ctc.npz")
+    torch.cuda.reset_peak_memory_stats()
+    log_ = run_main(["--manifest", manifest, "--steps", "5", "--batch-size",
+                     "8", "--buckets-seconds", "4", "--save", ckpt,
+                     "--seed", str(seed), "--device", str(device)])
+    out = _train_log("(c) CTC CLI, ASRConfig.vietnamese() f32 eager "
+                     "(D=512, H=8, F=2048, 20 layers, V=24), batch 8, 4 s",
+                     log_, 5, card)
+
+    vocab = placeholder_vocab(24)
+    cfg = ASRConfig.vietnamese()
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, vocab_size=len(vocab)))
+    params = load_params(ckpt, like=init_asr_params(
+        torch.Generator().manual_seed(0), cfg, device))
+    b = next(bucket_batches(SpeechRecognitionDataset(manifest, vocab, {}),
+                            8, buckets_seconds=[4.0], token_bucket=256))
+    with torch.no_grad():
+        feats = log_mel(params["frontend"], cfg.mel,
+                        torch.from_numpy(b.waves).to(device))
+    wl = torch.from_numpy(b.wave_lens).to(device)
+    batch = Batch(feats, torch.clamp(1 + torch.div(
+        wl - cfg.mel.n_fft, cfg.mel.hop_length, rounding_mode="floor"), min=0),
+        torch.from_numpy(b.tokens).to(device),
+        torch.from_numpy(b.token_lens).to(device))
+    loss, grads = optim.value_and_grad(
+        lambda e: ctc_loss_fn({"encoder": e}, cfg, batch), params["encoder"])
+    if not np.isfinite(float(loss)):
+        fail(f"(c) loss {float(loss)}")
+    _check_grads("(c) full-width CTC", grads)
+    n = len(optim.tree_leaves(grads))
+
+    scfg = vi_serving_cfg()
+    scfg = dataclasses.replace(scfg, asr=dataclasses.replace(
+        scfg.asr, encoder=dataclasses.replace(scfg.asr.encoder,
+                                              vocab_size=len(vocab))))
+    sparams = load_params_auto(ckpt, init_serving_params(seed, scfg, device))
+    gen = torch.Generator().manual_seed(seed)
+    times = run_ticks(sparams, scfg, B_SLOTS, 2, gen, device)[0]
+    log(f"[train] (c) checkpoint {os.path.getsize(ckpt) / 2 ** 20:.1f} MiB: "
+        f"all {n} encoder leaves' gradients finite and nonzero (loss "
+        f"{float(loss):.4f} on the saved weights); load_params_auto into "
+        f"server-vi.yaml's tick (bf16, stack route) at {B_SLOTS} slots: "
+        f"{times[-1] * 1e3:.2f} ms a tick")
+    return out
+
+
+def _spm_model(tmp):
+    """A 4096-piece SentencePiece model (the EN vocab's size, V=4097
+    with the blank): the letters with and without the word marker,
+    then filler pieces."""
+    from asr_streaming_tpu_torch.text.spm import encode_test_model
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    pieces = ["<unk>", "<s>", "</s>"] + ["▁" + c for c in letters] \
+        + list(letters)
+    pieces += [f"▁w{i}" for i in range(4096 - len(pieces))]
+    path = os.path.join(tmp, "spm_4096.model")
+    with open(path, "wb") as f:
+        f.write(encode_test_model(pieces))
+    return path
+
+
+def train_full_others(tmp, device, card, seed):
+    """(d) the RNNT CLI on RNNTConfig() with --streaming-features (batch 4,
+    4 s), the VAD CLI on SileroConfig(), the speaker CLI on
+    EcapaConfig(): 3 steps each."""
+    import torch
+    from asr_streaming_tpu_torch.train import rnnt, speaker, vad
+    words = "the quick brown fox jumps over a lazy dog".split()
+    entries = [(_speechlike(3.5 + 0.1 * i, seed=20 + i),
+                {"text": " ".join(words[i:] + words[:i]),
+                 "label": f"spk{i % 4}"}) for i in range(8)]
+    manifest = _manifest(tmp, "en", entries)
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    out["rnnt"] = _train_log(
+        "(d) RNNT CLI, RNNTConfig() (encoding 1024, V=4097, 20 layers) "
+        "eager, --streaming-features, batch 4, 4 s",
+        rnnt.main(["--manifest", manifest, "--spm", _spm_model(tmp),
+                   "--steps", "3", "--batch-size", "4", "--seconds", "4",
+                   "--streaming-features", "--save",
+                   os.path.join(tmp, "rnnt.npz"), "--seed", str(seed),
+                   "--device", str(device)]), 3, card)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["vad"] = _train_log(
+        "(d) VAD CLI, SileroConfig(), 8 files in 0.84 s chunks",
+        vad.main(["--manifest", manifest, "--steps", "3", "--out",
+                  os.path.join(tmp, "vad.npz"), "--seed", str(seed),
+                  "--device", str(device)]), 3, card)
+    torch.cuda.reset_peak_memory_stats()
+    out["speaker"] = _train_log(
+        "(d) speaker CLI, EcapaConfig() (512 channels, 192-dim), "
+        "batch 16, 3 s",
+        speaker.main(["--manifest", manifest, "--steps", "3", "--save",
+                      os.path.join(tmp, "ecapa.npz"), "--seed", str(seed),
+                      "--device", str(device)]), 3, card)
+    return out
+
+
+def train_then_serve(tmp, device, card):
+    """(e) the tiny CTC model trained on tests/test_overfit_e2e.py's task
+    on the card (both stream alignments, lr 0.5, warmup 100, wd 0, up to
+    1000 steps over seeds 3, 5, 0, 7, stopping once a golden candidate
+    decodes at both alignments); then the transcript the Scheduler serves
+    from the saved .npz equals the offline greedy decode (ASRModel) of
+    the same audio."""
+    import numpy as np
+    import torch
+    from asr_streaming_tpu_torch.decode.greedy import greedy_search_full
+    from asr_streaming_tpu_torch.models.api import ASRModel
+    from asr_streaming_tpu_torch.models.asr import ASRConfig, init_asr_params
+    from asr_streaming_tpu_torch.models.encoder import encoder_forward
+    from asr_streaming_tpu_torch.models.serving import (
+        ServingConfig, init_serving_params,
+    )
+    from asr_streaming_tpu_torch.ops.frontend import log_mel
+    from asr_streaming_tpu_torch.streaming.endpoint import EndpointRule
+    from asr_streaming_tpu_torch.streaming.scheduler import Scheduler
+    from asr_streaming_tpu_torch.train.ctc import (
+        Batch, make_optimizer, make_train_step, training_config,
+    )
+    from asr_streaming_tpu_torch.utils.checkpoint import (
+        load_params_auto, save_params,
+    )
+    cfg = training_config(ASRConfig.tiny(vocab_size=len(TRAIN_VOCAB)))
+    lead = cfg.audio.buffer_length / 16000
+    pairs = [(s, off) for s in TRAIN_SENTENCES for off in (0.0, lead)]
+    waves = np.stack([_sentence_audio(s, 2.56, lead=off) for s, off in pairs])
+    probe = init_asr_params(torch.Generator().manual_seed(0), cfg, device)
+    with torch.no_grad():
+        feats = log_mel(probe["frontend"], cfg.mel,
+                        torch.from_numpy(waves).to(device))
+    labs = [[1 if ch == " " else TRAIN_VOCAB.index(ch) for ch in s]
+            for s, _ in pairs]
+    lab = np.zeros((len(labs), max(map(len, labs))), np.int64)
+    for i, l in enumerate(labs):
+        lab[i, :len(l)] = l
+    batch = Batch(feats, torch.full((len(pairs),), feats.shape[1],
+                                    device=device),
+                  torch.from_numpy(lab).to(device),
+                  torch.tensor([len(l) for l in labs], device=device))
+
+    def decode(params, sentences, off):
+        w = np.stack([_sentence_audio(s, 2.56, lead=off) for s in sentences])
+        with torch.no_grad():
+            f = log_mel(params["frontend"], cfg.mel,
+                        torch.from_numpy(w).to(device))
+            lp = encoder_forward(params["encoder"], cfg.encoder, f)[0]
+        lp = lp.cpu().numpy()
+        return [greedy_search_full(lp[i], TRAIN_VOCAB)[0].strip()
+                for i in range(len(sentences))]
+
+    def golden_of(params):
+        at0 = decode(params, GOLDEN_CANDIDATES, 0.0)
+        atl = decode(params, GOLDEN_CANDIDATES, lead)
+        for s, a, b in zip(GOLDEN_CANDIDATES, at0, atl):
+            if a == s == b:
+                return s
+        return None
+
+    optimizer = make_optimizer(cfg, base_lr=0.5, warmup_steps=100,
+                               weight_decay=0.0)
+    step_fn = make_train_step(cfg, optimizer)
+    t0 = time.perf_counter()
+    steps = 0
+    best = None
+    # the JAX fixture's four seeds; the port draws its init from a
+    # torch.Generator, not jax.random, so their order is this phase's
+    # own: seed 3 verifies a candidate first on the card
+    for seed in (3, 5, 0, 7):
+        params = init_asr_params(torch.Generator().manual_seed(seed), cfg,
+                                 device)
+        opt_state = optimizer.init(params["encoder"])
+        golden = None
+        for step in range(1000):
+            params, opt_state, loss = step_fn(params, opt_state, batch)
+            steps += 1
+            if step >= 300 and step % 150 == 0 and float(loss) < 0.5:
+                golden = golden_of(params)
+                if golden is not None:
+                    break
+        if golden is None and float(loss) < 0.5:
+            golden = golden_of(params)
+        if best is None or (golden is not None, -float(loss)) > \
+                (best[2] is not None, -best[1]):
+            best = (params, float(loss), golden, seed, step + 1)
+        if golden is not None:
+            break
+    train_s = time.perf_counter() - t0
+    params, loss, golden, seed, seed_steps = best
+    log(f"[train] (e) tiny CTC on the overfit task | {card}: seed {seed}, "
+        f"{seed_steps} steps, final loss {loss:.4f}; golden candidate "
+        f"{'verified: ' + repr(golden) if golden else 'none verified'}; "
+        f"{steps} steps in {train_s:.1f} s ({train_s / steps * 1e3:.1f} ms "
+        f"a step)")
+
+    path = os.path.join(tmp, "overfit_trained.npz")
+    save_params(path, params)
+    sentence = golden or GOLDEN_CANDIDATES[0]
+    audio = _sentence_audio(sentence, 3.84)
+    offline = ASRModel(cfg=ASRConfig.tiny(vocab_size=len(TRAIN_VOCAB)),
+                       checkpoint=path, vocab=TRAIN_VOCAB, use_corpus=False,
+                       device=device).transcribe(audio).strip()
+    scfg = ServingConfig(asr=ASRConfig.tiny(vocab_size=len(TRAIN_VOCAB)),
+                         use_silero=False, use_energy_gate=False,
+                         energy_threshold_db=-200.0)
+    sparams = load_params_auto(path, init_serving_params(1, scfg, device))
+    rules = {"trained": EndpointRule(True, 0.8, 0.0, float("inf"))}
+    sched = Scheduler(sparams, scfg, TRAIN_VOCAB, max_slots=8, rules=rules,
+                      device=device)
+    s = sched.admit("t0")
+    s.accept_waveform(audio)
+    s.add_tail_padding()
+    events = sched.drain()
+    sched.close()
+    finals = [e.text.strip() for e in events
+              if e.kind == "final" and e.text.strip()]
+    served = " ".join(finals)
+    if served != offline:
+        fail(f"(e) served {finals} != offline greedy {offline!r} "
+             f"({sentence!r})")
+    log(f"[train] (e) train == serve: the Scheduler (stack route) serves "
+        f"{served!r} from the saved .npz, the offline greedy decode "
+        f"(ASRModel) gives {offline!r} for {sentence!r}")
+    return {"seed": seed, "steps": seed_steps, "loss": loss,
+            "golden": golden, "served": served, "train_s": train_s,
+            "ms_per_step": train_s / steps * 1e3}
+
+
+def phase_train(seed, device, card):
+    """The training stack on the card: (a) the fault-16 guard, (b) one
+    step card against CPU for each trainer, (c) the CTC CLI at full
+    width, (d) the RNNT, VAD and speaker CLIs at full width, (e) train
+    then serve.  Returns its numbers for the ``[train]`` line."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    out = {}
+    train_guard(device)
+    out["card_vs_cpu"] = train_card_vs_cpu(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["ctc"] = train_full_ctc(tmp, device, card, seed)
+        torch.cuda.empty_cache()
+        out.update(train_full_others(tmp, device, card, seed))
+        torch.cuda.empty_cache()
+        out["train_then_serve"] = train_then_serve(tmp, device, card)
+    log(f"[train] phase {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"train": out}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", choices=("vi", "en", "gemm", "int8", "server",
-                                       "bench", "mesh", "offline"),
+                                       "bench", "mesh", "offline", "train"),
                     default=None,
                     help="run one language's phases, the bf16 or the int8 "
                          "GEMM phase, the server phase (with the golden "
                          "phases it compares with and ECAPA's), the bench "
                          "phase, the multi-GPU serving phase (with the VI "
-                         "golden phase) or the offline API's phase alone (a "
-                         "partial run: the result line says so and the exit "
-                         "code is 4)")
+                         "golden phase), the offline API's phase or the "
+                         "training phase alone (a partial run: the result "
+                         "line says so and the exit code is 4)")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "asr_streaming_tpu_torch")):
         fail("asr_streaming_tpu_torch/ is not beside this script")
@@ -3211,6 +3727,7 @@ def main() -> None:
     vi, en = args.only in (None, "vi"), args.only in (None, "en")
     server = args.only in (None, "server")
     mesh, offline = args.only in (None, "mesh"), args.only in (None, "offline")
+    train = args.only in (None, "train")
     if args.only in ("gemm", "int8"):
         (phase_gemm if args.only == "gemm" else phase_int8)(gen, device)
         sys.exit(4)
@@ -3285,6 +3802,9 @@ def main() -> None:
             if k["name"] == "emformer_stack":
                 k.update(a_offline)
         path(phase_offline, args.seed, device, card)
+    if train:
+        torch.cuda.empty_cache()
+        path(phase_train, args.seed, device, card)
     for k in kernels:
         k["launches"] = totals[k["name"]]
         if k["launches"] == 0 and args.only is None:

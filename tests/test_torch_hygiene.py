@@ -1,4 +1,5 @@
-"""The port stands alone: no jax, nothing of asr_streaming_tpu."""
+"""The port stands alone: no jax, no optax, nothing of
+asr_streaming_tpu."""
 
 import os
 import subprocess
@@ -14,7 +15,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.")
+             if m in ("jax", "optax") or m.startswith(("jax.", "optax."))
              or m == "asr_streaming_tpu" or m.startswith("asr_streaming_tpu."))
 print(len(names), bad)
 assert not bad, bad
@@ -29,7 +30,10 @@ for new in ("models.rnnt", "models.rnnt_beam", "ops.topk", "ops.row_topk",
             "tools.convert_rnnt_checkpoint", "tools.convert_ecapa",
             "parallel.mesh", "parallel.serving", "models.api",
             "models.segmenter", "decode.alignment", "text.tokenizer",
-            "tools.transcribe", "tools.evaluate", "tools.profile_beam"):
+            "tools.transcribe", "tools.evaluate", "tools.profile_beam",
+            "ops.sequence", "train.losses", "train.optim", "train.data",
+            "train.augment", "train.ctc", "train.run", "train.rnnt",
+            "train.vad", "train.speaker"):
     assert "asr_streaming_tpu_torch." + new in names, new
 """
 
@@ -43,7 +47,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_sources_name_no_jax_import():
     """A static check beside the runtime one: no import line of the port
-    or of chip_smoke.py names jax or the JAX package."""
+    or of chip_smoke.py names jax, optax or the JAX package."""
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "asr_streaming_tpu_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
@@ -53,7 +57,8 @@ def test_sources_name_no_jax_import():
                 s = line.strip()
                 if s.startswith(("import ", "from ")):
                     mod = s.split()[1]
-                    assert not (mod == "jax" or mod.startswith("jax.")
+                    assert not (mod in ("jax", "optax")
+                                or mod.startswith(("jax.", "optax."))
                                 or mod == "asr_streaming_tpu"
                                 or mod.startswith("asr_streaming_tpu.")), \
                         f"{p}:{i}: {s}"

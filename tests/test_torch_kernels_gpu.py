@@ -593,3 +593,63 @@ def test_sharded_step_on_two_cards_equals_one_card():
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
     for ordinal in (0, 1):
         assert cu.DEVICE_LAUNCHES.get(ordinal, 0) > before.get(ordinal, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrapper", ["stack", "layer", "attention", "append",
+                                     "row_topk", "gemm_bf16"])
+def test_kernels_refuse_a_call_autograd_would_record(wrapper):
+    """Fault 16: a kernel has no backward, so with gradients on and an
+    input that requires grad the wrapper raises before it launches; under
+    torch.no_grad the same call runs."""
+    from asr_streaming_tpu_torch.ops import _cuda as kernels
+    from asr_streaming_tpu_torch.ops.emformer_attention import (
+        emformer_attention,
+    )
+    from asr_streaming_tpu_torch.ops.emformer_layer import emformer_layer
+    from asr_streaming_tpu_torch.ops.row_topk import cuda_row_topk
+    dev = _cuda()
+    cfg = te.EmformerConfig(**VI)
+    params = te.init_emformer_params(torch.Generator().manual_seed(0), cfg,
+                                     dev)
+    B, U, R, D = 2, cfg.segment_length, cfg.right_context_length, 64
+    M, Lc = cfg.max_memory_size, cfg.left_context_length
+    state = te.init_emformer_state(cfg, B, dev)
+    kw = dict(U=U, R=R, M=M, Lc=Lc, H=4, use_mem=True, tanh_on_mem=True,
+              neg_inf=-1e8, activation="gelu", cdt=torch.float32)
+    x = torch.randn((B, U + R, D), device=dev)
+    grad_params = {k: v.clone().requires_grad_(True)
+                   for k, v in params.items()}
+
+    def call(p, xx):
+        if wrapper == "stack":
+            return es.emformer_stack(p, xx, state.mem, state.lc_k,
+                                     state.lc_v, state.length, **kw)
+        if wrapper == "layer":
+            return emformer_layer({k: v[0] for k, v in p.items()},
+                                  xx[:, :U], xx[:, U:], None, state.mem[0],
+                                  state.lc_k[0], state.lc_v[0],
+                                  state.length, **kw)
+        if wrapper == "attention":
+            K, Q = M + R + Lc + U, R + U + 1
+            q = xx.new_zeros((B, Q, D)) + xx.sum()
+            k = torch.zeros((B, K, D), device=dev)
+            return emformer_attention(q, k, k, state.length, state.length,
+                                      num_heads=4, M=M, R=R, Lc=Lc, U=U)
+        if wrapper == "append":
+            buf = torch.zeros((B, 32, D), dtype=torch.float16, device=dev)
+            return ea.emission_append(buf, xx[:, :U], state.length,
+                                      torch.ones(B, dtype=torch.bool,
+                                                 device=dev))
+        if wrapper == "row_topk":
+            return cuda_row_topk(xx.reshape(-1, D), 4)
+        return es.gemm_bf16(xx.reshape(-1, D), p["w_q"][0], p["b_q"][0])
+
+    before = kernels.launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(grad_params if wrapper in ("stack", "layer", "gemm_bf16")
+             else params, x.clone().requires_grad_(True))
+    assert kernels.launch_counts() == before
+    with torch.no_grad():
+        call(grad_params, x.clone().requires_grad_(True))
+    torch.cuda.synchronize()
