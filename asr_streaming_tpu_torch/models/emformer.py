@@ -243,7 +243,8 @@ def _layer_route(params, cfg, x, state, length, reset, advance, kw):
 # ------------------------------------------------ eager twin of the XLA path
 
 def _layer_norm(x, scale, bias, eps=1e-5):
-    x = x.to(torch.float32)
+    """In f32 (bf16 is widened; float64 stays float64)."""
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
     mean = x.mean(-1, keepdim=True)
     var = (x - mean).square().mean(-1, keepdim=True)
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias

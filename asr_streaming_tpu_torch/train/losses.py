@@ -249,7 +249,7 @@ def _magnitude_stft(wave: torch.Tensor, res: STFTResolution) -> torch.Tensor:
                              -np.sin(angle) * padded])[:, None, :]
     pad = res.n_fft // 2
     x = F.pad(wave[:, None, :], (pad, pad), mode="reflect")
-    spec = F.conv1d(x, torch.tensor(kernel, dtype=torch.float32,
+    spec = F.conv1d(x, torch.tensor(kernel, dtype=wave.dtype,
                                     device=wave.device),
                     stride=res.hop_length)
     nb = res.n_fft // 2 + 1

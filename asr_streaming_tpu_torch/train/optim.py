@@ -56,17 +56,24 @@ class GradientTransformation(NamedTuple):
     update: Callable
 
 
-def value_and_grad(loss_fn: Callable, params):
+def value_and_grad(loss_fn: Callable, params, has_aux: bool = False):
     """(loss, grads) of ``loss_fn(params)``, as ``jax.value_and_grad``:
     the grads tree has the params' structure, and a leaf the loss does
-    not reach gets zeros (autograd would give None)."""
+    not reach gets zeros (autograd would give None).  With ``has_aux``,
+    ``loss_fn`` returns (loss, aux) and this ((loss, aux), grads), the
+    tensors of ``aux`` detached."""
     params = tree_map(lambda p: p.detach().requires_grad_(True), params)
     loss = loss_fn(params)
+    if has_aux:
+        loss, aux = loss
     leaves = tree_leaves(params)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     by_id = {id(p): torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)}
-    return loss.detach(), tree_map(lambda p: by_id[id(p)], params)
+    grads = tree_map(lambda p: by_id[id(p)], params)
+    if has_aux:
+        return (loss.detach(), tree_map(lambda t: t.detach(), aux)), grads
+    return loss.detach(), grads
 
 
 def apply_updates(params, updates):

@@ -41,8 +41,9 @@ def save_params(path: str, params: dict) -> None:
 
 def load_params(path: str, like: Optional[dict] = None) -> dict:
     """Load a nested dict of numpy arrays.  With ``like`` (a template
-    dict of tensors or arrays), only the template's keys are read, each
-    checked for shape and cast to the template leaf's dtype and device."""
+    tree of dicts and lists of tensors or arrays), only the template's
+    keys are read, each checked for shape and cast to the template
+    leaf's dtype and device."""
     with np.load(path, allow_pickle=False) as blob:
         if like is None:
             out: dict = {}
@@ -58,11 +59,14 @@ def load_params(path: str, like: Optional[dict] = None) -> dict:
         return _restore(like, blob, "")
 
 
-def _restore(like: dict, blob, prefix: str) -> dict:
+def _restore(like, blob, prefix: str):
+    """``like``'s nesting (dicts and lists, as ``_flatten`` keys them)
+    with each leaf read from ``blob``."""
+    is_list = isinstance(like, (list, tuple))
     out = {}
-    for k, leaf in like.items():
+    for k, leaf in (enumerate(like) if is_list else like.items()):
         key = f"{prefix}{SEP}{k}" if prefix else str(k)
-        if isinstance(leaf, dict):
+        if isinstance(leaf, (dict, list, tuple)):
             out[k] = _restore(leaf, blob, key)
             continue
         arr = blob[key]
@@ -73,7 +77,7 @@ def _restore(like: dict, blob, prefix: str) -> dict:
                 device=leaf.device, dtype=leaf.dtype)
         else:
             out[k] = arr.astype(leaf.dtype)
-    return out
+    return list(out.values()) if is_list else out
 
 
 def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None):

@@ -109,7 +109,20 @@ Phases (any failure exits non-zero; nothing is caught):
      V=4097, streaming features), ``train.vad`` and ``train.speaker``
      (EcapaConfig()) for 3 steps each, ms per step and peak memory; (e)
      the tiny model trained on the overfit task, then the Scheduler's
-     transcript from its ``.npz`` equal to the offline greedy decode.
+     transcript from its ``.npz`` equal to the offline greedy decode;
+ 13. the SSL and TTS-GAN trainers and the TTS manifest (``--only tts``):
+     (a) card against CPU at tiny geometry: one SSL step and one GAN
+     discriminator step (loss 1e-5 relative, each leaf's gradient 1e-4
+     relative L2), one GAN generator step (loss 1e-5 in f32, gradients
+     1e-4 in float64: its f32 gradient is ill-conditioned), inverse_stft
+     (1e-5; two card runs bit for bit) and synthesize (1e-5, lengths and
+     durations exact); (b) ``train.ssl`` at full width (SSLConfig(),
+     batch 8 of 4 s, 3 steps), ms per step and peak memory; (c) the TTS
+     manifest: the overfit fixture's ASRModel aligns the tone sentences
+     through the tool's functions (kernel A), then the tool's CLI at full
+     width (ASRConfig.vietnamese, seeded weights) exits 0 and launches A;
+     (d) ``train.gan`` at full width (GANTrainConfig(), batch 4 from (c)'s
+     manifest, 3 steps), its ``.npz`` into TTSModel.
 Every path is driven with the kernels' launch counts set to 0 just
 before it and read just after, the worker child's counts included; a
 kernel that no path launched fails the run.  The last line is the result
@@ -3201,10 +3214,14 @@ TRAIN_VOCAB = ["-", "|", "a", "b", "c", "d"]
 TRAIN_SENTENCES = ["a", "b", "c", "d",
                    "ab cd", "dc ba", "ad bc", "ca db", "bd", "acd b"]
 GOLDEN_CANDIDATES = ["ab cd", "dc ba", "ad bc", "acd b", "ca db"]
-# leaves whose gradient is 0 in exact arithmetic (both sides hold
-# rounding noise): att_conv2's bias shifts a channel's attention logits
-# alike over time, and the softmax over time removes it
-ZERO_GRADS = ("ecapa/att_conv2/b",)
+# leaves (by path suffix) whose gradient is 0 in exact arithmetic (both
+# sides hold rounding noise): att_conv2's bias shifts a channel's
+# attention logits alike over time, and the softmax over time removes it;
+# the Squeezeformer's key and positional biases shift a query's scores
+# alike; a conv bias right before a BatchNorm on the batch's statistics
+# is removed by its mean
+ZERO_GRADS = ("ecapa/att_conv2/b", "attn/bk", "attn/bp", "conv/dw_b",
+              "subsampling/c1_b", "dur1/b", "dur2/b")
 
 
 def _tree_pairs(a, b, path=""):
@@ -3227,7 +3244,7 @@ def _grad_errors(got, want):
     scale = max(float(w.abs().max()) for _, _, w in pairs)
     out = {}
     for p, g, w in pairs:
-        if p in ZERO_GRADS:
+        if p.endswith(ZERO_GRADS):
             out[p] = float(torch.maximum(g.abs().max(), w.abs().max())) / scale
         elif float(w.norm()) == 0.0:
             out[p] = float(g.norm())
@@ -3273,7 +3290,7 @@ def _manifest(tmp, name, entries):
     return path
 
 
-def _train_log(label, log_, steps, card):
+def _train_log(label, log_, steps, card, tag="[train]"):
     """Check a trainer CLI's TrainLog; print ms per step and the peak."""
     import numpy as np
     import torch
@@ -3282,7 +3299,7 @@ def _train_log(label, log_, steps, card):
     if len(log_.losses) != steps or not np.isfinite(log_.losses).all():
         fail(f"{label}: losses {log_.losses}")
     ms = float(np.median(log_.seconds[1:])) * 1e3
-    log(f"[train] {label} | {card} | {steps} steps: losses "
+    log(f"{tag} {label} | {card} | {steps} steps: losses "
         + ", ".join(f"{x:.4f}" for x in log_.losses)
         + f"; {ms:.1f} ms per step (median after the first, "
         f"{log_.seconds[0] * 1e3:.1f} ms first), peak "
@@ -3334,7 +3351,8 @@ def train_guard(device):
         f"{float(loss):.4f}, all {n} encoder leaves finite and nonzero")
 
 
-def _card_vs_cpu(label, loss_fn, params_cpu, args_cpu, device):
+def _card_vs_cpu(label, loss_fn, params_cpu, args_cpu, device,
+                 tag="[train] (b)"):
     """One loss and gradient on the CPU and on the card from the same
     weights and batch: (relative loss error, worst leaf, its error)."""
     from asr_streaming_tpu_torch.train import optim
@@ -3344,15 +3362,15 @@ def _card_vs_cpu(label, loss_fn, params_cpu, args_cpu, device):
     l_gpu, g_gpu = optim.value_and_grad(
         lambda p: loss_fn(p, *args_gpu),
         optim.tree_map(lambda x: x.to(device), params_cpu))
-    _check_grads(f"(b) {label} on the card", g_gpu, need_nonzero=False)
+    _check_grads(f"{tag} {label} on the card", g_gpu, need_nonzero=False)
     rel = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
     errs = _grad_errors(g_gpu, g_cpu)
     worst = max(errs, key=errs.get)
     if not rel <= 1e-5 or not errs[worst] <= 1e-4:
-        fail(f"(b) {label}: loss {float(l_gpu)} vs {float(l_cpu)} (rel "
+        fail(f"{tag} {label}: loss {float(l_gpu)} vs {float(l_cpu)} (rel "
              f"{rel:.2e}, check 1e-5); worst gradient {worst} "
              f"{errs[worst]:.2e} (check 1e-4)")
-    log(f"[train] (b) {label}, card vs CPU: loss {float(l_gpu):.6f} rel "
+    log(f"{tag} {label}, card vs CPU: loss {float(l_gpu):.6f} rel "
         f"{rel:.2e} (1e-5); worst leaf {worst} rel L2 {errs[worst]:.2e} "
         f"(1e-4) over {len(errs)} leaves")
     return {"loss_rel": rel, "grad_rel_l2": errs[worst]}
@@ -3698,19 +3716,410 @@ def phase_train(seed, device, card):
     print(json.dumps({"train": out}), flush=True)
 
 
+# ------------------------------------------------ SSL, GAN and TTS (13)
+
+TTS_SENTENCES = ["ab cd", "dc ba", "ad bc", "ca db", "acd b"]
+
+
+def _gan_tiny():
+    """GANTrainConfig.tiny's generator and full-width discriminators on
+    the CPU, and a batch of tests/test_ssl_gan_train.py's shape."""
+    import numpy as np
+    import torch
+    from asr_streaming_tpu_torch.models.tts import init_tts_params
+    from asr_streaming_tpu_torch.train import gan
+    from asr_streaming_tpu_torch.train.data import TTSBatch
+    cfg = gan.GANTrainConfig.tiny()
+    g = torch.Generator().manual_seed(0)
+    params = init_tts_params(g, cfg.tts, "cpu")
+    disc, static = gan.init_discriminators(g, "cpu")
+    rng = np.random.default_rng(0)
+    B, Tp = 2, 12
+    tokens = rng.integers(1, cfg.tts.linguistic.vocab_size, (B, Tp))
+    word_idxs = np.repeat(np.arange(Tp // 3), 3)[None].repeat(B, 0)
+    word_durs = np.zeros((B, Tp), np.int32)
+    word_durs[:, :Tp // 3] = rng.integers(8, 16, (B, Tp // 3))
+    audio = np.zeros((B, cfg.tts.max_frames * cfg.tts.hop_length),
+                     np.float32)
+    audio_lens = (word_durs.sum(1) * cfg.tts.hop_length).astype(np.int32)
+    for b in range(B):
+        audio[b, :audio_lens[b]] = rng.standard_normal(audio_lens[b]) * 0.1
+    batch = TTSBatch(tokens.astype(np.int32), np.full(B, Tp, np.int32),
+                     word_idxs.astype(np.int32), word_durs, audio, audio_lens)
+    return cfg, params, disc, static, gan.tts_batch_to(batch, "cpu")
+
+
+def _widened(tree, dtype):
+    from asr_streaming_tpu_torch.train import optim
+    return optim.tree_map(
+        lambda t: t.to(dtype) if t.is_floating_point() else t, tree)
+
+
+def tts_card_vs_cpu(device):
+    """(a) card against CPU at tiny geometry, TF32 off: one SSL step and
+    one GAN discriminator step (loss 1e-5 relative, each leaf's gradient
+    1e-4 relative L2, in f32); one GAN generator step (its loss and parts
+    1e-5 in f32; its gradients 1e-4 in float64: the generator's f32
+    gradient is ill-conditioned, another sum order moving the decoder
+    attention's leaves by far more than 1e-4, so the f32 spread is
+    printed, not held); inverse_stft (1e-5, and two card runs
+    bit for bit); synthesize (audio 1e-5, lengths and durations exact)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from asr_streaming_tpu_torch.models.tts import synthesize
+    from asr_streaming_tpu_torch.ops.istft import inverse_stft
+    from asr_streaming_tpu_torch.train import gan, optim, ssl
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        fail("TF32 is on")
+    out = {}
+
+    scfg = dataclasses.replace(ssl.SSLConfig.tiny(), mask_prob=0.1)
+    g = torch.Generator().manual_seed(1)
+    trainable, frozen = ssl.init_ssl_params(g, scfg, "cpu")
+    feats = torch.randn((2, 64, scfg.encoder.input_dim), generator=g)
+    draws = ssl.ssl_draws(g, scfg, tuple(feats.shape))
+    out["ssl"] = _card_vs_cpu(
+        "SSL step (SSLConfig.tiny, mask_prob 0.1)",
+        lambda t, f, x, n, d: ssl.ssl_loss_fn(t, f, scfg, x, n, d),
+        trainable, (frozen, feats, torch.tensor([64, 45]), draws), device,
+        tag="[tts] (a)")
+
+    cfg, params, disc, static, batch = _gan_tiny()
+    fake = gan.gen_loss_fn(params, disc, static, cfg, batch)[1]["fake"]
+    out["gan_disc"] = _card_vs_cpu(
+        "GAN discriminator step (MPD 5 periods to 1024 channels, MRD 3 "
+        "resolutions)",
+        lambda d, f, r: gan.disc_loss_fn(d, static, f, r), disc,
+        (fake.detach(), batch.audio[:, :fake.shape[1]]), device,
+        tag="[tts] (a)")
+
+    def gen_loss(dtype, dev):
+        d = optim.tree_map(lambda t: t.to(dev), _widened(disc, dtype))
+        b = optim.tree_map(lambda t: t.to(dev), _widened(batch, dtype))
+        return optim.value_and_grad(
+            lambda p: gan.gen_loss_fn(p, d, static, cfg, b),
+            optim.tree_map(lambda t: t.to(dev), _widened(params, dtype)),
+            has_aux=True)
+
+    (l_cpu, a_cpu), g_cpu = gen_loss(torch.float32, "cpu")
+    (l_gpu, a_gpu), g_gpu = gen_loss(torch.float32, device)
+    parts = {k: abs(float(a_gpu[k]) - float(a_cpu[k])) / abs(float(a_cpu[k]))
+             for k in ("stft", "adv", "dur")}
+    rel = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
+    e32 = _grad_errors(g_gpu, g_cpu)
+    (l64c, _), g64c = gen_loss(torch.float64, "cpu")
+    (l64g, _), g64g = gen_loss(torch.float64, device)
+    _check_grads("(a) GAN generator on the card", g64g, need_nonzero=False)
+    e64 = _grad_errors(g64g, g64c)
+    worst32, worst64 = max(e32, key=e32.get), max(e64, key=e64.get)
+    rel64 = abs(float(l64g) - float(l64c)) / abs(float(l64c))
+    if not rel <= 1e-5 or max(parts.values()) > 1e-5 or not rel64 <= 1e-5 \
+            or not e64[worst64] <= 1e-4:
+        fail(f"(a) GAN generator: loss rel {rel:.2e}, parts {parts} (1e-5); "
+             f"float64 loss rel {rel64:.2e}, worst gradient {worst64} "
+             f"{e64[worst64]:.2e} (1e-4)")
+    log(f"[tts] (a) GAN generator step (GANTrainConfig.tiny), card vs CPU: "
+        f"loss {float(l_gpu):.6f} rel {rel:.2e}, parts max "
+        f"{max(parts.values()):.2e} (1e-5, f32); gradients in float64: worst "
+        f"{worst64} {e64[worst64]:.2e} (1e-4) over {len(e64)} leaves; in f32 "
+        f"(not held): worst {worst32} {e32[worst32]:.2e}")
+    out["gan_gen"] = {"loss_rel": rel, "grad_rel_l2_f64": e64[worst64],
+                      "grad_rel_l2_f32": e32[worst32]}
+
+    g = torch.Generator().manual_seed(2)
+    errs = []
+    for n_fft, win, hop, T in ((800, 400, 160, 301), (128, 128, 32, 255),
+                               (30, 20, 7, 13)):
+        spec = torch.complex(torch.randn((3, n_fft // 2 + 1, T), generator=g),
+                             torch.randn((3, n_fft // 2 + 1, T), generator=g))
+        want = inverse_stft(spec, n_fft, win, hop)
+        got = inverse_stft(spec.to(device), n_fft, win, hop)
+        again = inverse_stft(spec.to(device), n_fft, win, hop)
+        if not torch.equal(got, again):
+            fail(f"(a) inverse_stft: two card runs differ at {n_fft}/{hop}")
+        err = float((got.cpu() - want).abs().max())
+        if not torch.allclose(got.cpu(), want, rtol=1e-5, atol=1e-5):
+            fail(f"(a) inverse_stft {n_fft}/{win}/{hop}: max |err| {err:.2e}")
+        errs.append(err)
+    out["istft_max_abs_err"] = max(errs)
+
+    tokens = torch.tensor([[3, 5, 7, 2, 9, 11, 4, 0, 0],
+                           [8, 1, 6, 13, 0, 0, 0, 0, 0]])
+    lens = torch.tensor([7, 4])
+    words = torch.tensor([[0, 0, 1, 1, 1, 2, 3, -1, -1],
+                          [0, 1, 1, 2, -1, -1, -1, -1, -1]])
+    durs = torch.tensor([[30, 50, 20, 40], [60, 10, 25, 0]])
+    gdev = optim.tree_map(lambda t: t.to(device), params)
+    serr = []
+    with torch.no_grad():
+        for d in (durs, None):
+            want = synthesize(params, cfg.tts, tokens, lens, words, d)
+            got = synthesize(gdev, cfg.tts, tokens.to(device), lens.to(device),
+                             words.to(device),
+                             None if d is None else d.to(device))
+            if not torch.equal(got[1].cpu(), want[1]) or \
+                    got[0].shape != want[0].shape:
+                fail(f"(a) synthesize lengths {got[1].tolist()} vs "
+                     f"{want[1].tolist()}")
+            pred = torch.clamp(torch.ceil(got[2].cpu()), min=10)
+            if not torch.equal(pred, torch.clamp(torch.ceil(want[2]), min=10)):
+                fail("(a) synthesize: predicted durations differ")
+            if not torch.allclose(got[0].cpu(), want[0], rtol=1e-5,
+                                  atol=1e-5):
+                fail(f"(a) synthesize audio: max |err| "
+                     f"{float((got[0].cpu() - want[0]).abs().max()):.2e}")
+            serr.append(float((got[0].cpu() - want[0]).abs().max()))
+    out["synthesize_max_abs_err"] = max(serr)
+    log(f"[tts] (a) inverse_stft card vs CPU max |err| {max(errs):.2e} "
+        f"(1e-5), two card runs bit for bit; synthesize (TTSConfig.tiny, "
+        f"forced and predicted durations) audio max |err| {max(serr):.2e} "
+        f"(1e-5), lengths and durations exact")
+    return out
+
+
+def _step_profile(label, fn):
+    """One call of a training step, warm: its host-clock ms (ending in a
+    synchronize), its device ms and launches (torch.profiler) and the
+    device's busy share of the host clock."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    dev, launches = profile_top(fn, label, n=6)
+    log(f"[tts] {label}: {wall:.1f} ms host clock, {dev:.1f} ms of device "
+        f"time in {launches} launches: the device busy {100 * dev / wall:.0f}%"
+        f" of the step")
+    return {"wall_ms": wall, "device_ms": dev, "launches": launches}
+
+
+def tts_full_ssl(tmp, device, card, seed):
+    """(b) the SSL CLI at full width: SSLConfig() (256-d, 8 layers, 128
+    mels, codebook 8192), batch 8 of 4 s, 3 steps.  The 4 s crop is cut
+    from the CLI's 16 s default to keep the phase inside the script's
+    time limit."""
+    import torch
+    from asr_streaming_tpu_torch.train import optim, ssl
+    manifest = _manifest(tmp, "ssl", [(_speechlike(3.6 + 0.1 * i, seed=30 + i),
+                                       {}) for i in range(8)])
+    torch.cuda.reset_peak_memory_stats()
+    out = _train_log(
+        "(b) SSL CLI, SSLConfig() (256-d, 8 layers, 128 mels, codebook "
+        "8192), batch 8, 4 s", ssl.main([
+            "--manifest", manifest, "--steps", "3", "--batch-size", "8",
+            "--seconds", "4", "--save", os.path.join(tmp, "ssl.npz"),
+            "--seed", str(seed), "--device", str(device)]),
+        3, card, tag="[tts]")
+    cfg = ssl.SSLConfig()
+    g = torch.Generator().manual_seed(seed)
+    trainable, frozen = ssl.init_ssl_params(g, cfg, device)
+    feats = torch.randn((8, 401, 128), generator=g).to(device)
+    lens = torch.full((8,), 401, device=device)
+    draws = ssl.ssl_draws(g, cfg, tuple(feats.shape), device)
+    opt = optim.adamw(3e-4, weight_decay=1e-4)
+    state = opt.init(trainable)
+    step = ssl.make_ssl_train_step(cfg, opt)
+    out["profile"] = _step_profile(
+        "(b) one SSL step (SSLConfig(), 8 x 401 frames)",
+        lambda: step(trainable, frozen, state, feats, lens, draws))
+    return out
+
+
+def tts_manifest(tmp, device, card):
+    """(c) the TTS manifest: the overfit fixture's ASRModel aligns the
+    tone sentences through the tool's functions, in its main's order
+    (every entry written, durations tiling the audio, kernel A launched);
+    then the CLI once at full width (ASRConfig.vietnamese, seed-0 random
+    weights) exits 0 and launches A.  With no corpus in the repository
+    its model has the placeholder vocab and no lexicon, so no word of a
+    transcript tokenizes and every utterance is skipped as unaligned: the
+    CLI's run checks the entry point, the in-process run the pipeline.
+    Returns (the manifest's path, the CLI's kernel launches)."""
+    import numpy as np
+    from asr_streaming_tpu_torch.models.api import ASRModel
+    from asr_streaming_tpu_torch.models.asr import ASRConfig
+    from asr_streaming_tpu_torch.ops import _cuda
+    from asr_streaming_tpu_torch.tools import make_tts_manifest as mk
+    fixture = os.path.join(HERE, "assets", "test_fixtures", "overfit_ctc.npz")
+    lexicon = {w: list(w) + ["|"] for s in TTS_SENTENCES for w in s.split()}
+    model = ASRModel(cfg=ASRConfig.tiny(vocab_size=len(TRAIN_VOCAB)),
+                     checkpoint=fixture, vocab=TRAIN_VOCAB, lexicon=lexicon,
+                     use_corpus=False, device=device)
+    before = _cuda.launch_counts()["emformer_stack"]
+    t0 = time.perf_counter()
+    lines = []
+    for i, text in enumerate(TTS_SENTENCES):
+        wave = _sentence_audio(text, 3.84)
+        path = os.path.join(tmp, f"tone{i}.wav")
+        _wav(path, wave)
+        _, word_segs = model.force_alignment(wave, text)
+        token_ids, word_idxs = mk.tokens_and_words(text, model.vocab,
+                                                   model.lexicon)
+        durs = mk.word_durations_from_alignment(
+            word_segs, len(wave) / 16000, 16000, 160)
+        if max(word_idxs) + 1 != len(word_segs) or not durs or \
+                sum(durs) != int(3.84 * 16000) // 160:
+            fail(f"(c) {text!r}: words {word_idxs}, segments "
+                 f"{len(word_segs)}, durations {durs}")
+        lines.append(json.dumps({"audio_filepath": path, "text": text,
+                                 "tokens": token_ids, "word_idxs": word_idxs,
+                                 "word_durations": durs}))
+    launched = _cuda.launch_counts()["emformer_stack"] - before
+    if launched <= 0:
+        fail("(c) the manifest's alignments launched no kernel A")
+    manifest = os.path.join(tmp, "tts.jsonl")
+    with open(manifest, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    log(f"[tts] (c) manifest of {len(lines)} tone sentences through the "
+        f"overfit fixture on the card in {time.perf_counter() - t0:.2f} s: "
+        f"every entry written, durations tile 3.84 s ({int(3.84 * 100)} "
+        f"frames at hop 160), kernel A launched {launched} times; e.g. "
+        f"{json.loads(lines[0])['word_durations']}")
+
+    asr = os.path.join(tmp, "asr_vi.jsonl")
+    with open(asr, "w") as f:
+        for i, text in enumerate(("xin chào các bạn", "hôm nay trời đẹp")):
+            path = os.path.join(tmp, f"vi{i}.wav")
+            _wav(path, _speechlike(2.5, seed=40 + i))
+            f.write(json.dumps({"audio_filepath": path, "text": text}) + "\n")
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "asr_streaming_tpu_torch.tools."
+         "make_tts_manifest", "--manifest", asr, "--out",
+         os.path.join(tmp, "tts_vi.jsonl")], cwd=HERE, capture_output=True,
+        text=True, timeout=300)
+    if cli.returncode != 0:
+        fail(f"(c) make_tts_manifest CLI exited {cli.returncode}:\n"
+             f"{cli.stderr[-2000:]}")
+    counts = [ln for ln in cli.stderr.splitlines() if "kernel launches:" in ln]
+    if not counts:
+        fail("(c) the manifest CLI logged no kernel launches")
+    launches = json.loads(counts[-1].split("kernel launches:", 1)[1])
+    if launches.get("emformer_stack", 0) <= 0:
+        fail(f"(c) the manifest CLI launched no kernel A: {launches}")
+    wrote = [ln for ln in cli.stderr.splitlines() if "wrote" in ln]
+    skipped = [ln for ln in cli.stderr.splitlines()
+               if "skipped" in ln or "failed" in ln or "no aligned" in ln]
+    log(f"[tts] (c) python -m asr_streaming_tpu_torch.tools.make_tts_manifest "
+        f"(ASRConfig.vietnamese, seed-0 weights) exits 0 in "
+        f"{time.perf_counter() - t0:.1f} s: {wrote[-1] if wrote else ''}"
+        f"{' (' + skipped[0][:160] + ')' if skipped else ''}; "
+        f"kernel A launched {launches['emformer_stack']} times")
+    return manifest, launches
+
+
+def tts_full_gan(tmp, manifest, device, card, seed):
+    """(d) the GAN CLI at full width: GANTrainConfig() (TTSConfig(): 4+4
+    linguistic layers, 4 decoder layers, 256-d, n_fft 800; the MPD over 5
+    periods to 1024 channels, the MRD at 3 resolutions), batch 4 from (c)'s
+    manifest, 3 steps; then its .npz in TTSModel synthesizes finite audio
+    of the length its predicted durations give; one generator +
+    discriminator step profiled."""
+    import numpy as np
+    import torch
+    from asr_streaming_tpu_torch.models.tts import TTSModel, synthesize
+    from asr_streaming_tpu_torch.train import gan, optim
+    from asr_streaming_tpu_torch.train.data import (
+        SpeechSynthesisDataset, tts_batches,
+    )
+    ckpt = os.path.join(tmp, "tts.npz")
+    torch.cuda.reset_peak_memory_stats()
+    out = _train_log(
+        "(d) GAN CLI, GANTrainConfig() (TTSConfig(): 256-d, 4+4 linguistic "
+        "and 4 decoder layers, n_fft 800; MPD to 1024 channels, MRD 3 "
+        "resolutions), batch 4, 20.48 s buckets", gan.main([
+            "--manifest", manifest, "--steps", "3", "--batch-size", "4",
+            "--save", ckpt, "--seed", str(seed), "--device", str(device)]),
+        3, card, tag="[tts]")
+    gcfg = gan.GANTrainConfig()
+    g = torch.Generator().manual_seed(seed)
+    params = gan.init_tts_params(g, gcfg.tts, device)
+    disc, static = gan.init_discriminators(g, device)
+    batch = gan.tts_batch_to(next(tts_batches(
+        SpeechSynthesisDataset(manifest), 4, gcfg.tts.hop_length,
+        gcfg.tts.max_frames)), device)
+    g_opt = optim.adamw(2e-4, b1=0.8, b2=0.99)
+    d_opt = optim.adamw(2e-4, b1=0.8, b2=0.99)
+    g_state, d_state = g_opt.init(params), d_opt.init(disc)
+    gen_step, disc_step = gan.make_gan_train_steps(gcfg, g_opt, d_opt,
+                                                   static)
+
+    def both():
+        fake, real = gen_step(params, disc, g_state, batch)[3:]
+        return disc_step(disc, d_state, fake, real)
+
+    out["profile"] = _step_profile(
+        "(d) one GAN generator + discriminator step (GANTrainConfig(), "
+        "batch 4)", both)
+    del params, disc, g_state, d_state, batch
+    torch.cuda.empty_cache()
+    cfg = gcfg.tts
+    model = TTSModel(cfg, checkpoint=ckpt, device=device)
+    entry = json.loads(open(manifest).readline())
+    tokens = np.asarray(entry["tokens"], np.int32)
+    words = np.asarray(entry["word_idxs"], np.int32)
+    audio = model(tokens, words)
+    with torch.no_grad():
+        t = torch.as_tensor(tokens, device=device)[None]
+        w = torch.as_tensor(words, device=device)[None]
+        _, _, pred = synthesize(model.params, cfg, t, torch.tensor(
+            [len(tokens)], device=device), w)
+    n_words = int(words.max()) + 1
+    frames = int(torch.clamp(torch.ceil(pred[0, :n_words]), min=10).to(
+        torch.int64).sum().clamp(1, cfg.max_frames))
+    out_len = (cfg.max_frames - 1) * cfg.hop_length
+    want = int(np.float32(out_len / cfg.max_frames) * np.float32(frames))
+    if len(audio) != want or not np.isfinite(audio).all():
+        fail(f"(d) TTSModel from the GAN's .npz: {len(audio)} samples "
+             f"(want {want} for {frames} frames), finite "
+             f"{bool(np.isfinite(audio).all())}")
+    log(f"[tts] (d) the GAN's {os.path.getsize(ckpt) / 2 ** 20:.1f} MiB .npz "
+        f"in TTSModel: {len(audio)} finite samples for {frames} predicted "
+        f"frames ({n_words} words)")
+    out["synth_samples"] = len(audio)
+    return out
+
+
+def phase_tts(seed, device, card):
+    """The SSL and TTS-GAN trainers and the TTS manifest on the card: (a)
+    card vs CPU at tiny geometry, (b) the SSL CLI at full width, (c) the
+    manifest in process (kernel A) and its CLI, (d) the GAN CLI at full
+    width and its checkpoint in TTSModel.  Returns the CLI's launches."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    out = {"card_vs_cpu": tts_card_vs_cpu(device)}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.empty_cache()
+        out["ssl"] = tts_full_ssl(tmp, device, card, seed)
+        torch.cuda.empty_cache()
+        manifest, launches = tts_manifest(tmp, device, card)
+        out["gan"] = tts_full_gan(tmp, manifest, device, card, seed)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[tts] phase {out['seconds']:.1f} s")
+    print(json.dumps({"tts": out}), flush=True)
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", choices=("vi", "en", "gemm", "int8", "server",
-                                       "bench", "mesh", "offline", "train"),
+                                       "bench", "mesh", "offline", "train",
+                                       "tts"),
                     default=None,
                     help="run one language's phases, the bf16 or the int8 "
                          "GEMM phase, the server phase (with the golden "
                          "phases it compares with and ECAPA's), the bench "
                          "phase, the multi-GPU serving phase (with the VI "
-                         "golden phase), the offline API's phase or the "
-                         "training phase alone (a partial run: the result "
-                         "line says so and the exit code is 4)")
+                         "golden phase), the offline API's phase, the "
+                         "training phase or the SSL/TTS phase alone (a "
+                         "partial run: the result line says so and the exit "
+                         "code is 4)")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "asr_streaming_tpu_torch")):
         fail("asr_streaming_tpu_torch/ is not beside this script")
@@ -3727,7 +4136,7 @@ def main() -> None:
     vi, en = args.only in (None, "vi"), args.only in (None, "en")
     server = args.only in (None, "server")
     mesh, offline = args.only in (None, "mesh"), args.only in (None, "offline")
-    train = args.only in (None, "train")
+    train, tts = args.only in (None, "train"), args.only in (None, "tts")
     if args.only in ("gemm", "int8"):
         (phase_gemm if args.only == "gemm" else phase_int8)(gen, device)
         sys.exit(4)
@@ -3738,9 +4147,12 @@ def main() -> None:
 
     def path(fn, *fargs):
         _cuda.launch_counts(reset=True)
+        t0 = time.perf_counter()
         out = fn(*fargs)
         for k, v in _cuda.launch_counts().items():
             totals[k] += v
+        log(f"[time] {fn.__name__} {time.perf_counter() - t0:.1f} s (at "
+            f"{time.perf_counter() - t_start:.1f} s)")
         return out
 
     def add(counts):
@@ -3805,6 +4217,10 @@ def main() -> None:
     if train:
         torch.cuda.empty_cache()
         path(phase_train, args.seed, device, card)
+    if tts:
+        torch.cuda.empty_cache()
+        # the manifest CLI's process reports its own counts
+        add(path(phase_tts, args.seed, device, card))
     for k in kernels:
         k["launches"] = totals[k["name"]]
         if k["launches"] == 0 and args.only is None:

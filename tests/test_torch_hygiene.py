@@ -33,7 +33,10 @@ for new in ("models.rnnt", "models.rnnt_beam", "ops.topk", "ops.row_topk",
             "tools.transcribe", "tools.evaluate", "tools.profile_beam",
             "ops.sequence", "train.losses", "train.optim", "train.data",
             "train.augment", "train.ctc", "train.run", "train.rnnt",
-            "train.vad", "train.speaker"):
+            "train.vad", "train.speaker", "models.blocks", "models.offline",
+            "models.tts", "models.discriminators", "ops.istft", "train.ssl",
+            "train.gan", "tools.make_tts_manifest", "text.ngram_lm",
+            "text.oov"):
     assert "asr_streaming_tpu_torch." + new in names, new
 """
 

@@ -1,7 +1,9 @@
 """Helpers shared by the port's training parity tests
-(tests/test_torch_train_*.py): JAX trees carried into torch, tree
+(tests/test_torch_train_*.py, tests/test_torch_offline_models.py): JAX
+trees carried into torch, JAX-shaped trees of seeded numpy values, tree
 comparisons by relative L2, synthetic wav manifests."""
 
+import contextlib
 import json
 import wave as wave_mod
 
@@ -9,13 +11,92 @@ import numpy as np
 import torch
 
 import jax
+import pytest
 
 from asr_streaming_tpu_torch.utils.checkpoint import params_from_numpy
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one thread for a module's tests (imported by a test
+    module, it applies there).  The tier-1 run puts six workers on the
+    machine's cores, each torch process on as many threads as cores:
+    oversubscribed, the convolution-heavy GAN tests ran 10-40x slower
+    than alone, while alone one thread costs them nothing (the JAX side's
+    compiles dominate)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def to_torch(jtree, device="cpu"):
     """A JAX parameter tree (dicts and lists of arrays) as f32 tensors."""
     return params_from_numpy(jax.tree.map(np.asarray, jtree), device)
+
+
+def numpy_tree(init_fn, seed: int):
+    """The tree ``init_fn(key)`` returns (its structure, shapes and
+    dtypes from ``jax.eval_shape``, so no jax.random op compiles) filled
+    with seeded numpy values: weights normal / sqrt(fan-in), ``*var``
+    leaves positive, ``*scale`` leaves near 1, every other vector (biases,
+    running means, ``u``/``v``) normal * 0.1."""
+    rng = np.random.default_rng(seed)
+
+    def fill(path, s):
+        name = str(getattr(path[-1], "key", path[-1]))
+        z = rng.standard_normal(s.shape)
+        if name.endswith("var"):
+            z = 1.0 + 0.3 * np.abs(z)
+        elif name.endswith("scale"):
+            z = 1.0 + 0.1 * z
+        elif len(s.shape) <= 1 or name.endswith(("mean", "bias")):
+            z = 0.1 * z
+        else:
+            fan = s.shape[0] if len(s.shape) == 2 else int(
+                np.prod(s.shape[1:]))
+            z = z / np.sqrt(fan)
+        return jax.numpy.asarray(z.astype(s.dtype))
+
+    shapes = jax.eval_shape(init_fn, jax.random.PRNGKey(0))
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+class _Wide:
+    """``jax.numpy`` with ``float32`` read as ``float64``."""
+    float32 = jax.numpy.float64
+
+    def __getattr__(self, name):
+        return getattr(jax.numpy, name)
+
+
+@contextlib.contextmanager
+def jax_float64(*modules):
+    """Run JAX in float64 (``jax.enable_x64``), with the ``jnp.float32``
+    that ``modules`` name (constants, casts, ``preferred_element_type``)
+    read as float64: the JAX functions' own code, without its f32
+    roundings.  Arrays for it are made inside the context."""
+    saved = [m.jnp for m in modules]
+    try:
+        for m in modules:
+            m.jnp = _Wide()
+        with jax.enable_x64(True):
+            yield
+    finally:
+        for m, j in zip(modules, saved):
+            m.jnp = j
+
+
+def zero_grad_leaves(tree):
+    """Paths of ``tree`` whose gradient is 0 in exact arithmetic in the
+    Squeezeformer models: the key and positional biases (``attn/bk``,
+    ``attn/bp``) shift a query's scores alike and the softmax removes
+    them; a conv bias right before a BatchNorm on the batch's statistics
+    (``conv/dw_b``, ``subsampling/c1_b``, ``dur1/b``, ``dur2/b``) is
+    removed by the mean."""
+    ends = ("/attn/bk", "/attn/bp", "/conv/dw_b", "/subsampling/c1_b",
+            "/dur1/b", "/dur2/b")
+    return tuple(p for p, _, _ in pairs(tree, tree) if p.endswith(ends))
 
 
 def pairs(got, want, path=""):
