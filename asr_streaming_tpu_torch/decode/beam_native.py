@@ -5,7 +5,8 @@ Counterpart of asr_streaming_tpu/decode/beam_native.py, with the same API
 rescorer of the Vietnamese server.  The library is built from
 ``native/beamsearch/beam_decoder.cc`` with that directory's Makefile flags
 into this package's ``_build/`` (git-ignored), named by a hash of the
-compiler, source and flags, at first use and under a file lock, with the
+compiler, flags, source and the host CPU's feature flags
+(utils/native_build.py), at first use and under a file lock, with the
 ``g++`` on ``PATH`` (libstdc++ linked dynamically); nothing is built in
 ``native/``.  Without a C++ compiler ``make_native_rescorer`` returns
 None and the server takes the Python beam (decode/beam.py).
@@ -14,13 +15,8 @@ None and the server takes the Python beam (decode/beam.py).
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
 import json
 import os
-import shutil
-import subprocess
-import tempfile
 import threading
 from typing import Dict, List, Optional, Sequence
 
@@ -29,58 +25,25 @@ import numpy as np
 from asr_streaming_tpu_torch.decode.greedy import (
     BLANK_ID, FRAME_SECONDS, SILENCE_ID,
 )
+from asr_streaming_tpu_torch.utils import native_build
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(os.path.dirname(_PKG_DIR), "native", "beamsearch",
+SOURCE = os.path.join(native_build.NATIVE_DIR, "beamsearch",
                       "beam_decoder.cc")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-# native/beamsearch/Makefile's CXXFLAGS, plus -shared
-CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall",
-             "-shared")
+BUILD_DIR = native_build.BUILD_DIR
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
 
-def _compiler() -> Optional[str]:
-    # the g++ on PATH, not $CXX: a compiler driver that links libstdc++
-    # statically gives a library that loads into Python and then crashes
-    # in its first decode
-    return shutil.which("g++")
-
-
 def library_path() -> str:
-    h = hashlib.sha256(" ".join((_compiler() or "",) + CXX_FLAGS).encode())
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libasrbeam_{h.hexdigest()[:16]}.so")
+    return native_build.library_path(SOURCE, "asrbeam")
 
 
 def build() -> Optional[str]:
     """Compile the decoder (once; a later call finds the library).
     Returns its path, or None when there is no C++ compiler.  Raises with
     the compiler's output when the compile fails."""
-    target = library_path()
-    if os.path.exists(target):
-        return target
-    cxx = _compiler()
-    if cxx is None:
-        return None
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, ".beam_lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)      # released when the file closes
-        if os.path.exists(target):            # another process built it
-            return target
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-            tmp_lib = os.path.join(tmp, "lib.so")
-            out = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp_lib, SOURCE],
-                                 stdout=subprocess.PIPE,
-                                 stderr=subprocess.STDOUT, text=True,
-                                 timeout=300)
-            if out.returncode != 0:
-                raise RuntimeError(f"{cxx} failed on {SOURCE}:\n{out.stdout}")
-            os.replace(tmp_lib, target)
-    return target
+    return native_build.build(SOURCE, "asrbeam")
 
 
 def _load_library() -> Optional[ctypes.CDLL]:

@@ -50,6 +50,7 @@ from asr_streaming_tpu_torch.ops.emformer_layer import emformer_layer
 from asr_streaming_tpu_torch.ops.emformer_stack import (
     _kernel_quant_names, emformer_stack, kernel_weights, quantized_weights,
 )
+from asr_streaming_tpu_torch.parallel.collectives import column_entry, row_exit
 
 ROUTES = ("stack", "layer", "eager")
 QUANTS = ("none", "int8", "int8_ffn")
@@ -107,17 +108,21 @@ class EmformerState(NamedTuple):
 
 
 def init_emformer_state(cfg: EmformerConfig, batch_size: int,
-                        device=None) -> EmformerState:
-    """Zero state on ``device`` (default CUDA; raises without it)."""
+                        device=None, model_parallel: int = 1
+                        ) -> EmformerState:
+    """Zero state on ``device`` (default CUDA; raises without it).  Under
+    a tensor-parallel split the left-context keys and values hold only the
+    rank's heads: ``D / model_parallel`` wide."""
     device = resolve_device(device)
     L, B, D = cfg.num_layers, batch_size, cfg.d_model
+    Dk = D // model_parallel
     dt = cfg.compute_dtype
     return EmformerState(
         mem=torch.zeros((L, B, cfg.max_memory_size, D), dtype=dt,
                         device=device),
-        lc_k=torch.zeros((L, B, cfg.left_context_length, D), dtype=dt,
+        lc_k=torch.zeros((L, B, cfg.left_context_length, Dk), dtype=dt,
                          device=device),
-        lc_v=torch.zeros((L, B, cfg.left_context_length, D), dtype=dt,
+        lc_v=torch.zeros((L, B, cfg.left_context_length, Dk), dtype=dt,
                          device=device),
         length=torch.zeros((B,), dtype=torch.int32, device=device),
     )
@@ -179,16 +184,21 @@ def init_emformer_params(gen: torch.Generator, cfg: EmformerConfig,
 def emformer_stream_step(
     params: dict, cfg: EmformerConfig, x: torch.Tensor, state: EmformerState,
     reset: Optional[torch.Tensor] = None,
-    advance: Optional[torch.Tensor] = None,
+    advance: Optional[torch.Tensor] = None, tp=None,
 ) -> Tuple[torch.Tensor, EmformerState]:
     """One streaming step over all layers (x [B, U+R, D]: utterance then
     right context), by ``cfg.route`` (module doc).  reset zeroes a slot's
     state before stepping; advance commits the stepped state (else the
-    post-reset previous state is kept).  Returns (y [B, U, D] f32,
-    new_state)."""
+    post-reset previous state is kept).  With ``tp``
+    (parallel/collectives.py's groups), ``params`` and ``state`` are this
+    rank's tensor-parallel shard, which runs on the eager route only.
+    Returns (y [B, U, D] f32, new_state)."""
     if cfg.route == "eager":
         return emformer_stream_step_eager(params, cfg, x, state, reset,
-                                          advance)
+                                          advance, tp=tp)
+    if tp is not None:
+        raise ValueError("a tensor-parallel shard runs on the eager route "
+                         f"only, not {cfg.route!r}")
     U, R = cfg.segment_length, cfg.right_context_length
     length = state.length
     if reset is not None:
@@ -262,12 +272,20 @@ def _dot(a, b, cdt):
 
 
 def _layer_step(cfg: EmformerConfig, p: dict, utt, rc, mem_row, mem_state,
-                lc_k, lc_v, length):
-    """One Emformer layer, one streaming step (emformer.py:_layer_step)."""
-    B, U, D = utt.shape
+                lc_k, lc_v, length, tp=None):
+    """One Emformer layer, one streaming step (emformer.py:_layer_step).
+
+    ``tp`` (parallel/collectives.py's groups) runs it on a tensor-parallel
+    shard: ``p`` holds this rank's columns of ``w_q``/``w_kv`` (the K and
+    V of its own heads) and rows of ``w_out``, so the rank attends with
+    its ``w_q.shape[-1] / head_dim`` heads and the output projection's
+    partial sums reduce over the model group before ``b_out``."""
+    B, U, _ = utt.shape
     R = rc.shape[1]
     M, Lc = cfg.max_memory_size, cfg.left_context_length
-    H, Dh = cfg.num_heads, cfg.head_dim
+    Dh = cfg.head_dim
+    D = p["w_q"].shape[-1]                # this rank's heads' width
+    H = D // Dh
     cdt = cfg.compute_dtype
 
     ln_rc = _layer_norm(rc, p["ln_in_scale"], p["ln_in_bias"])
@@ -279,9 +297,9 @@ def _layer_step(cfg: EmformerConfig, p: dict, utt, rc, mem_row, mem_state,
         q_in = torch.cat([ln_rc, ln_utt], 1)
     Q = q_in.shape[1]
 
-    q = _dot(q_in, p["w_q"], cdt) + p["b_q"].to(cdt)
+    q = _dot(column_entry(q_in, tp), p["w_q"], cdt) + p["b_q"].to(cdt)
     kv_in = torch.cat([mem_state.to(cdt), ln_rc.to(cdt), ln_utt.to(cdt)], 1)
-    kv = _dot(kv_in, p["w_kv"], cdt) + p["b_kv"].to(cdt)
+    kv = _dot(column_entry(kv_in, tp), p["w_kv"], cdt) + p["b_kv"].to(cdt)
     k_part, v_part = kv[..., :D], kv[..., D:]
     next_k = k_part[:, M + R:]
     next_v = v_part[:, M + R:]
@@ -310,9 +328,9 @@ def _layer_step(cfg: EmformerConfig, p: dict, utt, rc, mem_row, mem_state,
             q, full_k, full_v, m_m, m_kv,
             num_heads=H, M=M, R=R, Lc=Lc, U=U, use_mem=cfg.use_mem,
             neg_inf=cfg.negative_inf, out_dtype=cdt)
-        out = _dot(attn, p["w_out"], cdt) + p["b_out"].to(cdt)
+        out = row_exit(_dot(attn, p["w_out"], cdt), tp) + p["b_out"].to(cdt)
         return _finish_layer_step(cfg, p, out, utt, rc, mem_row, mem_state,
-                                  lc_k, lc_v, next_k, next_v)
+                                  lc_k, lc_v, next_k, next_v, tp)
     valid_keys = torch.cat(
         [valid_mem, torch.ones((B, R), dtype=torch.bool, device=utt.device),
          valid_lc, torch.ones((B, U), dtype=torch.bool, device=utt.device)],
@@ -332,15 +350,17 @@ def _layer_step(cfg: EmformerConfig, p: dict, utt, rc, mem_row, mem_state,
     probs = torch.softmax(logits.float(), -1).to(cdt)
     attn = torch.matmul(probs.float(), vh.float())
     attn = attn.transpose(1, 2).reshape(B, Q, D).to(cdt)
-    out = _dot(attn, p["w_out"], cdt) + p["b_out"].to(cdt)
+    out = row_exit(_dot(attn, p["w_out"], cdt), tp) + p["b_out"].to(cdt)
     return _finish_layer_step(cfg, p, out, utt, rc, mem_row, mem_state,
-                              lc_k, lc_v, next_k, next_v)
+                              lc_k, lc_v, next_k, next_v, tp)
 
 
 def _finish_layer_step(cfg: EmformerConfig, p: dict, out, utt, rc, mem_row,
-                       mem_state, lc_k, lc_v, next_k, next_v):
+                       mem_state, lc_k, lc_v, next_k, next_v, tp=None):
     """Post-attention: mem output transform, residual FFN, state update
-    (emformer.py:_finish_layer_step)."""
+    (emformer.py:_finish_layer_step).  ``out`` is whole (reduced); under
+    ``tp`` the FFN's ``ff_w1`` columns and ``ff_w2`` rows are the rank's,
+    and ``ff_b2`` is added once after the reduction."""
     R, U = rc.shape[1], utt.shape[1]
     Lc = cfg.left_context_length
     cdt = cfg.compute_dtype
@@ -356,8 +376,9 @@ def _finish_layer_step(cfg: EmformerConfig, p: dict, out, utt, rc, mem_row,
     residual = rc_utt_out + torch.cat([rc, utt], 1)
     ff = _layer_norm(residual, p["ff_ln_scale"], p["ff_ln_bias"])
     ff = _activation(cfg.activation)(
-        _dot(ff, p["ff_w1"], cdt) + p["ff_b1"].to(cdt))
-    ff = (_dot(ff, p["ff_w2"], cdt) + p["ff_b2"].to(cdt)).float()
+        _dot(column_entry(ff, tp), p["ff_w1"], cdt) + p["ff_b1"].to(cdt))
+    ff = (row_exit(_dot(ff, p["ff_w2"], cdt), tp)
+          + p["ff_b2"].to(cdt)).float()
     result = _layer_norm(residual + ff, p["ln_out_scale"], p["ln_out_bias"])
     new_rc, new_utt = result[:, :R], result[:, R:]
 
@@ -374,11 +395,12 @@ def _finish_layer_step(cfg: EmformerConfig, p: dict, out, utt, rc, mem_row,
 def emformer_stream_step_eager(
     params: dict, cfg: EmformerConfig, x: torch.Tensor, state: EmformerState,
     reset: Optional[torch.Tensor] = None,
-    advance: Optional[torch.Tensor] = None,
+    advance: Optional[torch.Tensor] = None, tp=None,
 ) -> Tuple[torch.Tensor, EmformerState]:
     """emformer_stream_step on the XLA path's spelling: global pre-select
     of the reset state, a Python loop over layers, global post-select.
-    ``cfg.quant`` is ignored here, as on the XLA path."""
+    ``cfg.quant`` is ignored here, as on the XLA path.  ``tp``: a
+    tensor-parallel shard of ``params`` and ``state`` (``_layer_step``)."""
     U = cfg.segment_length
     R = cfg.right_context_length
     utt, rc = x[:, :U].float(), x[:, U:U + R].float()
@@ -398,7 +420,7 @@ def emformer_stream_step_eager(
         p = {k: v[l] for k, v in params.items()}
         utt, rc, mem_row, nm, nk, nv = _layer_step(
             cfg, p, utt, rc, mem_row, state.mem[l], state.lc_k[l],
-            state.lc_v[l], length)
+            state.lc_v[l], length, tp)
         mems.append(nm)
         lcks.append(nk)
         lcvs.append(nv)
@@ -416,19 +438,22 @@ def emformer_stream_step_eager(
 
 
 def emformer_forward(params: dict, cfg: EmformerConfig, x: torch.Tensor,
-                     x_lens: Optional[torch.Tensor] = None):
+                     x_lens: Optional[torch.Tensor] = None, tp=None):
     """Offline forward: the streaming step scanned over chunks (right
     context for chunk i is the first R frames of chunk i+1, zero-padded
-    at the end).  x [B, T, D] -> (y [B, T_padded, D], x_lens)."""
+    at the end).  x [B, T, D] -> (y [B, T_padded, D], x_lens).  With
+    ``tp``, ``params`` is this rank's tensor-parallel shard
+    (``emformer_stream_step``)."""
     B, T, D = x.shape
     U, R = cfg.segment_length, cfg.right_context_length
     n_chunks = -(-T // U)
     T_pad = n_chunks * U
     x = F.pad(x, (0, 0, 0, T_pad - T + R))
-    state = init_emformer_state(cfg, B, device=x.device)
+    mp = 1 if tp is None else tp.model_parallel
+    state = init_emformer_state(cfg, B, device=x.device, model_parallel=mp)
     ys = []
     for i in range(n_chunks):
-        y, state = emformer_stream_step(params, cfg, x[:, i * U:i * U + U + R],
-                                        state)
+        chunk = x[:, i * U:i * U + U + R]
+        y, state = emformer_stream_step(params, cfg, chunk, state, tp=tp)
         ys.append(y)
     return torch.cat(ys, 1), x_lens

@@ -25,6 +25,7 @@ from asr_streaming_tpu_torch.models.emformer import (
     EmformerConfig, EmformerState, _linear_init, emformer_forward,
     emformer_stream_step, init_emformer_params, init_emformer_state,
 )
+from asr_streaming_tpu_torch.parallel.collectives import column_entry, row_exit
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,12 +87,16 @@ def _pre_emformer(params: dict, cfg: EncoderConfig,
 
 
 def ctc_head(params: dict, cfg: EncoderConfig,
-             enc: torch.Tensor) -> torch.Tensor:
-    """Linear -> SiLU -> Linear -> log_softmax."""
+             enc: torch.Tensor, tp=None) -> torch.Tensor:
+    """Linear -> SiLU -> Linear -> log_softmax.  Under ``tp``
+    (parallel/collectives.py's groups) ``w1``/``b1`` hold this rank's
+    hidden columns and ``w2`` its rows: one reduction over the model
+    group, then ``b2``."""
     p = params["ctc"]
     cdt = cfg.compute_dtype
-    h = F.silu(torch.matmul(enc.to(cdt), p["w1"].to(cdt)) + p["b1"].to(cdt))
-    logits = (torch.matmul(h, p["w2"].to(cdt))
+    h = F.silu(torch.matmul(column_entry(enc.to(cdt), tp), p["w1"].to(cdt))
+               + p["b1"].to(cdt))
+    logits = (row_exit(torch.matmul(h, p["w2"].to(cdt)), tp)
               + p["b2"].to(cdt)).to(torch.float32)
     return torch.log_softmax(logits, -1)
 
@@ -113,13 +118,15 @@ def encoder_stream_step(params: dict, cfg: EncoderConfig,
 
 
 def encoder_forward(params: dict, cfg: EncoderConfig, feats: torch.Tensor,
-                    feat_lens: Optional[torch.Tensor] = None):
+                    feat_lens: Optional[torch.Tensor] = None, tp=None):
     """Offline forward (the streaming step over chunks).  Returns
-    (log_probs [B, T_out, vocab], out_lens in emission frames)."""
+    (log_probs [B, T_out, vocab], out_lens in emission frames).  ``tp``:
+    ``params`` is a tensor-parallel shard (``emformer_forward``,
+    ``ctc_head``); the log-probs are whole on every rank."""
     x = _pre_emformer(params, cfg, feats)
-    enc, _ = emformer_forward(params["emformer"], cfg.emformer, x)
+    enc, _ = emformer_forward(params["emformer"], cfg.emformer, x, tp=tp)
     enc = enc[:, :x.shape[1]]
-    log_probs = ctc_head(params, cfg, enc)
+    log_probs = ctc_head(params, cfg, enc, tp)
     out_lens = None
     if feat_lens is not None:
         out_lens = torch.clamp(torch.div(feat_lens - 1, cfg.stride,

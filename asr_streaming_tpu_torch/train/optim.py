@@ -22,7 +22,7 @@ digits that a comparison with optax needs.
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Union
+from typing import Callable, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -95,13 +95,18 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
-def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+def clip_by_global_norm(max_norm: float, sum_squares: Optional[Callable]
+                        = None) -> GradientTransformation:
     """Scale every leaf by max_norm / ||g|| when the global norm
-    ||g|| reaches max_norm."""
+    ||g|| reaches max_norm.  ``sum_squares(grads)`` gives ||g||^2 where
+    the tree is one shard of the model
+    (parallel/collectives.py::global_sum_squares); by default the sum over
+    the tree's leaves."""
     def update(grads, state, params=None):
         with torch.no_grad():
-            g_norm = torch.sqrt(sum(torch.sum(g * g)
-                                    for g in tree_leaves(grads)))
+            sq = (sum(torch.sum(g * g) for g in tree_leaves(grads))
+                  if sum_squares is None else sum_squares(grads))
+            g_norm = torch.sqrt(sq)
             keep = g_norm < max_norm          # no host sync
             return tree_map(lambda g: torch.where(
                 keep, g, (g / g_norm) * max_norm), grads), state

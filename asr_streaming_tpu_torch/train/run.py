@@ -13,9 +13,28 @@ Counterpart of asr_streaming_tpu/train/run.py:
       [--steps 1000] [--batch-size 8] [--save ckpt.npz] [--resume ckpt.npz]
       [--tiny] [--device cuda|cpu]
 
-It trains on one device.  ``--model-parallel`` above 1 raises, as
-``parallel/mesh.py::make_mesh`` does: data- and tensor-parallel training
-is not ported.
+Without a launcher it trains on one device.  Under ``torchrun`` (one
+process per rank, ``WORLD_SIZE`` set) it trains data- and
+tensor-parallel, as the JAX driver does over its ('data', 'model') mesh:
+
+  python -m torch.distributed.run --nproc-per-node 4 \\
+      -m asr_streaming_tpu_torch.train.run --manifest train.jsonl \\
+      --model-parallel 2
+
+  * the data axis is the JAX rule: the largest divisor of the batch size
+    that fits ``WORLD_SIZE // model_parallel``; ranks beyond the mesh log
+    it and exit 0;
+  * every rank builds the whole model from the seed (then ``--resume``),
+    keeps its shard (parallel/mesh.py::shard_params) and takes its rows
+    of each batch (``shard_batch``); parallel/collectives.py reduces;
+  * NCCL with ``cuda:LOCAL_RANK`` where every local rank has its own
+    card, else ``gloo`` (``--device cpu``, or several ranks sharing the
+    cards: NCCL refuses two ranks on one card);
+  * rank 0 logs and writes the checkpoint, gathered to whole leaves in
+    the JAX key layout.
+
+``--model-parallel`` above the number of processes raises, naming
+torchrun.
 
 Feature lengths: the batch's ``feat_lens`` count mel frames, and the
 encoder divides by its stride.  The JAX package's run.py divides by the
@@ -55,14 +74,68 @@ def parse_args(argv=None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
+def init_distributed(args, log):
+    """(rank, device): under torchrun the process group is initialised
+    and the rank's device chosen; without a launcher the rank is None."""
+    import os
+
+    import torch.distributed as dist
+
+    from asr_streaming_tpu_torch import resolve_device
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world < args.model_parallel:
+        raise ValueError(
+            f"--model-parallel {args.model_parallel} needs that many "
+            f"processes, and this world has {world}: launch it with "
+            "torchrun (python -m torch.distributed.run --nproc-per-node "
+            f"{args.model_parallel} -m asr_streaming_tpu_torch.train.run "
+            "...)")
+    device = resolve_device(args.device)
+    if "WORLD_SIZE" not in os.environ:
+        return None, device
+    rank = int(os.environ["RANK"])
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    backend = "gloo"
+    if device.type == "cuda":
+        cards = torch.cuda.device_count()
+        if cards >= local_world:
+            backend = "nccl"
+        device = torch.device("cuda", local % cards)
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend)
+    log.info("rank %d of %d on %s over %s", rank, world, device, backend)
+    return rank, device
+
+
 def main(argv=None):
     """Train; returns the TrainLog (the loss and wall seconds of each
     step)."""
     args = parse_args(argv)
 
-    from asr_streaming_tpu_torch import resolve_device
+    logging.basicConfig(level=logging.INFO)
+    log = logging.getLogger("train")
+    rank, device = init_distributed(args, log)
+    try:
+        return _train(args, log, rank, device)
+    finally:
+        if rank is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _train(args, log, rank, device):
+    import torch.distributed as dist
+
     from asr_streaming_tpu_torch.models.asr import ASRConfig, init_asr_params
     from asr_streaming_tpu_torch.ops.frontend import log_mel
+    from asr_streaming_tpu_torch.parallel.collectives import (
+        all_gather_model, make_groups,
+    )
+    from asr_streaming_tpu_torch.parallel.mesh import (
+        data_parallel_for_batch, make_mesh, shard_batch, shard_params,
+    )
     from asr_streaming_tpu_torch.text.corpus import load_corpus
     from asr_streaming_tpu_torch.text.vocab import placeholder_vocab
     from asr_streaming_tpu_torch.train.ctc import (
@@ -76,13 +149,18 @@ def main(argv=None):
         load_params, save_params,
     )
 
-    if args.model_parallel != 1:
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: tensor-parallel "
-            "training is not ported (ROADMAP.md, queue 1, item 7.5)")
-    device = resolve_device(args.device)
-    logging.basicConfig(level=logging.INFO)
-    log = logging.getLogger("train")
+    groups = None
+    if rank is not None:
+        world = dist.get_world_size()
+        mp = args.model_parallel
+        dp = data_parallel_for_batch(world, mp, args.batch_size)
+        mesh = make_mesh(devices=[device] * (dp * mp), model_parallel=mp)
+        groups = make_groups(mesh, rank)
+        if rank == 0:
+            log.info("mesh: %s of %d ranks", mesh.shape, world)
+        if groups is None:
+            return TrainLog([], [])
+    lead = rank in (None, 0)
 
     vocab, lexicon = load_corpus()
     if args.tiny or vocab is None:
@@ -97,30 +175,42 @@ def main(argv=None):
             cfg.encoder, vocab_size=len(vocab)))
 
     dataset = SpeechRecognitionDataset(args.manifest, vocab, lexicon)
-    log.info("dataset: %d examples, vocab %d, device %s", len(dataset),
-             len(vocab), device)
+    if lead:
+        log.info("dataset: %d examples, vocab %d, device %s", len(dataset),
+                 len(vocab), device)
 
     params = init_asr_params(torch.Generator().manual_seed(args.seed), cfg,
                              device)
     if args.resume:
         params = load_params(args.resume, like=params)
-        log.info("resumed from %s", args.resume)
+        if lead:
+            log.info("resumed from %s", args.resume)
     optimizer = make_optimizer(cfg, base_lr=args.base_lr,
-                               warmup_steps=args.warmup_steps)
-    train_step = make_train_step(cfg, optimizer)
+                               warmup_steps=args.warmup_steps, groups=groups)
+    train_step = make_train_step(cfg, optimizer, groups)   # checks the split
+    if groups is not None:
+        params = shard_params(params, groups.mesh, rank)
     mel = cfg.mel
 
     def featurize(b):
-        waves = torch.from_numpy(b.waves).to(device)
+        arrays = (b.waves, b.wave_lens, b.tokens, b.token_lens)
+        if groups is not None:
+            arrays = shard_batch(arrays, groups.mesh, rank)
+        waves, wave_lens, tokens, token_lens = (
+            torch.from_numpy(a).to(device) for a in arrays)
         with torch.no_grad():
             feats = log_mel(params["frontend"], mel, waves)
-        wave_lens = torch.from_numpy(b.wave_lens).to(device)
         feat_lens = torch.clamp(
             1 + torch.div(wave_lens - mel.n_fft, mel.hop_length,
                           rounding_mode="floor"), min=0)
-        return Batch(feats=feats, feat_lens=feat_lens,
-                     labels=torch.from_numpy(b.tokens).to(device),
-                     label_lens=torch.from_numpy(b.token_lens).to(device))
+        return Batch(feats=feats, feat_lens=feat_lens, labels=tokens,
+                     label_lens=token_lens)
+
+    def save():
+        whole = params if groups is None else {
+            **params, "encoder": all_gather_model(params["encoder"], groups)}
+        if lead:
+            save_params(args.save, whole)
 
     opt_state = optimizer.init(params["encoder"])
     losses, seconds = [], []
@@ -136,15 +226,20 @@ def main(argv=None):
             losses.append(float(loss))
             seconds.append(time.perf_counter() - t0)
             step += 1
-            if step % 10 == 0 or step == 1:
+            if lead and (step % 10 == 0 or step == 1):
                 log.info("step %d  loss %.4f  (%.3f s/step)", step,
                          losses[-1], seconds[-1])
             if step % args.save_every == 0 or step >= args.steps:
-                save_params(args.save, params)
-                log.info("saved %s @ step %d", args.save, step)
+                save()
+                if lead:
+                    log.info("saved %s @ step %d", args.save, step)
             if step >= args.steps:
                 break
-    log.info("done: %d steps, final loss %.4f", step, losses[-1])
+    peak = (torch.cuda.max_memory_allocated(device) / 2**20
+            if device.type == "cuda" else float("nan"))
+    log.info("done: rank %s, %d steps, final loss %.4f, median %.1f ms/step, "
+             "peak memory %.1f MiB", 0 if rank is None else rank, step,
+             losses[-1], 1e3 * sorted(seconds)[len(seconds) // 2], peak)
     return TrainLog(losses, seconds)
 
 

@@ -24,24 +24,16 @@ bit-identical fallback.
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
 import threading
 from typing import Optional
 
 import numpy as np
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(os.path.dirname(_PKG_DIR), "native", "audio",
-                      "mulaw.cc")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-# native/audio/Makefile's CXXFLAGS, plus -shared
-CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall",
-             "-shared")
+from asr_streaming_tpu_torch.utils import native_build
+
+SOURCE = os.path.join(native_build.NATIVE_DIR, "audio", "mulaw.cc")
+BUILD_DIR = native_build.BUILD_DIR
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
@@ -50,54 +42,15 @@ _load_lock = threading.Lock()
 _pool_lock = threading.Lock()
 
 
-def _compiler() -> Optional[str]:
-    return shutil.which("g++")
-
-
-def _cpu_flags() -> str:
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if line.startswith("flags"):
-                    return line.strip()
-    except OSError:
-        pass
-    return ""
-
-
 def library_path() -> str:
-    h = hashlib.sha256(" ".join((_compiler() or "",) + CXX_FLAGS).encode())
-    h.update(_cpu_flags().encode())
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libasrcodec_{h.hexdigest()[:16]}.so")
+    return native_build.library_path(SOURCE, "asrcodec")
 
 
 def build() -> Optional[str]:
     """Compile the codec (once; a later call finds the library).  Returns
     its path, or None when there is no C++ compiler.  Raises with the
     compiler's output when the compile fails."""
-    target = library_path()
-    if os.path.exists(target):
-        return target
-    cxx = _compiler()
-    if cxx is None:
-        return None
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, ".codec_lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)      # released when the file closes
-        if os.path.exists(target):            # another process built it
-            return target
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-            tmp_lib = os.path.join(tmp, "lib.so")
-            out = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp_lib, SOURCE],
-                                 stdout=subprocess.PIPE,
-                                 stderr=subprocess.STDOUT, text=True,
-                                 timeout=300)
-            if out.returncode != 0:
-                raise RuntimeError(f"{cxx} failed on {SOURCE}:\n{out.stdout}")
-            os.replace(tmp_lib, target)
-    return target
+    return native_build.build(SOURCE, "asrcodec")
 
 
 def _load() -> Optional[ctypes.CDLL]:

@@ -72,6 +72,8 @@ Phases (any failure exits non-zero; nothing is caught):
      process) and a reference ``.ckpt`` checkpoint (converted at load in
      the worker child, its CTC bias raised so finals get word windows
      from a one-word lexicon): every final carries a boolean is_speaker;
+     the VI CLI's run also streams once through the port's own client
+     (client/asr_client.py::stream_audio);
   8. the port's bench (``--only bench``: this phase alone; it runs
      first, right after the build): bench.py's three phases at full
      width on the stack route with Silero on, the trained VAD fixture and
@@ -122,7 +124,20 @@ Phases (any failure exits non-zero; nothing is caught):
      through the tool's functions (kernel A), then the tool's CLI at full
      width (ASRConfig.vietnamese, seeded weights) exits 0 and launches A;
      (d) ``train.gan`` at full width (GANTrainConfig(), batch 4 from (c)'s
-     manifest, 3 steps), its ``.npz`` into TTSModel.
+     manifest, 3 steps), its ``.npz`` into TTSModel;
+ 14. data- and tensor-parallel CTC training (``--only dist``): (a) four
+     ranks spawned from here (train/dist_check.py) run dp = 2, tp = 2 and
+     dp = 2 x tp = 2 steps at the JAX sharded-step test's geometry, each
+     against the single-process step on the card (loss 1e-5 relative,
+     gathered gradients 1e-4 relative L2, updated weights 1e-5), over
+     NCCL where there are four cards, else gloo with every rank on
+     cuda:0; (b) ``python -m torch.distributed.run ... train.run`` at
+     full width (ASRConfig.vietnamese(), f32, batch 8 of 4 s, 3 steps) at
+     tp = 2 (2 ranks), dp = 2 (2 ranks) and dp = 2 x tp = 2 (4 ranks), ms
+     per step and peak memory per rank; (c) the tp = 2 run's gathered
+     checkpoint through the server's loader into a 512-slot VI tick on
+     the stack route (A and B launched); (d) gather_params(shard_params(x))
+     == x bit for bit at full width, mp = 2 and 4.
 Every path is driven with the kernels' launch counts set to 0 just
 before it and read just after, the worker child's counts included; a
 kernel that no path launched fails the run.  The last line is the result
@@ -796,6 +811,31 @@ def int_mm_step(params, cfg, B, gen, device):
     return ms
 
 
+def matmul_step(params, cfg, B, gen, device):
+    """Device ms of the bf16 step's products on torch.matmul: one call
+    that issues the five products of each layer (the layer's bf16
+    weights, bf16 activations of the step's row counts), 5 x L launches,
+    no bias or activation: the yardstick of A's GEMMs."""
+    import torch
+    from asr_streaming_tpu_torch.ops import emformer_stack as es
+    shapes = gemm_shapes(B, cfg.segment_length, cfg.right_context_length,
+                         cfg.max_memory_size, cfg.d_model, cfg.ffn_dim, None)
+    a16 = [torch.randn((M, K), generator=gen).to(device, torch.bfloat16)
+           for _, M, K, _, _ in shapes]
+    w16 = [[params[n][l].to(torch.bfloat16) for n in es._MAT]
+           for l in range(cfg.num_layers)]
+
+    def step():
+        for w in w16:
+            for a, b in zip(a16, w):
+                torch.matmul(a, b)
+
+    ms, rows = device_times(step, 3)
+    log(f"[kernels] A's {len(shapes) * cfg.num_layers} bf16 products on "
+        f"torch.matmul: {ms:.3f} ms in {sum(r[1] for r in rows)} launches")
+    return ms
+
+
 def check_int8(label, M, K, N, act, x_f32, gen, device):
     """A-int8's product (the row quantiser and the int8 wgmma GEMM of
     csrc/emformer_stack.cu) at one shape, bf16 out: equal bit for bit to
@@ -995,6 +1035,9 @@ def phase_kernels(gen, device):
     parts = stack_parts(kernel_a, "A, one VI step", attention_bytes(
         B, L, D, vi.segment_length, vi.right_context_length,
         vi.max_memory_size, vi.left_context_length))
+    # the yardstick of the bf16 GEMMs: the step's 100 products on
+    # torch.matmul, timed together (no single call computes the step)
+    parts["gemm"]["library_ms"] = matmul_step(params, vi, B, gen, device)
     flops = stack_flops(B, L, D, Fd, vi.segment_length,
                         vi.right_context_length, vi.max_memory_size,
                         vi.left_context_length)
@@ -2281,15 +2324,41 @@ def _pct(xs, q):
     return float(np.percentile(np.asarray(xs), q)) * 1e3
 
 
+def _port_client(port, label):
+    """The port's own client (client/asr_client.py::stream_audio) on a
+    running server: one connection of 4 s at full speed under a request
+    id, which must complete with partials, every final under that id."""
+    import asyncio
+    from asr_streaming_tpu_torch.client.asr_client import (
+        DEFAULT_PATH, stream_audio,
+    )
+    pcm = _pcm16(_speechlike(4.0, seed=99)).tobytes()
+    result = asyncio.run(stream_audio(
+        f"ws://127.0.0.1:{port}" + DEFAULT_PATH, pcm, realtime=False,
+        request_id="chip-smoke-client", recv_timeout=120.0))
+    ids = {m["id"] for m in result.finals}
+    if not (result.completed and result.partials
+            and ids <= {"chip-smoke-client"}):
+        fail(f"{label}: the port's client: completed {result.completed}, "
+             f"{len(result.partials)} partials, ids {ids}")
+    return {"port_client_partials": len(result.partials),
+            "port_client_finals": len(result.finals),
+            "port_client_first_partial_ms":
+                result.first_partial_latency * 1e3,
+            "port_client_total_s": result.total_seconds}
+
+
 def server_entry_point(config, n_conn, card, label, seconds=6.0,
-                       inspect=None):
+                       inspect=None, port_client=False):
     """(b) ``python -m asr_streaming_tpu_torch.server --config <config>``
     at full width (512 slots, device worker, groups 2, the bf16 stack
     route, mu-law upload) as a subprocess; ``n_conn`` connections stream
     ``seconds`` of audio each at real-time pace.  ``inspect(results,
     lines)``, when given, runs once the clients are done, while the server
-    is up; the dict it returns joins the numbers.  Returns the server's
-    kernel launch counts (from its shutdown log line) and the numbers."""
+    is up; the dict it returns joins the numbers.  With ``port_client``
+    the port's own client then streams once (``_port_client``).  Returns
+    the server's kernel launch counts (from its shutdown log line) and the
+    numbers."""
     import signal
     import tempfile
     import threading
@@ -2331,6 +2400,8 @@ def server_entry_point(config, n_conn, card, label, seconds=6.0,
                     for i in range(n_conn)]
             results = _serve_clients(port, pcms, paced=True)
             inspected = inspect(results, lines) if inspect else {}
+            if port_client:
+                inspected.update(_port_client(port, label))
             with urllib.request.urlopen(base, timeout=30) as r:
                 after = json.loads(r.read())
             children = _children(proc.pid)
@@ -2589,7 +2660,7 @@ def phase_server(device, card, vi_want, en_want, counted):
     torch.cuda.empty_cache()
     vi_launches, vi_numbers = server_entry_point(
         os.path.join(HERE, "configs", "server-vi.yaml"), 16, card,
-        "server-vi.yaml")
+        "server-vi.yaml", port_client=True)
     _need_launched("server-vi.yaml (b)", vi_launches,
                    ("emformer_stack", "emission_append"))
     add(vi_launches)
@@ -4105,19 +4176,213 @@ def phase_tts(seed, device, card):
     return launches
 
 
+# --------------------------------- data- and tensor-parallel training (14)
+
+def _dict_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in _dict_leaves(v, f"{path}/{k}")]
+    return [(path, tree)]
+
+
+def dist_parity(device, card):
+    """(a) dp = 2, tp = 2 and dp = 2 x tp = 2 CTC steps at the geometry of
+    the JAX package's sharded-step test (train/dist_check.py), four ranks
+    spawned from here: NCCL over distinct cards where there are four, else
+    gloo with every rank on cuda:0; each layout against the single-process
+    step on the same card (loss 1e-5 relative, gathered gradient leaves
+    1e-4 relative L2, updated weights 1e-5 max abs)."""
+    import torch
+    from asr_streaming_tpu_torch.models.asr import init_asr_params
+    from asr_streaming_tpu_torch.train import ctc, dist_check
+    cfg = ctc.training_config(dist_check.tiny_config())
+    enc = init_asr_params(torch.Generator().manual_seed(0), cfg,
+                          "cpu")["encoder"]
+    arrays = dist_check.tiny_batch()
+    want = dist_check.reference(enc, cfg, arrays, device)
+    t0 = time.perf_counter()
+    got = dist_check.run_layouts(enc, cfg, arrays, device)
+    seconds = time.perf_counter() - t0
+    if got["foreign_modules"]:
+        fail(f"(a) a spawned rank imported {got['foreign_modules']}")
+    bounds = dist_check.bounds(cfg)
+    errors = {}
+    for dp, mp in dist_check.LAYOUTS:
+        err = dist_check.compare(got[(dp, mp)], want)
+        errors[f"{dp}x{mp}"] = err
+        bad = {k: v for k, v in err.items() if not v <= bounds[k]}
+        if bad:
+            fail(f"(a) {dp}x{mp} over {got['backend']}: {bad} past {bounds}")
+    where = ("NCCL, one card a rank" if got["backend"] == "nccl" else
+             f"gloo, all four ranks on {device}")
+    log(f"[dist] (a) {card} | 4 ranks over {where} ({seconds:.1f} s with "
+        f"the spawn): each layout equals the single-process step on the "
+        f"card: {json.dumps(errors)} (bounds {json.dumps(bounds)})")
+    return {"backend": got["backend"], "errors": errors}
+
+
+def _torchrun(label, nproc, mp, manifest, ckpt, seed, card, device,
+              extra=()):
+    """``python -m torch.distributed.run`` of the CTC CLI at full width
+    (ASRConfig.vietnamese(), f32, batch 8 in the 4 s bucket, 3 steps);
+    ms per step and peak memory per rank from the ranks' last lines."""
+    import re
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+           str(nproc), "--master-port", str(_free_port()),
+           "-m", "asr_streaming_tpu_torch.train.run", "--manifest", manifest,
+           "--steps", "3", "--batch-size", "8", "--buckets-seconds", "4",
+           "--save", ckpt, "--seed", str(seed), "--device", device.type,
+           "--model-parallel", str(mp), *extra]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=900)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"(b) {label}: exit {out.returncode}\n{out.stderr[-4000:]}")
+    done = re.findall(r"done: rank (\d+), 3 steps, final loss ([\d.]+), "
+                      r"median ([\d.]+) ms/step, peak memory ([\d.]+|nan) MiB",
+                      out.stderr)
+    backend = sorted(set(re.findall(r" on \S+ over (\w+)", out.stderr)))
+    mesh = re.findall(r"mesh: (\{[^}]*\}) of", out.stderr)
+    if len(done) != nproc or not mesh or len(backend) != 1:
+        fail(f"(b) {label}: {done} {mesh} {backend}\n{out.stderr[-3000:]}")
+    ranks = {int(r): {"final_loss": float(loss), "ms_per_step": float(ms),
+                      "peak_mib": float(peak)} for r, loss, ms, peak in done}
+    log(f"[dist] (b) {label} | {card} | {nproc} ranks, mesh {mesh[0]}, "
+        f"{backend[0]}, {wall:.1f} s with the launch: "
+        + "; ".join(f"rank {r}: {v['ms_per_step']:.1f} ms/step (median of "
+                    f"3), peak {v['peak_mib']:.0f} MiB, final loss "
+                    f"{v['final_loss']:.4f}" for r, v in sorted(ranks.items())))
+    return {"backend": backend[0], "mesh": mesh[0], "wall_s": wall,
+            "ranks": ranks}
+
+
+def dist_cli(tmp, seed, card, device, extra=()):
+    """(b) the CLI under torchrun at full width: tensor-parallel (2 ranks,
+    --model-parallel 2), data-parallel (2 ranks, --model-parallel 1) and
+    both (4 ranks, --model-parallel 2).  ``extra`` joins the CLI's
+    arguments (``--tiny`` rehearses it on the CPU).  Returns the numbers
+    and the checkpoints' paths."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    entries = [(_speechlike(3.0 + 0.1 * i, seed=10 + i),
+                {"text": " ".join(f"t{k}" for k in rng.integers(0, 22, 12))})
+               for i in range(8)]
+    manifest = _manifest(tmp, "dist", entries)
+    out, ckpts = {}, {}
+    for label, nproc, mp in (("tp=2", 2, 2), ("dp=2", 2, 1),
+                             ("dp=2 x tp=2", 4, 2)):
+        ckpts[label] = os.path.join(tmp, f"ctc_{nproc}_{mp}.npz")
+        out[label] = _torchrun(label, nproc, mp, manifest, ckpts[label],
+                               seed, card, device, extra)
+    return out, ckpts
+
+
+def dist_serve(ckpts, seed, device, card):
+    """(c) train == serve across the layout: the tensor-parallel run's
+    gathered checkpoint through the server's loader into server-vi.yaml's
+    tick (bf16, kernel A's stack route) at 512 slots; A and B must launch.
+    Beside it, the largest difference between the checkpoints of the
+    three layouts (the key half of b_kv apart: its gradient is rounding
+    noise that Adam scales to the learning rate)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from asr_streaming_tpu_torch.models.serving import init_serving_params
+    from asr_streaming_tpu_torch.ops import _cuda
+    from asr_streaming_tpu_torch.text.vocab import placeholder_vocab
+    from asr_streaming_tpu_torch.utils.checkpoint import (
+        load_params, load_params_auto,
+    )
+    vocab = placeholder_vocab(24)
+    scfg = vi_serving_cfg()
+    scfg = dataclasses.replace(scfg, asr=dataclasses.replace(
+        scfg.asr, encoder=dataclasses.replace(scfg.asr.encoder,
+                                              vocab_size=len(vocab))))
+    sparams = load_params_auto(ckpts["tp=2"],
+                               init_serving_params(seed, scfg, device))
+    gen = torch.Generator().manual_seed(seed)
+    before = _cuda.launch_counts()
+    times = run_ticks(sparams, scfg, B_SLOTS, 2, gen, device)[0]
+    after = _cuda.launch_counts()
+    _need_launched("(c) the tp checkpoint's tick",
+                   {k: after[k] - before.get(k, 0) for k in after},
+                   ("emformer_stack", "emission_append"))
+    trees = {k: dict(_dict_leaves(load_params(v))) for k, v in ckpts.items()}
+    diffs = {}
+    for other in ("dp=2", "dp=2 x tp=2"):
+        worst = 0.0
+        for path, a in trees["tp=2"].items():
+            b = trees[other][path]
+            if a.shape != b.shape:
+                fail(f"(c) {path}: {a.shape} against {b.shape} ({other})")
+            d = np.abs(np.asarray(a, np.float64) - b)
+            if path.endswith("b_kv"):
+                d = np.split(d, 2, -1)[1]
+            worst = max(worst, float(d.max()))
+        diffs[other] = worst
+    log(f"[dist] (c) {card} | the tp=2 checkpoint "
+        f"({os.path.getsize(ckpts['tp=2']) / 2 ** 20:.1f} MiB, whole leaves "
+        f"in the JAX key layout) served by server-vi.yaml's tick at "
+        f"{B_SLOTS} slots: {times[-1] * 1e3:.2f} ms a tick; largest weight "
+        f"difference after 3 steps against the other layouts' checkpoints "
+        f"(b_kv's key half apart): {json.dumps(diffs)}")
+    return {"tick_ms": times[-1] * 1e3, "max_diff": diffs}
+
+
+def dist_round_trip(device, card):
+    """(d) gather_params(shard_params(x)) == x bit for bit at full width
+    (ASRConfig.vietnamese()), mp = 2 and 4, on the card."""
+    import torch
+    from asr_streaming_tpu_torch.models.asr import ASRConfig, init_asr_params
+    from asr_streaming_tpu_torch.parallel.mesh import (
+        gather_params, make_mesh, shard_params,
+    )
+    whole = init_asr_params(torch.Generator().manual_seed(0),
+                            ASRConfig.vietnamese(), device)
+    leaves = dict(_dict_leaves(whole))
+    n = sum(t.numel() for t in leaves.values())
+    for mp in (2, 4):
+        mesh = make_mesh(devices=[device] * mp, model_parallel=mp)
+        back = dict(_dict_leaves(gather_params(
+            [shard_params(whole, mesh, r) for r in range(mp)], mesh)))
+        for path, a in leaves.items():
+            b = back[path]
+            if a.shape != b.shape or not torch.equal(a, b):
+                fail(f"(d) mp={mp}: {path} differs after the round trip")
+    log(f"[dist] (d) {card} | gather_params(shard_params(x)) == x bit for "
+        f"bit at ASRConfig.vietnamese() ({n} parameters), mp = 2 and 4")
+
+
+def phase_dist(seed, device, card):
+    """Data- and tensor-parallel CTC training: (a) parity on the card, (b)
+    the CLI under torchrun at full width, (c) its checkpoint served at 512
+    slots (kernels A and B), (d) the shard/gather round trip at full
+    width.  Returns its numbers."""
+    import tempfile
+    out = {"parity": dist_parity(device, card)}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["cli"], ckpts = dist_cli(tmp, seed, card, device)
+        out["serve"] = dist_serve(ckpts, seed, device, card)
+    dist_round_trip(device, card)
+    log(f"[dist] {json.dumps(out)}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", choices=("vi", "en", "gemm", "int8", "server",
                                        "bench", "mesh", "offline", "train",
-                                       "tts"),
+                                       "tts", "dist"),
                     default=None,
                     help="run one language's phases, the bf16 or the int8 "
                          "GEMM phase, the server phase (with the golden "
                          "phases it compares with and ECAPA's), the bench "
                          "phase, the multi-GPU serving phase (with the VI "
                          "golden phase), the offline API's phase, the "
-                         "training phase or the SSL/TTS phase alone (a "
+                         "training phase, the SSL/TTS phase or the data- "
+                         "and tensor-parallel training phase alone (a "
                          "partial run: the result line says so and the exit "
                          "code is 4)")
     args = ap.parse_args()
@@ -4137,6 +4402,7 @@ def main() -> None:
     server = args.only in (None, "server")
     mesh, offline = args.only in (None, "mesh"), args.only in (None, "offline")
     train, tts = args.only in (None, "train"), args.only in (None, "tts")
+    dist = args.only in (None, "dist")
     if args.only in ("gemm", "int8"):
         (phase_gemm if args.only == "gemm" else phase_int8)(gen, device)
         sys.exit(4)
@@ -4221,6 +4487,9 @@ def main() -> None:
         torch.cuda.empty_cache()
         # the manifest CLI's process reports its own counts
         add(path(phase_tts, args.seed, device, card))
+    if dist:
+        torch.cuda.empty_cache()
+        path(phase_dist, args.seed, device, card)
     for k in kernels:
         k["launches"] = totals[k["name"]]
         if k["launches"] == 0 and args.only is None:

@@ -19,6 +19,10 @@ import torch
 from asr_streaming_tpu_torch.bench import model_paced_trace, run_bench
 from asr_streaming_tpu_torch.models.asr import ASRConfig
 from bench import model_paced_trace as j_model_paced_trace
+# torch on one thread: in the six-worker tier-1 run, the bench phases'
+# eight-thread ticks on an oversubscribed host ran 50x slower than alone
+# and the paced window could end with no event
+from tests.torch_train_common import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -36,7 +36,10 @@ for new in ("models.rnnt", "models.rnnt_beam", "ops.topk", "ops.row_topk",
             "train.vad", "train.speaker", "models.blocks", "models.offline",
             "models.tts", "models.discriminators", "ops.istft", "train.ssl",
             "train.gan", "tools.make_tts_manifest", "text.ngram_lm",
-            "text.oov"):
+            "text.oov", "parallel.collectives", "train.dist_check",
+            "client.asr_client", "client.dual_client", "client.load_test",
+            "models.frame_vad", "server.web_gateway", "server.grpc_master",
+            "utils.native_build"):
     assert "asr_streaming_tpu_torch." + new in names, new
 """
 

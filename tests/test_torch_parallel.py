@@ -44,7 +44,7 @@ from asr_streaming_tpu_torch.utils.checkpoint import (
 )
 from tests.test_torch_asr import FIXTURE, golden_and_params, sentence_audio
 from tests.test_torch_scheduler import TONE_VOCAB, TRAINED_RULE
-from tests.test_torch_server_jax import _synchronous
+from tests.torch_train_common import synchronous
 
 # 16 slots: every shard of the n = 8 split holds 2 rows.  A 1-row shard
 # takes the CPU's matrix-vector path, which sums in another order than
@@ -245,7 +245,7 @@ def test_scheduler_with_mesh_same_events_as_without_and_as_jax(monkeypatch):
     trained = load_params(FIXTURE)
     jparams["frontend"] = trained["frontend"]
     jparams["encoder"] = trained["encoder"]
-    jsched = _synchronous(JScheduler(
+    jsched = synchronous(JScheduler(
         jparams, jcfg, TONE_VOCAB, max_slots=8, mesh=jps.make_serving_mesh(8),
         donate_state=False, rules={"r": JEndpointRule(**TRAINED_RULE)}))
     want = _events(jsched, audio)
@@ -308,8 +308,11 @@ def test_make_mesh_and_serving_mesh_shapes():
     assert mesh.shape == {"data": 4, "model": 1}
     assert make_mesh(2, devices=["cpu"] * 4).shape["data"] == 2
     assert tps.data_parallel_size(mesh) == 4
-    with pytest.raises(NotImplementedError, match="item 7.5"):
-        make_mesh(devices=[cpu] * 4, model_parallel=2)
+    # the training layout: rank i in data row i // 2, model column i % 2
+    tp = make_mesh(devices=[cpu] * 4, model_parallel=2)
+    assert tp.shape == {"data": 2, "model": 2}
+    assert [tp.coords(r) for r in range(4)] == [(0, 0), (0, 1), (1, 0),
+                                                (1, 1)]
     assert tps.make_serving_mesh(0, device="cpu").shape["data"] == 8
     with pytest.raises(ValueError, match="chips requested"):
         tps.make_serving_mesh(999, device="cpu")

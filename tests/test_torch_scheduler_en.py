@@ -6,8 +6,9 @@ Everything here serves the committed trained fixture
 (assets/test_fixtures/overfit_rnnt.npz, with overfit_rnnt_vad.npz gating
 the beam mode as the fixture's own acceptance does): its argmaxes and beam
 orders are confident, so event streams are stable under load.  The JAX
-scheduler runs with its synchronous harvest (ASR_NO_ASYNC_HARVEST=1), the
-oracle for event order.  Event texts are compared exactly.
+scheduler runs with its synchronous harvest (ASR_NO_ASYNC_HARVEST=1) and
+waits for each step (``torch_train_common.synchronous``): the oracle for
+event order.  Event texts are compared exactly.
 """
 
 import dataclasses
@@ -43,6 +44,7 @@ from asr_streaming_tpu_torch.utils.checkpoint import (
 )
 from tests.fixture_assets import asset_path
 from tests.test_overfit_rnnt_e2e import PIECES, _sentence_audio
+from tests.torch_train_common import synchronous
 
 FIXTURE = asset_path("overfit_rnnt")
 VAD_FIXTURE = asset_path("overfit_rnnt_vad")
@@ -129,9 +131,9 @@ def test_events_match_the_jax_scheduler_sync_harvest(mode, monkeypatch):
         jparams["vad"] = load_params(VAD_FIXTURE)
 
     def jax_events():
-        jsched = JScheduler(jparams, jcfg, PIECES, max_slots=2,
-                            language="en",
-                            rules={"r": JEndpointRule(**RULE)}, **kw)
+        jsched = synchronous(JScheduler(
+            jparams, jcfg, PIECES, max_slots=2, language="en",
+            rules={"r": JEndpointRule(**RULE)}, **kw))
         assert jsched._async_harvest is False
         try:
             return _events(jsched, _audio(golden))

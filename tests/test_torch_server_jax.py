@@ -17,7 +17,8 @@ Cases: the Vietnamese CTC fixture's three streams at 16 kHz, one stream at
 8 kHz (resampled by each server), and the English RNNT fixture in
 ``server-en.yaml``'s beam-partials mode behind its trained VAD.  The JAX
 scheduler runs with its synchronous harvest and waits for each step
-(``_synchronous``), which makes it a steady oracle on a loaded machine.
+(``tests/torch_train_common.py::synchronous``), which makes it a steady
+oracle on a loaded machine.
 """
 
 import dataclasses
@@ -57,6 +58,7 @@ from tests.test_torch_server import (
     CTC_VOCAB, EN_HZ, EN_PIECES, GATES_OFF, SR, Running, _as_served,
     _ctc_streams, _pcm, _tones,
 )
+from tests.torch_train_common import synchronous
 
 RULE = dict(must_contain_nonsilence=True, min_trailing_silence=0.8,
             min_utterance_length=0.0, max_relative_cost=float("inf"))
@@ -73,21 +75,6 @@ ngram 1=5
 
 \\end\\
 """
-
-
-def _synchronous(jsched):
-    """The JAX scheduler with each step finished before its tick goes on.
-
-    On the CPU, ``jnp.asarray`` of a host array may alias its memory
-    instead of copying it, and the JAX scheduler clears its host reset
-    flags right after dispatching a step that reads them; when the step
-    runs late (a loaded machine) it sees them cleared and a new stream
-    keeps the state of its slot's previous one (ROADMAP fault 13).
-    Waiting for each step is the reference's intended result, so the
-    oracle is made steady this way, on this instance only."""
-    run_step = jsched._run_step
-    jsched._run_step = lambda *a: jax.block_until_ready(run_step(*a))
-    return jsched
 
 
 def _finals(messages):
@@ -114,7 +101,7 @@ def vi(tmp_path_factory):
     trained = load_params(asset_path("overfit_ctc"))
     jparams["frontend"] = trained["frontend"]
     jparams["encoder"] = trained["encoder"]
-    jsched = _synchronous(JScheduler(
+    jsched = synchronous(JScheduler(
         jparams, jcfg, CTC_VOCAB, max_slots=3,
         rules={"trained": JEndpointRule(**RULE)}))
     assert jsched._async_harvest is False
@@ -181,7 +168,7 @@ def test_en_beam_partials_messages_equal_the_jax_server(monkeypatch):
     jparams.update(load_params(path))
     jparams["vad"] = load_params(asset_path("overfit_rnnt_vad"))
     jax_server = Running(JStreamingServer(
-        _synchronous(JScheduler(jparams, jcfg, EN_PIECES,
+        synchronous(JScheduler(jparams, jcfg, EN_PIECES,
                                 rules={"r": JEndpointRule(**RULE)},
                                 **sched_kw)),
         tick_idle_sleep=0.002))

@@ -166,6 +166,9 @@ def test_cli_trains_resumes_and_saves_the_jax_layout(manifest, tmp_path):
                pairs(resumed["encoder"], tloaded["encoder"]))
 
 
-def test_cli_refuses_model_parallel(manifest, tmp_path):
-    with pytest.raises(NotImplementedError, match="7.5"):
+def test_cli_refuses_model_parallel(manifest, tmp_path, monkeypatch):
+    """--model-parallel 2 in a world of one process raises, naming
+    torchrun (tests/test_torch_train_dist.py runs it under torchrun)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="torchrun"):
         _cli(manifest, tmp_path / "x.npz", 1, "--model-parallel", "2")

@@ -1,7 +1,9 @@
-"""Helpers shared by the port's training parity tests
-(tests/test_torch_train_*.py, tests/test_torch_offline_models.py): JAX
-trees carried into torch, JAX-shaped trees of seeded numpy values, tree
-comparisons by relative L2, synthetic wav manifests."""
+"""Helpers shared by the port's parity tests
+(tests/test_torch_train_*.py, tests/test_torch_offline_models.py, and the
+scheduler and server tests that run the JAX scheduler as their oracle):
+JAX trees carried into torch, JAX-shaped trees of seeded numpy values,
+tree comparisons by relative L2, synthetic wav manifests, and the JAX
+scheduler made to wait for each of its steps."""
 
 import contextlib
 import json
@@ -28,6 +30,23 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
+
+
+def synchronous(jsched):
+    """The JAX scheduler with each step finished before its tick goes on.
+
+    On the CPU, ``jnp.asarray`` of a host array may alias its memory
+    instead of copying it (it does when the buffer is 64-byte aligned),
+    and the JAX scheduler clears its host reset flags right after
+    dispatching a step that reads them; when the step runs late (a loaded
+    machine) it sees them cleared and a new stream keeps the state of its
+    slot's previous one (ROADMAP fault 13), or, in the English beam mode,
+    every beam stays dead and no event comes.  Waiting for each step is
+    the reference's intended result, so the oracle is made steady this
+    way, on this instance only."""
+    run_step = jsched._run_step
+    jsched._run_step = lambda *a: jax.block_until_ready(run_step(*a))
+    return jsched
 
 
 def to_torch(jtree, device="cpu"):
