@@ -36,7 +36,11 @@
 // the W8A8 products run a row-quantiser kernel and the same GEMM on int8
 // (gemm_int8_wgmma_kernel: the ring, producer and tiles of the bf16 one,
 // wgmma m64n{128,256}k32 s8 with exact s32 sums, the dequant epilogue of
-// _qdot; at 1,979 TOP/s the int8 peak is twice the bf16 one).  The
+// _qdot; at 1,979 TOP/s the int8 peak is twice the bf16 one).  In f32
+// (the offline API: 1-3 slots, 20-72 rows a product) the work is bound by
+// the weights' bytes, and a product of up to 128 rows runs on a split-K
+// kernel that streams them over the whole card (gemm_f32_splitk_kernel,
+// note below); more rows take the tiled f32 kernel.  The
 // Pallas kernel's VMEM-resident megakernel does not translate (a block has
 // 227 KB of shared memory, the TPU tile had ~100 MB of VMEM), so one layer
 // is a short chain of simple kernels: ln_in -> gemm(q) -> gemm(kv) ->
@@ -618,8 +622,10 @@ gemm_int8_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
 
 }  // namespace gemm90
 
-// f32 compute type: plain SIMT FMA GEMM (no tensor-core path keeps full
-// f32; used by the float32 configurations, not by the bf16 serving path)
+// f32 compute type, the tiled regime (more than f32small::kMaxRows rows,
+// or N or K no multiple of 4: the 512-slot f32 step): a plain SIMT FMA
+// GEMM, one 256-thread block per 64x64 output tile, each K-serial (no
+// tensor-core path keeps full f32; not on the bf16 serving path)
 __global__ void __launch_bounds__(256)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
                 const float* __restrict__ bias, float* __restrict__ C,
@@ -669,6 +675,182 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
       if (m < M && n < N) C[(size_t)m * N + n] = epilogue<float>(acc[i][j], bias, n, act);
     }
 }
+
+// ------------------------------------------- f32 product, small M: split-K
+// Replaces the f32 mode of asr_streaming_tpu/ops/pallas_emformer.py:642
+// (fused_emformer_stack with compute_dtype float32; each product is
+// jnp.dot(x, w, preferred_element_type=f32) + bias, then the activation,
+// pallas_emformer.py:121-126) where a product has few rows: the offline
+// API's batch of 1-3 slots, 20-72 rows against [512, 512], [512, 1024],
+// [512, 2048] and [2048, 512] weights.
+//
+// What bounds it: the weights.  One B=1 step reads 20 x (4 x 512^2 + 2 x
+// 512 x 2048) x 4 B = 251.7 MB of them (0.075 ms at 3.35 TB/s) for 2.6
+// GFLOP (0.039 ms at 67 TFLOP/s of f32 FMA), so it is bound by bytes, by
+// about 2x, and only when every SM streams weights at once.  The tiled
+// kernel above ran one block per 64x64 tile, 8-32 blocks on 132 SMs, each
+// walking all of K serially.
+//
+// What the design does about it: the product is cut into N tiles of 32
+// columns times K splits of k_slice rows (gemm_f32_config in
+// ops/emformer_stack.py picks the slice from N and K alone, for about
+// 2 x 132 blocks: 256 at every offline product).  A block's 8 warps each
+// take a kw = k_slice / 8 row part of the slice, and a lane one column:
+// it loads its kw weights straight into registers (each warp load 128
+// contiguous bytes of a W row), all at once, then the block's [M,
+// k_slice] slice of the rows streams into shared memory as cp.async
+// 16-byte copies.  Each weight is used from its register for every row,
+// against the row's values read as broadcast float4s (one shared-memory
+// read per 4 FMAs; four rows at a time, four independent FMA chains),
+// each row's sum taken over the warp's kw rows of K in ascending k, one
+// fmaf at a time; the warps' sums are added in warp order through shared
+// memory.  The split-K reduction is deterministic and has no float
+// atomics: every block writes its [M, 32] partial to the f32 workspace
+// and counts itself in at its tile with an integer atomicAdd; the last
+// to arrive sums the partials in split order
+// 0, 1, ..., S-1 (at most 16, loaded together), applies the bias and the
+// activation once, writes C and resets the tile's counter to 0 for the
+// next launch.  The split and every summation order depend on (N, K)
+// only, never on M, so a row's bits do not depend on how many rows share
+// the launch (a B=1 step and a B=3 step give equal bits for equal slots).
+// A block's weights are at most 16 KB and all in flight at once, so
+// they skip shared memory: a ring of cp.async stages there (each warp 4
+// rows of every stage, the rows' sums kept in shared memory between
+// stages) made a B=1 step's 100 products about 5% slower
+// (tools/gemm_f32_ring.py).  Measured on an H100 80GB HBM3 at 700 W
+// (PERF.md): 6.5-8.8 us a product at B=1, about 1.1-1.2x torch.matmul's
+// two-kernel f32 split-K; most of it is latency (the launch, one load
+// round trip, the partials' fence, counter and reads), not bytes.
+namespace f32small {
+
+constexpr int kThreads = 256, kWarps = kThreads / 32, kTileN = 32;
+constexpr int kMaxKW = 16;                      // k-rows of W a lane holds
+constexpr int kMaxRows = 128;                   // rows of the small regime
+constexpr int kMaxSplits = 16;                  // partials loaded at once
+
+// the shared memory of a block: its rows' slice, then the warps' sums
+__host__ __device__ constexpr size_t smem_floats(int rows, int k_slice) {
+  return (size_t)rows * k_slice + (size_t)kWarps * rows * kTileN;
+}
+
+// 16 bytes global -> shared, zero-filled where !valid (nothing is read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   gemm90::smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// the last block of a tile: output float4 e of the tile ([M, 8])
+// summed over the splits' partials in split order, then the epilogue
+__device__ __forceinline__ void reduce_splits(const float* ws, const float* bias, float* C,
+                                              int e, int n0, int M, int N, int splits,
+                                              int act) {
+  const int m = e / (kTileN / 4), n = n0 + 4 * (e % (kTileN / 4));
+  if (n >= N) return;
+  float4 p[kMaxSplits];
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s)
+    if (s < splits)
+      p[s] = __ldcg(reinterpret_cast<const float4*>(ws + ((size_t)s * M + m) * N + n));
+  float4 v = p[0];
+#pragma unroll
+  for (int s = 1; s < kMaxSplits; ++s)
+    if (s < splits) {
+      v.x += p[s].x; v.y += p[s].y; v.z += p[s].z; v.w += p[s].w;
+    }
+  *reinterpret_cast<float4*>(C + (size_t)m * N + n) =
+      make_float4(epilogue<float>(v.x, bias, n, act), epilogue<float>(v.y, bias, n + 1, act),
+                  epilogue<float>(v.z, bias, n + 2, act), epilogue<float>(v.w, bias, n + 3, act));
+}
+
+// C [M, N] = act(A [M, K] . W [K, N] + bias); grid (N tiles of kTileN
+// columns, K splits, at most kMaxSplits).  Needs M <= kMaxRows, N and K
+// multiples of 4, k_slice a multiple of 4 kWarps up to kWarps kMaxKW
+// (ops/emformer_stack.py checks them: gemm_f32_config); ws holds
+// [splits, M, N] f32 and tiles one int per N tile, all 0 (only read when
+// there are 2 splits or more).
+__global__ void __launch_bounds__(kThreads)
+gemm_f32_splitk_kernel(const float* __restrict__ A, const float* __restrict__ W,
+                       const float* __restrict__ bias, float* __restrict__ C,
+                       float* __restrict__ ws, int* __restrict__ tiles, int M, int N,
+                       int K, int k_slice, int act) {
+  extern __shared__ __align__(16) float smem[];
+  float* a_s = smem;                            // [M][k_slice]
+  float* sums = smem + M * k_slice;             // [kWarps][M][kTileN]
+  __shared__ int last;
+  const int tile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
+  const int n0 = tile * kTileN, k0 = split * k_slice;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kw = k_slice / kWarps, kb = warp * kw, n = n0 + lane;
+
+  // this lane's weights into registers (zero past K and N) ...
+  float w[kMaxKW];
+#pragma unroll
+  for (int j = 0; j < kMaxKW; ++j) {
+    const int k = k0 + kb + j;
+    w[j] = j < kw && k < K && n < N ? __ldg(W + (size_t)k * N + n) : 0.f;
+  }
+  // ... while the rows' slice streams into shared memory (zero past K)
+  for (int i = tid; i < M * (k_slice / 4); i += kThreads) {
+    const int m = i / (k_slice / 4), k = 4 * (i % (k_slice / 4));
+    const bool ok = k0 + k < K;
+    cp_async16(a_s + m * k_slice + k, ok ? A + (size_t)m * K + k0 + k : A, ok);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+
+  // each row's sum over this warp's kw rows of K, four rows at a time
+  for (int m0 = 0; m0 < M; m0 += 4) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j4 = 0; j4 < kMaxKW / 4; ++j4) {
+      if (4 * j4 < kw) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if (m0 + r < M) {
+            const float4 a =
+                *reinterpret_cast<const float4*>(a_s + (m0 + r) * k_slice + kb + 4 * j4);
+            acc[r] = fmaf(a.x, w[4 * j4], acc[r]);
+            acc[r] = fmaf(a.y, w[4 * j4 + 1], acc[r]);
+            acc[r] = fmaf(a.z, w[4 * j4 + 2], acc[r]);
+            acc[r] = fmaf(a.w, w[4 * j4 + 3], acc[r]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      if (m0 + r < M) sums[(warp * M + m0 + r) * kTileN + lane] = acc[r];
+  }
+  __syncthreads();
+
+  // the block's sum over its warps, in warp order; with one split the
+  // result, else this split's partial
+  for (int i = tid; i < M * kTileN; i += kThreads) {
+    const int m = i / kTileN, c = i % kTileN, nn = n0 + c;
+    float v = sums[m * kTileN + c];
+    for (int j = 1; j < kWarps; ++j) v += sums[(j * M + m) * kTileN + c];
+    if (nn >= N) continue;
+    if (splits == 1)
+      C[(size_t)m * N + nn] = epilogue<float>(v, bias, nn, act);
+    else
+      __stcg(ws + ((size_t)split * M + m) * N + nn, v);
+  }
+  if (splits == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&tiles[tile], 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the last block of the tile: the partials in split order 0, 1, ...
+  for (int e = tid; e < M * kTileN / 4; e += kThreads)
+    reduce_splits(ws, bias, C, e, n0, M, N, splits, act);
+  if (tid == 0) tiles[tile] = 0;
+}
+
+}  // namespace f32small
 
 // ------------------------------------------------------------------ W8A8
 // _qdot (pallas_emformer.py:54-62): per-row dynamic activation quant, an
@@ -1025,6 +1207,13 @@ struct EmformerStackArgs {
   float* a_scale; // their scales, [max rows]
   float* q_in32;  // [B, Q, D] f32 copy of q_in (wq quantised)
   float* ff_in32; // [B, T, D] f32 copy of ff_in (ffw1 quantised)
+  // f32 products (dtype 0): the k-slice of each of q, kv, out, ffn1,
+  // ffn2 (ops/emformer_stack.py::gemm_f32_config; 0: the tiled kernel), the
+  // split-K workspace of partial sums and one counter per N tile (zeroed
+  // by the caller; the kernel leaves them 0)
+  int32_t f32_kslice[5];
+  float* f32_ws;
+  int32_t* f32_tiles;
   void* stream;
 };
 
@@ -1252,25 +1441,55 @@ int gemm_bf16_cfg(int cfg, const bf16* A, const bf16* Wt, int L, int layer, cons
   }
 }
 
+// how an f32 product runs: k_slice 0 takes the tiled kernel, else the
+// split-K kernel with that k-slice, its workspace and tile counters
+struct F32Split {
+  int k_slice;
+  float* ws;
+  int* tiles;
+};
+
+// the f32 product y [M, N] = epilogue(x [M, K] . w [K, N]), as run_layer
+// and asr_gemm_f32 run it.  The k-slice is gemm_f32_config's, whose
+// checks the split-K kernel's limits are left to
+int gemm_f32(const float* A, const float* W, const float* bias, float* C, int M, int N, int K,
+             int act, const F32Split& sp, cudaStream_t st) {
+  using namespace f32small;
+  if (M <= 0 || N <= 0 || K <= 0 || sp.k_slice < 0) return kErrShape;
+  if (sp.k_slice == 0) {
+    dim3 grid((N + 63) / 64, (M + 63) / 64);
+    gemm_f32_kernel<<<grid, 256, 0, st>>>(A, W, bias, C, M, N, K, act);
+    return (int)cudaGetLastError();
+  }
+  const int splits = (K + sp.k_slice - 1) / sp.k_slice;
+  if (splits > 1 && (sp.ws == nullptr || sp.tiles == nullptr)) return kErrShape;
+  const size_t smem = smem_floats(M, sp.k_slice) * sizeof(float);
+  // the largest any launch takes: a launch on another thread may set it too
+  if (smem > kDefaultSmem)
+    CHECK_RC(allow_smem(gemm_f32_splitk_kernel,
+                        smem_floats(kMaxRows, kWarps * kMaxKW) * sizeof(float)));
+  gemm_f32_splitk_kernel<<<dim3((N + kTileN - 1) / kTileN, splits), kThreads, smem, st>>>(
+      A, W, bias, C, sp.ws, sp.tiles, M, N, K, sp.k_slice, act);
+  return (int)cudaGetLastError();
+}
+
 // C = epilogue(A . W) with W given as Wt [L, N, K] in bf16 (layer `layer`)
-// or as W [L, K, N] in f32
+// or as W [L, K, N] in f32 (sp: how the f32 product runs)
 template <typename T>
 int gemm(const T* A, const T* W, int L, int layer, const T* bias, T* C, int M, int N, int K,
-         int act, cudaStream_t st);
+         int act, const F32Split& sp, cudaStream_t st);
 
 template <>
 int gemm<bf16>(const bf16* A, const bf16* Wt, int L, int layer, const bf16* bias, bf16* C,
-               int M, int N, int K, int act, cudaStream_t st) {
+               int M, int N, int K, int act, const F32Split&, cudaStream_t st) {
   return gemm_bf16_cfg(-1, A, Wt, L, layer, bias, C, M, N, K, act, st);
 }
 
 template <>
 int gemm<float>(const float* A, const float* W, int L, int layer, const float* bias,
-                float* C, int M, int N, int K, int act, cudaStream_t st) {
+                float* C, int M, int N, int K, int act, const F32Split& sp, cudaStream_t st) {
   (void)L;
-  dim3 grid((N + 63) / 64, (M + 63) / 64);
-  gemm_f32_kernel<<<grid, 256, 0, st>>>(A, W + (size_t)layer * K * N, bias, C, M, N, K, act);
-  return (int)cudaGetLastError();
+  return gemm_f32(A, W + (size_t)layer * K * N, bias, C, M, N, K, act, sp, st);
 }
 
 template <int NC, int BN, int ST, typename T>
@@ -1365,6 +1584,8 @@ int run_layer(const EmformerStackArgs& a, int l, const float* src, int reorder,
   T* attn = (T*)a.attn; T* out = (T*)a.out; T* ff_in = (T*)a.ff_in;
   T* h1 = (T*)a.h1; T* h2 = (T*)a.h2;
   const int qz = a.quant;
+  // product p's f32 split (q, kv, out, ffn1, ffn2; ignored in bf16)
+  auto sp = [&a](int p) { return F32Split{a.f32_kslice[p], a.f32_ws, a.f32_tiles}; };
 
   const size_t sMem = (size_t)l * B * M * D, sLc = (size_t)l * B * Lc * D;
   const T* mem_in = (const T*)a.mem_in + sMem;
@@ -1382,14 +1603,15 @@ int run_layer(const EmformerStackArgs& a, int l, const float* src, int reorder,
                              a.wq_s + (size_t)l * D, bq + (size_t)l * D, q, B * Q, D, D,
                              ACT_NONE, st)));
   else
-    CHECK_RC(gemm<T>(q_in, wq, a.L, l, bq + (size_t)l * D, q, B * Q, D, D, ACT_NONE, st));
+    CHECK_RC(gemm<T>(q_in, wq, a.L, l, bq + (size_t)l * D, q, B * Q, D, D, ACT_NONE, sp(0),
+                     st));
   if (qz & kQWkv)
     CHECK_RC((qgemm<T, T>(-1, kv_in, a.aq, a.a_scale, a.wkv8, a.L, l,
                          a.wkv_s + (size_t)l * 2 * D, bkv + (size_t)l * 2 * D, kv, B * NKV,
                          2 * D, D, ACT_NONE, st)));
   else
     CHECK_RC(gemm<T>(kv_in, wkv, a.L, l, bkv + (size_t)l * 2 * D, kv, B * NKV, 2 * D, D,
-                     ACT_NONE, st));
+                     ACT_NONE, sp(1), st));
   // the roll reads this layer's input memory row before residual_ffn_ln
   // overwrites it with the next layer's
   state_roll_kernel<T><<<dim3(B, M + 2 * Lc), 128, 0, st>>>(
@@ -1403,7 +1625,7 @@ int run_layer(const EmformerStackArgs& a, int l, const float* src, int reorder,
                          ACT_NONE, st)));
   else
     CHECK_RC(gemm<T>(attn, wout, a.L, l, bout + (size_t)l * D, out, B * Q, D, D, ACT_NONE,
-                     st));
+                     sp(2), st));
   residual_ffn_ln_kernel<T><<<(B * Q + rows_per_block - 1) / rows_per_block,
                               32 * rows_per_block, 0, st>>>(
       out, a.hin, a.hres, a.memrow, a.ffln_s + (size_t)l * D, a.ffln_b + (size_t)l * D,
@@ -1415,12 +1637,13 @@ int run_layer(const EmformerStackArgs& a, int l, const float* src, int reorder,
                              a.activation, st)));
   else
     CHECK_RC(gemm<T>(ff_in, w1, a.L, l, b1 + (size_t)l * F, h1, B * Tr, F, D, a.activation,
-                     st));
+                     sp(3), st));
   if (qz & kQW2)
     CHECK_RC((qgemm<T, T>(-1, h1, a.aq, a.a_scale, a.w28, a.L, l, a.w2_s + (size_t)l * D,
                          b2 + (size_t)l * D, h2, B * Tr, D, F, ACT_NONE, st)));
   else
-    CHECK_RC(gemm<T>(h1, w2, a.L, l, b2 + (size_t)l * D, h2, B * Tr, D, F, ACT_NONE, st));
+    CHECK_RC(gemm<T>(h1, w2, a.L, l, b2 + (size_t)l * D, h2, B * Tr, D, F, ACT_NONE, sp(4),
+                     st));
   out_ln_kernel<T><<<(B * Tr + rows_per_block - 1) / rows_per_block,
                      32 * rows_per_block, 0, st>>>(
       a.hres, h2, a.lnout_s + (size_t)l * D, a.lnout_b + (size_t)l * D, a.hin, y, B, D,
@@ -1506,6 +1729,18 @@ extern "C" int asr_gemm_bf16(const void* x, const void* wt, const void* bias, vo
                              int M, int N, int K, int act, int cfg, void* stream) {
   return gemm_bf16_cfg(cfg, (const bf16*)x, (const bf16*)wt, 1, 0, (const bf16*)bias,
                        (bf16*)y, M, N, K, act, (cudaStream_t)stream);
+}
+
+// The f32 product alone, y [M, N] = epilogue(x [M, K] . w [K, N]) with
+// bias [N] and the activation, as run_layer runs each f32 product, for
+// tests and timing: k_slice 0 runs the tiled kernel, else the split-K one
+// (ws [splits, M, N] f32 and tiles [N / 32] int32, zeroed; see
+// ops/emformer_stack.py::gemm_f32_config).
+extern "C" int asr_gemm_f32(const float* x, const float* w, const float* bias, float* y,
+                            float* ws, int32_t* tiles, int M, int N, int K, int act,
+                            int k_slice, void* stream) {
+  return gemm_f32(x, w, bias, y, M, N, K, act, F32Split{k_slice, ws, tiles},
+                  (cudaStream_t)stream);
 }
 
 // The tile configuration run_layer picks for an [M, N] product whose rows

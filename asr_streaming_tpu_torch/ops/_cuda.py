@@ -138,6 +138,8 @@ def lib() -> ctypes.CDLL:
         handle.asr_emformer_attention.restype = i32
         handle.asr_gemm_bf16.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
         handle.asr_gemm_bf16.restype = i32
+        handle.asr_gemm_f32.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        handle.asr_gemm_f32.restype = i32
         handle.asr_gemm_config.argtypes = [i32] * 3
         handle.asr_gemm_config.restype = i32
         handle.asr_emission_append.argtypes = [

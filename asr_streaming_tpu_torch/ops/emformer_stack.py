@@ -14,6 +14,10 @@ W8A8 (per-output-channel int8 weights quantised from the f32 params,
 per-row dynamic int8 activations, exact int32 products, f32 dequant);
 ``"int8_ffn"`` only the two FFN products.
 
+In f32 each product runs as ``gemm_f32_config`` says: up to 128 rows (the
+offline API's 1-3 slots) on the split-K kernel, more on the tiled one;
+``gemm_f32`` runs one product alone.
+
 On a CUDA tensor it launches ``csrc/emformer_stack.cu``; on a CPU tensor
 it runs ``emformer_stack_plain``, which follows the Pallas kernel's
 ``_layer_math`` line by line (same bf16 rounding points).  Nothing else.
@@ -302,7 +306,10 @@ class _Args(ctypes.Structure):
                     "y", "mem_out", "lck_out", "lcv_out",
                     "q_in", "kv_in", "q", "kv", "attn", "out", "ff_in",
                     "h1", "h2", "hin", "hres", "memrow",
-                    "aq", "a_scale", "q_in32", "ff_in32", "stream")])
+                    "aq", "a_scale", "q_in32", "ff_in32")]
+                + [("f32_kslice", ctypes.c_int32 * 5)]
+                + [(n, ctypes.c_void_p) for n in (
+                    "f32_ws", "f32_tiles", "stream")])
 
 
 # the int8 weight / scale fields of each product
@@ -433,6 +440,21 @@ def run_chain(entry: str, w: dict, qw: dict, x, length, reset, advance, mem,
             f8, fs = _QFIELDS[name]
             q[f8], q[fs] = w8t, scale.contiguous()
     quant = sum(_QBITS[n] for n in qw)
+    f32 = {}
+    kslice = [0] * 5
+    if cdt == torch.float32:
+        # the split-K products share one workspace and one set of tile
+        # counters: they run one after another on the stream
+        shapes = _product_shapes(B, Q, NKV, T, D, Fd)
+        kslice = [gemm_f32_config(*shape) for shape in shapes]
+        split_k = [(-(-k // ks), rows, n) for ks, (rows, n, k)
+                   in zip(kslice, shapes) if ks and ks < k]
+        if split_k:
+            f32 = {"f32_ws": scratch(max(s * r * n for s, r, n in split_k),
+                                     dtype=torch.float32),
+                   "f32_tiles": torch.zeros(
+                       max(-(-n // F32_TILE_N) for _, _, n in split_k),
+                       dtype=torch.int32, device=dev)}
 
     args = _Args(
         struct_size=ctypes.sizeof(_Args),
@@ -449,6 +471,8 @@ def run_chain(entry: str, w: dict, qw: dict, x, length, reset, advance, mem,
         lcv_out=_ptr(new_lcv), memrow=_ptr(memrow),
         **{k: _ptr(v) for k, v in s.items()},
         **{k: _ptr(v) for k, v in q.items()},
+        f32_kslice=(ctypes.c_int32 * 5)(*kslice),
+        **{k: _ptr(v) for k, v in f32.items()},
         stream=torch.cuda.current_stream(dev).cuda_stream)
     _cuda.launch(dev, entry, entry, ctypes.byref(args))
     return y, new_mem, new_lck, new_lcv, s["hin"]
@@ -520,6 +544,140 @@ def gemm_bf16_error_bound(x2d: torch.Tensor, w: torch.Tensor,
     mag = torch.maximum(acc.abs(), want.float().abs()).clamp(min=2.0 ** -126)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
     return (2 * ulp + slack) * (2 if activation else 1)
+
+
+def _product_shapes(B, Q, NKV, T, D, Fd):
+    """(rows, N, K) of the chain's five products, in the kernel's order
+    q, kv, out, ffn1, ffn2."""
+    return [(B * Q, D, D), (B * NKV, 2 * D, D), (B * Q, D, D),
+            (B * T, Fd, D), (B * T, D, Fd)]
+
+
+# the f32 product's split-K kernel (csrc/emformer_stack.cu, f32small): a
+# block of 8 warps over 32 columns, each warp k_slice / 8 rows of K.  Its
+# limits are checked here alone (gemm_f32_config, _check_f32_kslice)
+F32_SMALL_ROWS = 128      # rows it holds; a product with more is tiled
+F32_TILE_N = 32           # columns a block owns
+F32_WARPS = 8
+F32_MAX_KW = 16           # k-rows of W a lane holds in registers
+F32_MAX_SPLITS = 16       # K splits the last block of a tile sums at once
+F32_BLOCKS = 264          # blocks a product aims for: two per SM of 132
+
+
+def gemm_f32_config(M: int, N: int, K: int) -> int:
+    """How ``run_layer`` runs an [M, K] x [K, N] f32 product: the k-slice
+    of the split-K kernel, or 0 for the tiled kernel (64x64 tiles, each
+    K-serial).  Up to ``F32_SMALL_ROWS`` rows, with N and K multiples of 4
+    and K at most ``F32_MAX_SPLITS`` slices, the split-K kernel: N tiles
+    of 32 columns times ceil(K / k_slice) slices of K, the slice the power
+    of two (32 to 128 rows: 4 to 16 a warp) that gives about
+    ``F32_BLOCKS`` blocks, or the multiple of 32 that keeps the slices to
+    ``F32_MAX_SPLITS``.  The split depends on (N, K) only, never on M, so
+    a row's bits do not depend on the rows beside it.  Anything else is
+    tiled."""
+    if M <= 0 or N <= 0 or K <= 0:
+        raise ValueError(f"gemm_f32_config: empty product {M}x{K}x{N}")
+    max_slice = F32_MAX_KW * F32_WARPS
+    if M > F32_SMALL_ROWS or N % 4 or K % 4 or \
+            K > F32_MAX_SPLITS * max_slice:
+        return 0
+    want = -(-F32_BLOCKS // -(-N // F32_TILE_N))      # splits wanted
+    k_slice = 1 << max(0, -(-K // want) - 1).bit_length()
+    # no more than F32_MAX_SPLITS slices, each a multiple of 4 per warp
+    fewest = -(-K // F32_MAX_SPLITS)
+    k_slice = max(k_slice, -(-fewest // (4 * F32_WARPS)) * 4 * F32_WARPS)
+    return min(max(k_slice, 4 * F32_WARPS), max_slice)
+
+
+def _check_f32_kslice(k_slice: int, M: int, N: int, K: int) -> None:
+    """Raise unless the split-K kernel with this k-slice (or, for 0, the
+    tiled one) can run an [M, K] x [K, N] product."""
+    if k_slice == 0:
+        return
+    if M > F32_SMALL_ROWS or N % 4 or K % 4 or k_slice < 0 or \
+            k_slice % (4 * F32_WARPS) or k_slice > F32_MAX_KW * F32_WARPS \
+            or -(-K // k_slice) > F32_MAX_SPLITS:
+        raise ValueError(f"gemm_f32: k-slice {k_slice} cannot run "
+                         f"{M}x{K}x{N} (the split-K kernel takes up to "
+                         f"{F32_SMALL_ROWS} rows, N and K multiples of 4, a "
+                         f"k-slice a multiple of {4 * F32_WARPS} up to "
+                         f"{F32_MAX_KW * F32_WARPS}, and up to "
+                         f"{F32_MAX_SPLITS} slices)")
+
+
+def gemm_f32_plain(x2d: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                   activation: Optional[str] = None,
+                   splits: int = 0) -> torch.Tensor:
+    """The plain version of one f32 product of the chain (``epilogue<float>``):
+    x2d [M, K] . w [K, N] in f32, plus the bias, then the activation.
+    With ``splits`` (a k-slice from ``gemm_f32_config``, not 0), the K
+    slices are multiplied apart and summed in the kernel's order, slice 0
+    first."""
+    x2d, w = x2d.float(), w.float()
+    if not splits:
+        y = torch.matmul(x2d, w)
+    else:
+        ks = splits
+        y = torch.matmul(x2d[:, :ks], w[:ks])
+        for k0 in range(ks, x2d.shape[1], ks):
+            y = y + torch.matmul(x2d[:, k0:k0 + ks], w[k0:k0 + ks])
+    y = y + bias.float()
+    return _act(activation)(y) if activation else y
+
+
+def gemm_f32_error_bound(x2d: torch.Tensor, w: torch.Tensor,
+                         want: torch.Tensor,
+                         activation: Optional[str] = None) -> torch.Tensor:
+    """Elementwise bound on |kernel - plain| for one f32 product, where
+    only the f32 sum order differs: two orders differ by at most
+    2 K u sum|x w| (u = 2^-24), and adding the bias rounds once more (an
+    ulp of the larger of the sum and the output).  An activation carries
+    it through its slope (at most 1.13 for GELU, 1.1 for SiLU) and rounds
+    again: twice that."""
+    xf, wf = x2d.float(), w.float()
+    slack = 2.0 * x2d.shape[1] * 2.0 ** -24 * torch.matmul(xf.abs(), wf.abs())
+    mag = torch.maximum(torch.matmul(xf, wf).abs(), want.float().abs())
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp(min=2.0 ** -126))) - 23)
+    return (slack + ulp) * (2 if activation else 1)
+
+
+def gemm_f32(x2d: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+             activation: Optional[str] = None,
+             config: Optional[int] = None) -> torch.Tensor:
+    """One f32 product of the chain as ``run_layer`` runs it, for tests
+    and timing: x2d [M, K], w [K, N] (``[in, out]``), bias [N] -> [M, N]
+    f32.  CUDA tensor -> csrc/emformer_stack.cu (entry asr_gemm_f32) with
+    the k-slice ``gemm_f32_config`` picks, or ``config`` (0: the tiled
+    kernel); CPU tensor -> ``gemm_f32_plain``."""
+    M, K = x2d.shape
+    N = w.shape[-1]
+    if M <= 0 or tuple(w.shape) != (K, N) or tuple(bias.shape) != (N,):
+        raise ValueError(f"gemm_f32: x {tuple(x2d.shape)}, w "
+                         f"{tuple(w.shape)}, bias {tuple(bias.shape)}")
+    ks = gemm_f32_config(M, N, K) if config is None else config
+    _check_f32_kslice(ks, M, N, K)
+    if x2d.device.type == "cpu":
+        return gemm_f32_plain(x2d, w, bias, activation)
+    if x2d.device.type != "cuda":
+        raise ValueError(f"gemm_f32: unsupported device {x2d.device}")
+    _cuda.refuse_grad("gemm_f32", x2d, w, bias)
+    dev = x2d.device
+    x2d = x2d.to(torch.float32).contiguous()
+    w = _kernel_tensor(w, torch.float32)
+    bias = bias.to(torch.float32).contiguous()
+    y = torch.empty((M, N), dtype=torch.float32, device=dev)
+    ws = tiles = None
+    splits = -(-K // ks) if ks else 1
+    if splits > 1:
+        ws = torch.empty(splits * M * N, dtype=torch.float32, device=dev)
+        tiles = torch.zeros(-(-N // F32_TILE_N), dtype=torch.int32,
+                            device=dev)
+    _cuda.launch(
+        dev, "asr_gemm_f32", "gemm_f32", x2d.data_ptr(), w.data_ptr(),
+        bias.data_ptr(), y.data_ptr(), _ptr(ws), _ptr(tiles), M, N, K,
+        _ACTS[activation] if activation else 0, ks,
+        torch.cuda.current_stream(dev).cuda_stream)
+    return y
 
 
 # the wgmma GEMM's tile configurations (rows x columns), by index; the

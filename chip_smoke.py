@@ -24,8 +24,13 @@ Phases (any failure exits non-zero; nothing is caught):
      and each activation, on the tile run_layer picks and on each tile
      forced, within gemm_bf16_error_bound of its plain version (only the
      f32 sum order differs), timed beside its plain version and
-     torch.matmul on the same bf16 operands (``--only gemm``: this phase
-     alone);
+     torch.matmul on the same bf16 operands; then A's f32 product alone
+     (entry asr_gemm_f32) at the offline API's five shapes at B = 1 and
+     B = 3, a 512-slot shape, two ragged shapes and each activation,
+     within gemm_f32_error_bound of gemm_f32_plain, twice bit for bit,
+     timed beside the tiled kernel forced, the plain version, the f32
+     torch.matmul and the bound (``[gemm] f32`` lines; ``--only gemm``:
+     this phase alone);
   3c. A-int8's product alone (the row quantiser and the int8 wgmma GEMM,
      entry asr_w8a8_linear) at the same ten shapes, a ragged one and the
      tiny test geometry, on the picked tile and each tile forced, equal
@@ -94,7 +99,9 @@ Phases (any failure exits non-zero; nothing is caught):
      SIGINT; with two cards or more, every tick also split over all of
      them (make_serving_mesh(0)), every card launching;
  11. the offline API (``--only offline``): A at batch 1 and 3 in f32
-     against its plain version (1e-4); ASRModel at full width (VI f32)
+     against its plain version (1e-4), slot 0 of the B = 3 step bit for
+     bit a B = 1 step of that slot, the B = 1 step by part beside its 100
+     products on the f32 torch.matmul; ASRModel at full width (VI f32)
      against the CPU plain version (1e-3 on log-probs) and its time per
      second of audio; the fixture's golden text and word windows through
      ASRModel; ``python -m asr_streaming_tpu_torch.tools.transcribe``
@@ -235,14 +242,14 @@ def device_times(fn, iters: int = 1, need=""):
 
 def stack_parts(fn, label: str, attn_bytes: float, need=A_KERNELS):
     """Device time of one call of kernel A by part, from the profile: its
-    bf16 GEMMs, its int8 GEMMs and row quantiser (W8A8 mode), its
+    bf16 or f32 GEMMs, its int8 GEMMs and row quantiser (W8A8 mode), its
     attention (beside the bytes bound of ``attn_bytes``) and the rest
     (LNs, state roll, and anything else the call launches).  Returns
     {part: {"ms": ms}}, the attention's with its "bound_ms"."""
     total, rows = device_times(fn, 3, need=need)
     parts = {"gemm": 0.0, "gemm_int8": 0.0, "quantise": 0.0, "attention": 0.0}
     for t, _, name in rows:
-        key = ("gemm" if "gemm_bf16_wgmma" in name else
+        key = ("gemm" if "gemm_bf16_wgmma" in name or "gemm_f32" in name else
                "gemm_int8" if "gemm_int8_wgmma" in name else
                "quantise" if "quantize_rows" in name else
                "attention" if "attention_kernel" in name else None)
@@ -737,10 +744,72 @@ def check_gemm(label, M, K, N, act, gen, device):
             "tflops": flops / ms / 1e9, "max_abs_err": max_err}
 
 
+def kernel_ms(fn, name, iters=20):
+    """Device ms per call of fn's kernels whose name holds ``name`` (the
+    wrapper's own allocations and fills left out)."""
+    _, rows = device_times(fn, iters, need=name)
+    return sum(t for t, _, n in rows if name in n)
+
+
+def check_gemm_f32(label, M, K, N, act, gen, device):
+    """A's f32 product alone (entry asr_gemm_f32) at one shape, in the
+    regime ``gemm_f32_config`` picks, against ``gemm_f32_plain`` summed in
+    the kernel's K-slice order, within ``gemm_f32_error_bound`` (only the
+    f32 sum order differs); a second call equal bit for bit.  Timed beside
+    the tiled kernel forced (the small regime's former kernel), the plain
+    version, ``torch.matmul`` on the same f32 operands (TF32 off) and the
+    bound (x, w, bias and y once over 3.35 TB/s, or the FMAs at the f32
+    peak)."""
+    import torch
+    from asr_streaming_tpu_torch.ops import emformer_stack as es
+    x = torch.randn((M, K), generator=gen).to(device)
+    w = (torch.randn((K, N), generator=gen) / K ** 0.5).to(device)
+    bias = torch.randn((N,), generator=gen).to(device)
+    ks = es.gemm_f32_config(M, N, K)
+    splits = -(-K // ks) if ks else 0
+    got = es.gemm_f32(x, w, bias, act)
+    again = es.gemm_f32(x, w, bias, act)
+    torch.cuda.synchronize()
+    want = es.gemm_f32_plain(x, w, bias, act, splits=ks)
+    err = (got - want).abs()
+    worst = (err / es.gemm_f32_error_bound(x, w, want, act)).max().item()
+    if not torch.isfinite(got).all() or worst > 1:
+        fail(f"f32 GEMM {label}: {worst:.2f} x its error bound from the "
+             f"plain version")
+    if not torch.equal(got, again):
+        fail(f"f32 GEMM {label}: two calls differ")
+    ms = kernel_ms(lambda: es.gemm_f32(x, w, bias, act), "gemm_f32")
+    tiled_ms = (kernel_ms(lambda: es.gemm_f32(x, w, bias, act, 0),
+                          "gemm_f32") if ks else ms)
+    plain_ms = device_times(lambda: es.gemm_f32_plain(x, w, bias, act), 5)[0]
+    lib_ms = device_times(lambda: torch.matmul(x, w), 20)[0]
+    flops = 2.0 * M * K * N
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = 4.0 * (M * K + K * N + N + M * N) / PEAK_BYTES * 1e3
+    regime = "small" if ks else "tiled"
+    blocks = (-(-N // es.F32_TILE_N) * splits if ks
+              else -(-N // 64) * -(-M // 64))
+    how = f"{splits} splits of {ks}" if ks else "64x64 tiles"
+    log(f"[gemm] f32 {label} {M}x{K}x{N}{' +' + act if act else ''}: "
+        f"{ms * 1e3:.1f} us {regime} ({how}, {blocks} blocks; tiled "
+        f"{tiled_ms * 1e3:.1f} us), torch.matmul {lib_ms * 1e3:.1f} us, "
+        f"plain {plain_ms * 1e3:.1f} us, bound {max(t_ops, t_bytes) * 1e3:.2f}"
+        f" us ({'bytes' if t_bytes >= t_ops else 'operations'}); max error "
+        f"{worst:.2f} x bound, {err.max().item():.2e}")
+    return {"product": label, "m": M, "k": K, "n": N, "regime": regime,
+            "splits": splits, "k_slice": ks, "blocks": blocks,
+            "ms": ms, "tiled_ms": tiled_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": max(t_ops, t_bytes),
+            "max_abs_err": err.max().item()}
+
+
 def phase_gemm(gen, device):
     """A's bf16 product at the ten serving product shapes (VI and EN, five
-    each), a ragged shape and each activation.  Returns the ten serving
-    shapes' entries."""
+    each), a ragged shape and each activation; A's f32 product at the
+    offline API's five shapes at B = 1 and B = 3, one 512-slot shape, two
+    ragged ones (N and K off the tile and slice edges; K no multiple of 4,
+    so tiled) and each activation.  Returns (the ten bf16 serving shapes'
+    entries, the f32 entries)."""
     from asr_streaming_tpu_torch.models.emformer import EmformerConfig
     from asr_streaming_tpu_torch.models.rnnt import RNNTConfig
     out = []
@@ -753,7 +822,23 @@ def phase_gemm(gen, device):
                        ("silu", "silu")):
         check_gemm(label, 300, 200 if act is None else 512, 136, act, gen,
                    device)
-    return out
+    f32 = []
+    c = EmformerConfig()
+    for B in (1, 3):
+        for name, M, K, N, act in gemm_shapes(
+                B, c.segment_length, c.right_context_length,
+                c.max_memory_size, c.d_model, c.ffn_dim, c.activation):
+            f32.append(check_gemm_f32(f"B={B} {name}", M, K, N, act, gen,
+                                      device))
+    f32.append(check_gemm_f32("512 slots q", B_SLOTS * 21, 512, 512, None,
+                              gen, device))
+    for label, M, K, N, act in (("ragged", 37, 200, 136, None),
+                                ("ragged, K % 4 = 2", 30, 202, 130, None),
+                                ("relu", 45, 512, 264, "relu"),
+                                ("gelu", 45, 512, 264, "gelu"),
+                                ("silu", 45, 512, 264, "silu")):
+        f32.append(check_gemm_f32(label, M, K, N, act, gen, device))
+    return out, f32
 
 
 def _int8_operands(M, K, N, x_f32, gen, device):
@@ -811,28 +896,35 @@ def int_mm_step(params, cfg, B, gen, device):
     return ms
 
 
-def matmul_step(params, cfg, B, gen, device):
-    """Device ms of the bf16 step's products on torch.matmul: one call
-    that issues the five products of each layer (the layer's bf16
-    weights, bf16 activations of the step's row counts), 5 x L launches,
-    no bias or activation: the yardstick of A's GEMMs."""
+def matmul_step(params, cfg, B, gen, device, dtype="bf16", label="A"):
+    """Device ms of the step's products on torch.matmul: one call that
+    issues the five products of each of cfg's layers (the layer's weights
+    and activations of the step's row counts in ``dtype``, "bf16" or
+    "f32"), 5 x L launches, no bias or activation: the yardstick of A's
+    GEMMs.  In f32 the products run in full f32: TF32 off, as the
+    package sets it."""
     import torch
     from asr_streaming_tpu_torch.ops import emformer_stack as es
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
+    if dt == torch.float32 and torch.backends.cuda.matmul.allow_tf32:
+        fail("torch.backends.cuda.matmul.allow_tf32 is on: the f32 "
+             "yardstick would run in TF32")
     shapes = gemm_shapes(B, cfg.segment_length, cfg.right_context_length,
                          cfg.max_memory_size, cfg.d_model, cfg.ffn_dim, None)
-    a16 = [torch.randn((M, K), generator=gen).to(device, torch.bfloat16)
-           for _, M, K, _, _ in shapes]
-    w16 = [[params[n][l].to(torch.bfloat16) for n in es._MAT]
-           for l in range(cfg.num_layers)]
+    acts = [torch.randn((M, K), generator=gen).to(device, dt)
+            for _, M, K, _, _ in shapes]
+    ws = [[params[n][l].to(dt) for n in es._MAT]
+          for l in range(cfg.num_layers)]
 
     def step():
-        for w in w16:
-            for a, b in zip(a16, w):
+        for w in ws:
+            for a, b in zip(acts, w):
                 torch.matmul(a, b)
 
     ms, rows = device_times(step, 3)
-    log(f"[kernels] A's {len(shapes) * cfg.num_layers} bf16 products on "
-        f"torch.matmul: {ms:.3f} ms in {sum(r[1] for r in rows)} launches")
+    log(f"[kernels] {label}'s {len(shapes) * cfg.num_layers} {dtype} "
+        f"products at B={B} on torch.matmul: {ms:.3f} ms in "
+        f"{sum(r[1] for r in rows)} launches")
     return ms
 
 
@@ -999,9 +1091,13 @@ def phase_kernels(gen, device):
     # growing from mixed fills.
     B = 512
     # f32, 20 layers, elementwise 1e-4: only the f32 summation order
-    # differs (two plain versions differ by ~1e-5 here)
-    check_stack(EmformerConfig(compute_dtype=torch.float32), B, 3, 1e-4, gen,
-                device, "A vi f32 L=20")
+    # differs (two plain versions differ by ~1e-5 here); every product has
+    # more than 128 rows, so the tiled f32 kernel runs them
+    _, last = check_stack(EmformerConfig(compute_dtype=torch.float32), B, 3,
+                          1e-4, gen, device, "A vi f32 L=20")
+    ms_f32 = f32_step_ms(last, "A vi f32 L=20, one step at 512 slots",
+                         "gemm_f32_kernel")
+    del last
     # bf16 at the JAX package's own bf16 tolerance, elementwise 3e-2
     # (tests/test_pallas_emformer.py), at that test's depth of 3 layers
     check_stack(EmformerConfig(compute_dtype=torch.bfloat16, num_layers=3),
@@ -1058,7 +1154,8 @@ def phase_kernels(gen, device):
         "launches": 0, "max_abs_err": err_a, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None, "parts": parts, "sha256": digest})
+        "library_ms": None, "parts": parts, "sha256": digest,
+        "vi_f32_ms": ms_f32})
 
     # ---- kernel B: VI serving shape, exact equality with the plain version
     results.append(check_append(B, 1024, 16, 803, gen, device, "B"))
@@ -1125,6 +1222,9 @@ def phase_kernels(gen, device):
                         vi.left_context_length) / PEAK_BF16_FLOPS * 1e3
     t_bytes = (emformer_bytes(vi, B, 1, 2) + 4 * B * D * 2
                + 4 * B * vi.right_context_length * D) / PEAK_BYTES * 1e3
+    # the yardstick of C's products: one layer's five on torch.matmul
+    lib_c = matmul_step(params, dataclasses.replace(vi, num_layers=1), B,
+                        gen, device, label="C")
     log(f"[kernels] C: {ms_c:.3f} ms per layer call (plain {plain_c:.3f} ms),"
         f" bound {max(t_ops, t_bytes):.3f} ms")
     results.append({
@@ -1134,7 +1234,7 @@ def phase_kernels(gen, device):
         "launches": 0, "max_abs_err": err_c, "ms": ms_c, "plain_ms": plain_c,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None})
+        "library_ms": None, "gemm": {"library_ms": lib_c}})
     del params, args
     torch.cuda.empty_cache()
 
@@ -1588,6 +1688,8 @@ def check_stack_en(gen, device):
     parts = stack_parts(kernel_a, "A, one EN step", attention_bytes(
         B, bf.num_layers, bf.d_model, bf.segment_length,
         bf.right_context_length, 0, bf.left_context_length))
+    parts["gemm"]["library_ms"] = matmul_step(params, bf, B, gen, device,
+                                              label="A en")
     flops = stack_flops(B, bf.num_layers, bf.d_model, bf.ffn_dim,
                         bf.segment_length, bf.right_context_length, 0,
                         bf.left_context_length)
@@ -3139,37 +3241,91 @@ def phase_mesh(seed, device, card, vi_want):
     return launches
 
 
+def f32_step_ms(last, label, gemm_name):
+    """Device ms of one f32 step of kernel A on ``last`` (check_stack's
+    last inputs); logs it with the step's launches."""
+    from asr_streaming_tpu_torch.ops import emformer_stack as es
+    params, x, mem, lck, lcv, eff, reset, advance, kw = last
+    ms, rows = device_times(lambda: es.emformer_stack(
+        params, x, mem, lck, lcv, eff, reset, advance, **kw), 3,
+        need=(gemm_name, "attention_kernel"))
+    log(f"[kernels] {label}: {ms:.3f} ms device time in "
+        f"{sum(r[1] for r in rows)} launches")
+    return ms
+
+
+def slot_bits_check(last, label):
+    """Slot 0 of a B = 3 step of kernel A equals, bit for bit, a B = 1
+    step fed that slot alone (the f32 split depends on N and K only)."""
+    import torch
+    from asr_streaming_tpu_torch.ops import emformer_stack as es
+    params, x, mem, lck, lcv, eff, reset, advance, kw = last
+    three = es.emformer_stack(params, x, mem, lck, lcv, eff, reset, advance,
+                              **kw)
+    one = es.emformer_stack(params, x[:1], mem[:, :1], lck[:, :1],
+                            lcv[:, :1], eff[:1], reset[:1], advance[:1], **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("y", "mem", "lc_k", "lc_v"), three, one):
+        slot = a[:1] if name == "y" else a[:, :1]
+        if not torch.equal(slot, b):
+            fail(f"{label}: slot 0 of the B=3 step differs from the B=1 "
+                 f"step in {name} (max |diff| "
+                 f"{(slot - b).abs().max().item():.3e})")
+    log(f"[kernels] {label}: slot 0 of a B=3 step == the B=1 step of that "
+        f"slot, bit for bit (y and the three states)")
+
+
 def offline_kernel_checks(gen, device):
     """A at batch 1 and 3 in f32 (``ASRModel``'s shape) against its plain
-    version at 1e-4 (f32: summation order only); A at batch 1 timed
-    beside its plain version and its bound.  Returns A's entry for the
-    kernels line: {"b1_f32": {ms, plain_ms, bound_ms, bound_by,
-    max_abs_err}}."""
+    version at 1e-4 (f32: summation order only); slot 0 of the B=3 step
+    bit for bit a B=1 step of that slot; A at batch 1 timed beside its
+    plain version, its bound, its parts (the split-K GEMMs, the attention,
+    the rest) and its 100 products on ``torch.matmul`` in f32.  Returns
+    A's entry for the kernels line: {"b1_f32": {ms, launches, plain_ms,
+    bound_ms, bound_by, max_abs_err, parts (the products' with their
+    library_ms and bound_ms)}}."""
     from asr_streaming_tpu_torch.models.asr import ASRConfig
     from asr_streaming_tpu_torch.ops import emformer_stack as es
     emf = ASRConfig.vietnamese().encoder.emformer
-    errs = {}
+    errs, lasts = {}, {}
     for B in (1, 3):
-        errs[B], last = check_stack(emf, B, 3, 1e-4, gen, device,
-                                    f"A f32 B={B} (offline)")
-        if B == 1:
-            params, x, mem, lck, lcv, eff, reset, advance, kw = last
-            args = (params, x, mem, lck, lcv, eff, reset, advance)
-            ms = device_times(lambda: es.emformer_stack(*args, **kw), 3,
-                              need=("gemm_f32", "attention_kernel"))[0]
-            plain_ms = cuda_ms(lambda: es.emformer_stack_plain(*args, **kw),
-                               3)
+        errs[B], lasts[B] = check_stack(emf, B, 3, 1e-4, gen, device,
+                                        f"A f32 B={B} (offline)")
+    slot_bits_check(lasts[3], "A f32 (offline)")
+    params, x, mem, lck, lcv, eff, reset, advance, kw = lasts[1]
+    args = (params, x, mem, lck, lcv, eff, reset, advance)
+    need = ("gemm_f32_splitk", "attention_kernel")
+    ms, rows = device_times(lambda: es.emformer_stack(*args, **kw), 3,
+                            need=need)
+    plain_ms = cuda_ms(lambda: es.emformer_stack_plain(*args, **kw), 3)
     L, D, Fd = emf.num_layers, emf.d_model, emf.ffn_dim
-    t_ops = stack_flops(1, L, D, Fd, emf.segment_length,
-                        emf.right_context_length, emf.max_memory_size,
-                        emf.left_context_length) / PEAK_F32_FLOPS * 1e3
+    U, R = emf.segment_length, emf.right_context_length
+    M, Lc = emf.max_memory_size, emf.left_context_length
+    parts = stack_parts(lambda: es.emformer_stack(*args, **kw),
+                        "A f32, one B=1 step",
+                        attention_bytes(1, L, D, U, R, M, Lc, itemsize=4),
+                        need=need)
+    # the 100 products alone: their bound, and torch.matmul in f32
+    shapes = gemm_shapes(1, U, R, M, D, Fd, None)
+    g_bytes = 4.0 * L * sum(m * k + k * n + n + m * n
+                            for _, m, k, n, _ in shapes)
+    g_ops = 2.0 * L * sum(m * k * n for _, m, k, n, _ in shapes)
+    parts["gemm"]["bound_ms"] = max(g_bytes / PEAK_BYTES,
+                                    g_ops / PEAK_F32_FLOPS) * 1e3
+    parts["gemm"]["library_ms"] = matmul_step(params, emf, 1, gen, device,
+                                              "f32")
+    t_ops = stack_flops(1, L, D, Fd, U, R, M, Lc) / PEAK_F32_FLOPS * 1e3
     t_bytes = emformer_bytes(emf, 1, L, 4) / PEAK_BYTES * 1e3
-    entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+    entry = {"ms": ms, "launches": sum(r[1] for r in rows),
+             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-             "max_abs_err": max(errs.values())}
+             "max_abs_err": max(errs.values()), "parts": parts}
     log(f"[kernels] A f32 at B=1 (the offline API's shape): {ms:.3f} ms "
-        f"device, plain {plain_ms:.3f} ms, bound {entry['bound_ms']:.4f} ms "
-        f"({entry['bound_by']})")
+        f"device in {entry['launches']} launches, plain {plain_ms:.3f} ms, "
+        f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}); its 100 "
+        f"products {parts['gemm']['ms']:.3f} ms against torch.matmul f32 "
+        f"{parts['gemm']['library_ms']:.3f} ms and their bound "
+        f"{parts['gemm']['bound_ms']:.4f} ms")
     return {"b1_f32": entry}
 
 
@@ -4369,6 +4525,59 @@ def phase_dist(seed, device, card):
     return out
 
 
+# ------------------------------------------- two checkouts, side by side
+
+def kernel_a_times():
+    """Kernel A's times on the card for the package first on sys.path:
+    one f32 step at 512 slots (the tiled f32 kernel), the bf16 VI step
+    (``stack_digest``), one f32 step at B=1 and ``ASRModel.emissions`` on
+    10 s of audio.  Logs one ``[compare]`` line.  To compare two commits,
+    call it from a small driver with either checkout's package first on
+    sys.path (parent, change, change, parent, a process each)."""
+    import torch
+    from asr_streaming_tpu_torch.models.api import ASRModel
+    from asr_streaming_tpu_torch.models.asr import ASRConfig
+    from asr_streaming_tpu_torch.models.emformer import (
+        EmformerConfig, init_emformer_params,
+    )
+    from asr_streaming_tpu_torch.ops import emformer_stack as es
+    dev = torch.device("cuda", 0)
+
+    def step(cfg, B, seed):
+        gen = torch.Generator().manual_seed(seed)
+        params = init_emformer_params(gen, cfg, dev)
+        mem, lck, lcv, length = _stack_inputs(cfg, B, gen, dev)
+        T = cfg.segment_length + cfg.right_context_length
+        x = torch.randn((B, T, cfg.d_model), generator=gen).to(dev)
+        kw = _stack_kw(cfg)
+        return lambda: es.emformer_stack(params, x, mem, lck, lcv, length,
+                                         **kw)
+
+    f32_512 = step(EmformerConfig(compute_dtype=torch.float32), B_SLOTS, 1)
+    ms_512 = device_times(f32_512, 3, need="gemm_f32")[0]
+    del f32_512
+    torch.cuda.empty_cache()
+    digest, ms_bf16 = stack_digest(EmformerConfig(compute_dtype=torch.bfloat16),
+                                   B_SLOTS, 0, dev, "A vi bf16 L=20")
+    b1 = step(ASRConfig.vietnamese().encoder.emformer, 1, 2)
+    dev_b1 = device_times(b1, 5, need="attention")[0]
+    model = ASRModel(seed=0, device=dev)
+    wave = _speechlike(10.0, seed=3)
+    model.emissions(wave)
+    runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.emissions(wave)
+        runs.append(time.perf_counter() - t0)
+    pkg = os.path.relpath(os.path.dirname(os.path.dirname(es.__file__)), HERE)
+    log(f"[compare] {pkg}: A vi f32 L=20 at 512 slots {ms_512:.3f} ms device; A vi bf16 "
+        f"{ms_bf16:.3f} ms device, sha256 {digest[:16]}; A f32 B=1 "
+        f"{dev_b1:.3f} ms device; "
+        f"ASRModel {sorted(runs)[2] * 100:.3f} ms per second of audio "
+        f"(median of 5)")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4436,11 +4645,12 @@ def main() -> None:
     if en:
         phase_kernels_en(gen, device, kernels)
     if vi or en:
-        gemm = phase_gemm(gen, device)
+        gemm, gemm_f32 = phase_gemm(gen, device)
         int8 = phase_int8(gen, device)
         for k in kernels:
             if k["name"] == "emformer_stack":
                 k["gemm"] = gemm
+                k["gemm_f32"] = gemm_f32
             if k["name"] == "emformer_stack_int8":
                 k["int8"] = int8
 

@@ -433,6 +433,95 @@ def test_gemm_bf16_config_fills_the_card():
             assert es.GEMM_TILES[c][0] == 64, (M, N, es.GEMM_TILES[c])
 
 
+# A's f32 products: the offline API's five at B = 1 and B = 3 (the
+# split-K kernel), a 512-slot one (tiled), ragged ones (N and K off the
+# tile and slice edges; N % 4 = 2, tiled) and each activation
+GEMM_F32_SHAPES = {
+    "b1_q": (21, 512, 512, None), "b1_kv": (24, 512, 1024, None),
+    "b1_ffn1": (20, 512, 2048, "gelu"), "b1_ffn2": (20, 2048, 512, None),
+    "b3_kv": (72, 512, 1024, None), "b3_ffn2": (60, 2048, 512, None),
+    "slots512_q": (10752, 512, 512, None),
+    "ragged": (37, 200, 136, None), "ragged_tiled": (30, 202, 130, None),
+    "rows128": (128, 2048, 512, "relu"), "silu": (45, 512, 264, "silu"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(GEMM_F32_SHAPES))
+def test_gemm_f32_matches_plain_within_its_bound(name):
+    """The f32 product against ``gemm_f32_plain`` summed in the kernel's
+    K-slice order, within ``gemm_f32_error_bound`` (only the f32 sum order
+    differs); a second call equal bit for bit (the split-K reduction is
+    deterministic); the tiled kernel forced within the same bound."""
+    dev = _cuda()
+    M, K, N, act = GEMM_F32_SHAPES[name]
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.standard_normal((K, N)) / np.sqrt(K)).astype(
+        np.float32)).to(dev)
+    bias = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(dev)
+    want = es.gemm_f32_plain(x, w, bias, act,
+                             splits=es.gemm_f32_config(M, N, K))
+    bound = es.gemm_f32_error_bound(x, w, want, act)
+    got = es.gemm_f32(x, w, bias, act)
+    assert torch.equal(es.gemm_f32(x, w, bias, act), got)
+    for y in (got, es.gemm_f32(x, w, bias, act, 0)):
+        torch.cuda.synchronize()
+        assert y.dtype == torch.float32 and y.shape == (M, N)
+        assert torch.isfinite(y).all()
+        err = (y - want).abs()
+        assert bool((err <= bound).all()), (
+            f"{int((err > bound).sum())} of {err.numel()} beyond the bound, "
+            f"max {float((err / bound).max()):.2f} x the bound")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", [(512, 512), (512, 1024), (512, 2048),
+                                 (2048, 512)])
+def test_gemm_f32_rows_do_not_depend_on_the_rows_beside_them(K, N):
+    """The split depends on (N, K) only: the first 21 rows of a 63- and
+    a 128-row product equal the 21-row product bit for bit."""
+    dev = _cuda()
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(rng.standard_normal((128, K)).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.standard_normal((K, N)) / np.sqrt(K)).astype(
+        np.float32)).to(dev)
+    bias = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(dev)
+    one = es.gemm_f32(x[:21], w, bias, "gelu")
+    for rows in (63, 128):
+        assert torch.equal(es.gemm_f32(x[:rows], w, bias, "gelu")[:21], one)
+
+
+@pytest.mark.gpu
+def test_emformer_stack_f32_slot_bits_do_not_depend_on_the_batch():
+    """Slot 0 of a B = 3 f32 step equals a B = 1 step of that slot, bit
+    for bit (the offline API's batch; every product on the split-K
+    kernel)."""
+    dev = _cuda()
+    cfg = te.EmformerConfig(**VI, compute_dtype=torch.float32)
+    params = te.init_emformer_params(torch.Generator().manual_seed(0), cfg,
+                                     dev)
+    rng = np.random.default_rng(23)
+    B, T = 3, cfg.segment_length + cfg.right_context_length
+    st = te.init_emformer_state(cfg, B, dev)
+    mem, lck, lcv = (torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(
+        np.float32)).to(dev) for t in (st.mem, st.lc_k, st.lc_v))
+    x = torch.from_numpy(rng.standard_normal((B, T, cfg.d_model)).astype(
+        np.float32)).to(dev)
+    length = torch.tensor([9, 20, 3], dtype=torch.int32, device=dev)
+    kw = dict(U=cfg.segment_length, R=cfg.right_context_length,
+              M=cfg.max_memory_size, Lc=cfg.left_context_length,
+              H=cfg.num_heads, use_mem=cfg.use_mem,
+              tanh_on_mem=cfg.tanh_on_mem, neg_inf=cfg.negative_inf,
+              activation=cfg.activation, cdt=torch.float32)
+    three = es.emformer_stack(params, x, mem, lck, lcv, length, **kw)
+    one = es.emformer_stack(params, x[:1], mem[:, :1], lck[:, :1],
+                            lcv[:, :1], length[:1], **kw)
+    assert torch.equal(three[0][:1], one[0])
+    for a, b in zip(three[1:], one[1:]):
+        assert torch.equal(a[:, :1], b)
+
+
 # The W8A8 products: the ten serving shapes, a ragged one (K = 208, no
 # multiple of 128), the tiny geometry of these tests (d_model 64, ffn 96,
 # kv 128) and each activation.
@@ -597,7 +686,7 @@ def test_sharded_step_on_two_cards_equals_one_card():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("wrapper", ["stack", "layer", "attention", "append",
-                                     "row_topk", "gemm_bf16"])
+                                     "row_topk", "gemm_bf16", "gemm_f32"])
 def test_kernels_refuse_a_call_autograd_would_record(wrapper):
     """Fault 16: a kernel has no backward, so with gradients on and an
     input that requires grad the wrapper raises before it launches; under
@@ -643,11 +732,14 @@ def test_kernels_refuse_a_call_autograd_would_record(wrapper):
                                                  device=dev))
         if wrapper == "row_topk":
             return cuda_row_topk(xx.reshape(-1, D), 4)
+        if wrapper == "gemm_f32":
+            return es.gemm_f32(xx.reshape(-1, D), p["w_q"][0], p["b_q"][0])
         return es.gemm_bf16(xx.reshape(-1, D), p["w_q"][0], p["b_q"][0])
 
     before = kernels.launch_counts()
     with pytest.raises(RuntimeError, match="no backward"):
-        call(grad_params if wrapper in ("stack", "layer", "gemm_bf16")
+        call(grad_params if wrapper in ("stack", "layer", "gemm_bf16",
+                                        "gemm_f32")
              else params, x.clone().requires_grad_(True))
     assert kernels.launch_counts() == before
     with torch.no_grad():
