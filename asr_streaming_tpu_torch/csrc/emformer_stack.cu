@@ -23,43 +23,56 @@
 // 1,979 TOP/s int8 peak, the attention products still bf16).
 //
 // What the design does about it: the five bf16 products of a layer run on
-// one Hopper GEMM (gemm_bf16_wgmma_kernel: persistent blocks, TMA loads
-// into a ring of 128-byte-swizzled stages, a producer warp and one or two
-// wgmma consumer warpgroups, the bias / activation epilogue through a
-// shared-memory output tile and 16-byte coalesced stores, the tile shape
-// picked per product: 128 rows by 256 or 128 columns for the shortest
-// makespan over the SMs, 64-row tiles where 128-row ones cannot fill the
-// SMs, the 64x128 tile two blocks an SM so that one block's epilogue
-// overlaps the other's products); the
-// attention runs on the core it shares with kernel D
-// (emformer_attention_core.cuh), in bf16 on the tensor cores (mma.sync);
-// the W8A8 products run a row-quantiser kernel and the same GEMM on int8
-// (gemm_int8_wgmma_kernel: the ring, producer and tiles of the bf16 one,
-// wgmma m64n{128,256}k32 s8 with exact s32 sums, the dequant epilogue of
-// _qdot; at 1,979 TOP/s the int8 peak is twice the bf16 one).  In f32
-// (the offline API: 1-3 slots, 20-72 rows a product) the work is bound by
-// the weights' bytes, and a product of up to 128 rows runs on a split-K
-// kernel that streams them over the whole card (gemm_f32_splitk_kernel,
-// note below); more rows take the tiled f32 kernel.  The
-// Pallas kernel's VMEM-resident megakernel does not translate (a block has
-// 227 KB of shared memory, the TPU tile had ~100 MB of VMEM), so one layer
-// is a short chain of simple kernels: ln_in -> gemm(q) -> gemm(kv) ->
-// state_roll -> attention -> gemm(out) -> residual_ffn_ln ->
-// gemm(ffn1+act) -> gemm(ffn2) -> out_ln.  That chain is run_layer(); the
-// C entry asr_emformer_layer runs it once (kernel C, one launch per layer
-// from the host) and asr_emformer_stack loops it over the layers in one
-// host call (kernel A), so the two cannot drift apart.  Inter-layer
-// activations stay in f32 device scratch.  The state roll writes new
-// buffers (no in-place shift across threads).  In W8A8 mode the quantiser
-// reads the f32 LN outputs for wq and ffw1 (ln_in and residual_ffn_ln then
-// also write f32 copies) and the compute-type values for wkv, wout and
-// ffw2, as _qdot(x.astype(f32)) does.  The Mosaic tiling knobs (tile,
+// one Hopper GEMM (gemm_bf16_wgmma_kernel: persistent blocks, one an SM,
+// TMA loads into a ring of 128-byte-swizzled stages, a producer warp, and
+// two consumer warpgroups that take the block's tiles in turn, a whole
+// tile each: a ping-pong, so that one warpgroup's epilogue (the bias, the
+// roundings, the activation, the TMA stores) runs while the other's
+// wgmma do).  The main loop is bound by the bytes the SMs load from L2
+// (about 11 TB/s over the card at every serving product), so the tile
+// per product is the one whose busiest SM loads the fewest bytes, 128x128
+// or 64x128 (gemm_config), and a layer's q and kv products share one
+// launch, their tiles one list, which at the EN shape (2,560 rows) puts
+// a tile on every SM.  The epilogue's bias and scales load under the main
+// loop (load_ep); its GELU and SiLU read a table of all 65,536 bf16
+// inputs built once per card (act_lookup).  The epilogue shares the SM's
+// shared memory with the other warpgroup's main loop (wgmma operands, TMA
+// stages), and that, not its arithmetic, is what it waits on: the
+// activation's table reads still hold ffn1 at about twice its main loop.
+// Computing the activation (tanhf, or exact fast arithmetic away from
+// rounding midpoints), or applying it in the unrolled first pass, was
+// slower on the card.  The other design measured, both warpgroups on one
+// 128x256 tile with an asynchronous TMA-store epilogue, was slower at
+// every serving product (tools/gemm_epilogue.py; PERF.md).  The attention runs on the core it
+// shares with kernel D (emformer_attention_core.cuh), in bf16 on the
+// tensor cores (mma.sync); the W8A8 products run a row-quantiser kernel
+// and the same GEMM on int8 (gemm_int8_wgmma_kernel: wgmma m64n128k32 s8
+// with exact s32 sums, the dequant epilogue of _qdot; at 1,979 TOP/s the
+// int8 peak is twice the bf16 one).  In f32 (the offline API: 1-3 slots,
+// 20-72 rows a product) the work is bound by the weights' bytes, and a
+// product of up to 128 rows runs on a split-K kernel that streams them
+// over the whole card (gemm_f32_splitk_kernel, note below); more rows
+// take the tiled f32 kernel.  The Pallas kernel's VMEM-resident
+// megakernel does not translate (a block has 227 KB of shared memory, the
+// TPU tile had ~100 MB of VMEM), so one layer is a short chain of simple
+// kernels: ln_in -> gemm(q, kv) -> state_roll -> attention -> gemm(out)
+// -> residual_ffn_ln -> gemm(ffn1+act) -> gemm(ffn2) -> out_ln.  That
+// chain is run_layer(); the C entry asr_emformer_layer runs it once
+// (kernel C, one launch per layer from the host) and asr_emformer_stack
+// loops it over the layers in one host call (kernel A), so the two cannot
+// drift apart.  Inter-layer activations stay in f32 device scratch.  The
+// state roll writes new buffers (no in-place shift across threads).  In
+// W8A8 mode the quantiser reads the f32 LN outputs for wq and ffw1
+// (ln_in and residual_ffn_ln then also write f32 copies) and the
+// compute-type values for wkv, wout and ffw2, as _qdot(x.astype(f32))
+// does, and q and kv run as two launches.  The Mosaic tiling knobs (tile,
 // layers_per_step, ffn_slices) carry no semantics and are not reproduced.
-// Not yet done: the epilogue of the one-block-an-SM tiles overlapped with
-// the next tile's products (two consumer warpgroups on alternate tiles),
-// the row kernels (and the W8A8 row quantiser) fused into the GEMMs'
-// prologues and epilogues, one persistent launch for all layers, TMA
-// multicast of the weight tiles across a cluster.
+// Not yet done: a main loop nearer the bf16 peak (it runs at 55-65% of
+// it, bound by L2 bytes).  Clusters of two blocks sharing each W slice by
+// TMA multicast (a stage refilled once both blocks released it) held the
+// digests but ran slower on the card, and were not kept.  Also the row
+// kernels (and the W8A8 row quantiser) fused into the GEMMs' prologues and
+// epilogues, one persistent launch for all layers.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -152,26 +165,23 @@ __device__ __forceinline__ void warp_layer_norm(float (&v)[kMaxPerLane], int D,
 // bf16 on Hopper: C = epilogue(A . Wt^T) with the weight K-major, Wt
 // [L, N, K] (the wrapper's copy of the [in, out] weight, transposed once
 // per params object), the product reading layer `layer`.  Persistent
-// blocks, as many as fit on the SMs, walk the output tiles (BM = 64 * NC
-// rows by BN columns, the tile index striding by the grid).  TMA copies 64-deep K slices of A
-// and Wt (128 bytes of bf16 per row, 128-byte swizzle) into a ring of ST
-// stages that runs on across tiles; one producer warp keeps it full,
-// mbarriers marking each stage full (TMA bytes landed) and empty (every
-// consumer warpgroup's wgmma done with it), so the next tile's loads are
-// in flight while the consumers run this tile's epilogue.  NC consumer
-// warpgroups each run wgmma m64nBNk16 (bf16 in, f32 accumulators in
-// registers) on 64 rows of the tile, one K slice's group in flight while
-// they wait for the next slice.  The epilogue keeps epilogue_v<bf16>'s
-// rounding: the accumulators, rounded and with the bias added in bf16, go
-// to a bf16 output tile in shared memory; a loop over its 16-byte chunks
-// then applies the activation (rounded again; GELU and SiLU from a table
-// in shared memory, act_lookup) and stores them, a warp writing 512 contiguous
-// bytes.  (Unrolled over the accumulators, an inlined activation swamped
-// the instruction cache, and a called one ran one element at a time.)
-// Needs K % 8 == 0 and N % 8 == 0 (16-byte TMA strides, whole 16-byte
-// output vectors).  The W8A8 product (gemm_int8_wgmma_kernel) is the same
+// blocks, one an SM, walk the output tiles (the tile index striding by
+// the grid); a launch may hold two products with the same K, their tiles
+// one list (GemmLaunch: a layer's q and kv).  TMA copies 64-deep K slices
+// of A and Wt (128 bytes of bf16 per row, 128-byte swizzle) into a ring of
+// ST stages that runs on across tiles; one producer warp keeps it full,
+// mbarriers marking each stage full (TMA bytes landed) and empty (its
+// consumer's wgmma done with it).  Two consumer warpgroups take the
+// block's tiles in turn, a whole WM x BN tile each (wgmma m64n128k16, bf16
+// in, f32 accumulators in registers, one K slice's group in flight), so
+// that one's epilogue runs under the other's products (gemm_body).  The
+// epilogue keeps epilogue_v<bf16>'s rounding: round(acc) + bias in bf16
+// into the warpgroup's swizzled output tile in shared memory, then the
+// activation of that, rounded (GELU and SiLU from a table: act_lookup),
+// then TMA stores.  Needs K % 8 == 0 and N % 8 == 0 (16-byte
+// TMA strides).  The W8A8 product (gemm_int8_wgmma_kernel) is the same
 // kernel on int8 operands: 128-deep K slices (the same 128 bytes a row),
-// wgmma m64nBNk32 s8 with s32 sums, the dequant in the epilogue's first
+// wgmma m64n128k32 s8 with s32 sums, the dequant in the epilogue's first
 // pass; it needs K % 16 == 0.
 namespace gemm90 {
 
@@ -274,42 +284,10 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       : "l"(da), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
-}
-
 template <int BN>
 __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da, uint64_t db) {
-  if constexpr (BN == 256) wgmma_m64n256k16(d, da, db);
-  else wgmma_m64n128k16(d, da, db);
+  static_assert(BN == 128, "the tiles are 128 columns wide");
+  wgmma_m64n128k16(d, da, db);
 }
 
 // D[64 x N] += A[64 x 32] . B[N x 32]^T in int8 with s32 sums (exact),
@@ -334,127 +312,325 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da, u
       : "l"(da), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
-        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
-        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
-        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
-        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
-        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
-        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
-        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
-        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
-      : "l"(da), "l"(db), "r"(1));
-}
-
 template <int BN>
 __device__ __forceinline__ void wgmma_tile(int (&d)[BN / 2], uint64_t da, uint64_t db) {
-  if constexpr (BN == 256) wgmma_m64n256k32_s8(d, da, db);
-  else wgmma_m64n128k32_s8(d, da, db);
+  static_assert(BN == 128, "the tiles are 128 columns wide");
+  wgmma_m64n128k32_s8(d, da, db);
 }
 
-// the output tile's row stride in shared memory: 16 bytes of padding put
-// the eight rows a quad of lanes writes on different banks
-template <int BN>
-__host__ __device__ constexpr int c_stride() { return BN + 8; }
-
 // The epilogue's GELU or SiLU, round(act(v)) of a bf16 v, is a function
-// of 16 bits.  Each block tabulates it in shared memory with activate() for
-// |v| in [2^-14, 16) (biased exponents kLutE0 .. kLutE0 + kLutExps - 1,
-// both signs) and computes it for the rest (zeros, the smallest values,
-// |v| >= 16: rare after a layer norm), so the table gives the same bits.
-// One shared-memory read takes the place of a tanh or an exp (ReLU is
-// computed: cheaper than the table's fill).
+// of 16 bits, tabulated once per card with activate() for all 65,536 v
+// (g_act_table, act_table_kernel, run by gemm_setup), so a lookup gives
+// the bits a computed activation gives.  A block copies the part that
+// serving outputs fall in, |v| in [2^-14, 16) (biased exponents kLutE0 ..
+// kLutE0 + kLutExps - 1, both signs: two contiguous runs of the table),
+// into shared memory while its first slices load; the rest (zeros, the
+// smallest values, |v| >= 16, not finite: rare after a layer norm) is
+// read from the table in device memory.  One read takes the place of a
+// tanh or an exp, and no call or inlined tanh sits in the unrolled
+// epilogue (an inlined activation there swamped the instruction cache;
+// ReLU is computed).
 constexpr int kLutE0 = 113, kLutExps = 18;
 constexpr int kLutEntries = 2 * kLutExps * 128;
+
+__device__ __align__(16) uint16_t g_act_table[2][65536];       // GELU, SiLU
 
 __device__ __forceinline__ uint32_t act_bits(uint32_t h, int act) {
   return attn_core::pack_bf16x2(activate(__uint_as_float(h << 16), act), 0.f) & 0xffffu;
 }
 
-__device__ __forceinline__ uint32_t act_lookup(const uint16_t* lut, uint32_t h, int act) {
+__global__ void act_table_kernel() {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < 2 * 65536)
+    g_act_table[i >> 16][i & 0xffff] = (uint16_t)act_bits(i & 0xffff, i >> 16 ? ACT_SILU : ACT_GELU);
+}
+
+// round(act(v)) of the bf16 bits h: the block's shared-memory part of the
+// table, else the table in device memory
+__device__ __forceinline__ uint32_t act_lookup(const uint16_t* lut, const uint16_t* table,
+                                               uint32_t h) {
   const uint32_t e = ((h >> 7) & 0xffu) - kLutE0;
-  if (e < (uint32_t)kLutExps) return lut[((h >> 15) * kLutExps + e) * 128 + (h & 127u)];
-  return act_bits(h, act);
+  return e < (uint32_t)kLutExps ? lut[((h >> 15) * kLutExps + e) * 128 + (h & 127u)]
+                                : __ldg(table + h);
 }
 
-template <int NC, int BN, int ST>
+// the activation of two packed bf16 values (ReLU computed: act_bits'
+// arithmetic without its other branches)
+__device__ __forceinline__ uint32_t relu_bits(uint32_t h) {
+  return attn_core::pack_bf16x2(fmaxf(__uint_as_float(h << 16), 0.f), 0.f) & 0xffffu;
+}
+
+__device__ __forceinline__ uint32_t act_pair(uint32_t w, int act, const uint16_t* lut,
+                                             const uint16_t* table) {
+  if (act == ACT_RELU) return relu_bits(w & 0xffffu) | (relu_bits(w >> 16) << 16);
+  return act_lookup(lut, table, w & 0xffffu) | (act_lookup(lut, table, w >> 16) << 16);
+}
+
+// the block's copy of the table's serving part (GELU or SiLU), read after
+// the barrier that follows it
+__device__ __forceinline__ void load_act_lut(uint16_t* lut, int act, int tid, int threads) {
+  constexpr int kRun = kLutExps * 128 * 2 / 16;                  // uint4 a sign
+  const uint16_t* table = g_act_table[act == ACT_GELU ? 0 : 1];
+  for (int i = tid; i < 2 * kRun; i += threads) {
+    const int sign = i / kRun;
+    reinterpret_cast<uint4*>(lut)[i] = reinterpret_cast<const uint4*>(
+        table + (sign << 15) + (kLutE0 << 7))[i % kRun];
+  }
+}
+
+// act < 0 (kActSkip): the product's main loop alone, no epilogue and no
+// output written (asr_gemm_bf16 / asr_w8a8_linear timing only)
+constexpr int kActSkip = -1;
+
+// an asynchronous B-byte copy global -> shared (B = 4, 8 or 16), zero
+// filled where !valid (nothing is read); waited for by cp.async.wait_all
+template <int B>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "n"(B), "r"(valid ? B : 0)
+               : "memory");
+}
+
+// A warpgroup's epilogue operands of one tile in shared memory, copied
+// while its main loop runs: the bias (bf16, BN), the weights' scales
+// (f32, BN) and the rows' scales (f32, WM: W8A8), zero past N and M.
+constexpr int kEpBytes = 256 * 6 + 128 * 4;
+
+template <int WM, int BN, bool kInt8>
+__device__ __forceinline__ void load_ep(unsigned char* ep, const bf16* __restrict__ bias,
+                                        const float* __restrict__ as,
+                                        const float* __restrict__ ws, int m0, int n0, int M,
+                                        int N, int tid) {
+  for (int i = tid; i < BN / 2; i += 128) {
+    const int n = n0 + 2 * i;
+    const bool ok = n < N;
+    cp_async<4>(ep + 4 * i, ok ? bias + n : bias, ok);
+    if constexpr (kInt8) cp_async<8>(ep + BN * 2 + 8 * i, ok ? ws + n : ws, ok);
+  }
+  if constexpr (kInt8)
+    for (int i = tid; i < WM; i += 128) {
+      const bool ok = m0 + i < M;
+      cp_async<4>(ep + BN * 6 + 4 * i, ok ? as + m0 + i : as, ok);
+    }
+}
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// one box of shared memory into a 3-d tensor map: an asynchronous bulk
+// store, committed and waited for by the thread that issues it
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(0)
+      : "memory");
+}
+
+// A warpgroup's bf16 output tile in shared memory, as the output's tensor
+// map stores it: BN / 64 boxes of [WM rows][128 bytes] (64 columns), each
+// 128-byte swizzled (16-byte chunk c of row r at c ^ (r % 8)), so that a
+// quad of lanes writing eight rows, or eight lanes reading a row's 16-byte
+// chunks, hit 32 banks.  Byte offset of column c of row r:
+template <int WM>
+__device__ __forceinline__ uint32_t out_offset(int r, int c) {
+  const int cc = c & 63;
+  return (uint32_t)((c >> 6) * WM * 128 + r * 128 + (((cc >> 3) ^ (r & 7)) << 4) + (cc & 7) * 2);
+}
+
+// The epilogue's first pass, a warpgroup's 64-row block of accumulators
+// (rows r0 .. r0 + 63 of its tile) taken to round(v) + bias in bf16 into
+// the output tile, the bias and the scales from the warpgroup's operand
+// copy ep (load_ep).  Lane (warp wi, quad lane q) holds rows 16 wi + lane
+// / 4 and 8 below, columns 8j + 2q and 8j + 2q + 1 of every 8-column group
+// j (d[4j .. 4j+3]).  The int8 accumulators are dequantised as _qdot
+// does, (float)acc * as[m] * ws[n] with no contraction (the row scale
+// first).  Unrolled over the accumulators, it holds nothing else: the
+// activation is a pass of its own (an unrolled one swamped the
+// instruction cache).
+template <int WM, int BN, typename Acc>
+__device__ __forceinline__ void stage_rows(const Acc (&d)[BN / 2], unsigned char* tile, int r0,
+                                           const unsigned char* ep) {
+  constexpr bool kInt8 = std::is_same<Acc, int>::value;
+  const int lane = threadIdx.x & 31, q = lane & 3;
+  const int rl = r0 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  float rs[2] = {1.f, 1.f};
+  if constexpr (kInt8) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      rs[h] = reinterpret_cast<const float*>(ep + BN * 6)[rl + 8 * h];
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int nl = 8 * j + 2 * q;
+    const __nv_bfloat162 bb = reinterpret_cast<const __nv_bfloat162*>(ep)[nl / 2];
+    const float b0 = __low2float(bb), b1 = __high2float(bb);
+    float w0 = 1.f, w1 = 1.f;
+    if constexpr (kInt8) {
+      const float2 ww = reinterpret_cast<const float2*>(ep + BN * 2)[nl / 2];
+      w0 = ww.x;
+      w1 = ww.y;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v0, v1;
+      if constexpr (kInt8) {
+        v0 = __fmul_rn(__fmul_rn(__int2float_rn(d[4 * j + 2 * h]), rs[h]), w0);
+        v1 = __fmul_rn(__fmul_rn(__int2float_rn(d[4 * j + 2 * h + 1]), rs[h]), w1);
+      } else {
+        v0 = d[4 * j + 2 * h];
+        v1 = d[4 * j + 2 * h + 1];
+      }
+      *reinterpret_cast<uint32_t*>(tile + out_offset<WM>(rl + 8 * h, nl)) =
+          attn_core::pack_bf16x2(epilogue_v<bf16>(v0, b0, ACT_NONE),
+                                 epilogue_v<bf16>(v1, b1, ACT_NONE));
+    }
+  }
+}
+
+// The activation pass over a warpgroup's output tile, in place: each
+// value's activation, rounded (act_pair), 16 bytes a thread at a time; a
+// rolled loop, two chunks in flight a thread.
+template <int WM, int BN>
+__device__ __forceinline__ void activate_tile(unsigned char* tile, int act, const uint16_t* lut,
+                                              const uint16_t* table) {
+#pragma unroll 2
+  for (int c = threadIdx.x & 127; c < WM * BN / 8; c += 128) {
+    const int r = c / (BN / 8);
+    uint4* p = reinterpret_cast<uint4*>(tile + out_offset<WM>(r, (c % (BN / 8)) * 8));
+    uint4 u = *p;
+    u.x = act_pair(u.x, act, lut, table);
+    u.y = act_pair(u.y, act, lut, table);
+    u.z = act_pair(u.z, act, lut, table);
+    u.w = act_pair(u.w, act, lut, table);
+    *p = u;
+  }
+}
+
+// The f32-output epilogue (the float32 configurations' W8A8 products, not
+// a serving path): epilogue_v<float> stored from the registers.
+template <int BN>
+__device__ __forceinline__ void store_rows_f32(const int (&d)[BN / 2], int r0,
+                                               const float* __restrict__ bias,
+                                               const float* __restrict__ as,
+                                               const float* __restrict__ ws, float* C, int m0,
+                                               int n0, int M, int N, int act) {
+  const int lane = threadIdx.x & 31, q = lane & 3;
+  const int rl = r0 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + rl + 8 * h;
+    if (m >= M) continue;
+    const float rs = as[m];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * q;
+      if (n >= N) continue;
+      const float2 bb = *reinterpret_cast<const float2*>(bias + n);
+      const float2 ww = *reinterpret_cast<const float2*>(ws + n);
+      const float v0 = __fmul_rn(__fmul_rn(__int2float_rn(d[4 * j + 2 * h]), rs), ww.x);
+      const float v1 = __fmul_rn(__fmul_rn(__int2float_rn(d[4 * j + 2 * h + 1]), rs), ww.y);
+      *reinterpret_cast<float2*>(C + (size_t)m * N + n) =
+          make_float2(epilogue_v<float>(v0, bb.x, act), epilogue_v<float>(v1, bb.y, act));
+    }
+  }
+}
+
+// Shared memory of a tile shape: the ring's ST stages of a WM x 128-byte
+// A slice and a BN x 128-byte W slice, the two consumer warpgroups'
+// output tiles, the activation table's serving part, the warpgroups'
+// epilogue operands, the stages' barriers and the 1024-byte alignment of
+// the swizzled stages and output tiles.
+template <int WM, int BN, int ST>
 constexpr size_t smem_bytes() {
-  return (size_t)ST * (64 * NC + BN) * kBK * 2 + (size_t)64 * NC * c_stride<BN>() * 2 +
-         2 * ST * sizeof(uint64_t) + kLutEntries * sizeof(uint16_t) + 1024;
+  return (size_t)ST * (WM + BN) * kBK * 2 + (size_t)2 * WM * BN * 2 +
+         kLutEntries * sizeof(uint16_t) + 2 * kEpBytes + 2 * ST * sizeof(uint64_t) + 1024;
 }
 
-// the blocks of one shape that fit on an SM in its 228 KB of shared
-// memory (1 KB of it reserved per block): two for the 64x128 tile, so one
-// block's epilogue runs while the other's wgmma do
-template <int NC, int BN, int ST>
-constexpr int blocks_per_sm() {
-  return (int)(233472 / (smem_bytes<NC, BN, ST>() + 1024));
-}
+constexpr int kConsumers = 2;                  // consumer warpgroups a block
+constexpr int kGemmThreads = kConsumers * 128 + 32;
 
-// barrier 1 among the consumer warpgroups (the producer warp never joins)
-template <int NC>
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(NC * 128) : "memory");
-}
+// One product of a GEMM launch: A [M, K] and the stacked weight Wt [L, N,
+// K] as tensor maps (boxes of 128 bytes of K by WM and BN rows), the
+// bias, the W8A8 scales (as [M], ws [N]; int8 only) and C [M, N] (a bf16
+// C also as a tensor map, boxes of 64 columns by WM rows); `end`
+// is one past its last tile in the launch's walk (its tiles follow those
+// of the product before it).
+struct alignas(64) GemmOperand {
+  CUtensorMap a, b, c;                 // c: C's map (bf16 outputs)
+  const void* bias;
+  const float* as;
+  const float* ws;
+  void* C;
+  int M, N, end;
+};
+
+// A launch: one product, or two that share K and the layer (a layer's q
+// and kv products, whose inputs the same row kernel writes), their tiles
+// walked as one list so that the second fills the first's last round.
+struct GemmLaunch {
+  GemmOperand op[2];
+  int count, K, layer, act;
+};
 
 // The product behind both GEMM kernels, on In = bf16 (f32 accumulators)
-// or In = int8 (s32 accumulators, W8A8).  A K slice is 128 bytes of each
-// row in both: 64 bf16 or 128 int8 values, four 32-byte wgmma k steps
-// (k16 bf16, k32 s8).  The epilogue's first pass takes acc to
-// epilogue_v<Out>'s value: the bf16 accumulator as it is; the int8 one
-// dequantised as _qdot does, (float)acc * as[m] * ws[n] with no
-// contraction (the row scale first), each tile's scales read once a
-// thread.  Out = bf16 goes through the output tile (the activation in the
-// second pass, 16-byte stores); Out = f32 (the float32 configurations'
-// W8A8 products, not a serving path) is stored from the registers, the
-// activation computed.
-template <int NC, int BN, int ST, typename In, typename Out>
-__device__ __forceinline__ void gemm_body(const CUtensorMap* tma_a, const CUtensorMap* tma_b,
-                                          int layer, const Out* __restrict__ bias,
-                                          const float* __restrict__ as,
-                                          const float* __restrict__ ws, Out* __restrict__ C,
-                                          int M, int N, int K, int act) {
+// or In = int8 (s32 accumulators, W8A8), as a ping-pong: a block's two
+// consumer warpgroups take its tiles in turn (tile j of the block's walk
+// to warpgroup j % 2), each a whole WM x BN tile (WM / 64 wgmma row
+// blocks), so that one warpgroup's epilogue runs while the other's wgmma
+// do.  The tiles' main loops run in walk order: tile j's starts once
+// tile j - 1's has issued its last slice (named barriers 2 and 3).  That
+// keeps the tensor cores on one tile at a time, and it is what lets the
+// stages' parity waits stand: a warpgroup never waits on a stage more
+// than one use ahead.  A K slice is 128 bytes of each row in both types:
+// 64 bf16 or 128 int8 values, four 32-byte wgmma k steps (k16 bf16, k32
+// s8), every output's sum over the slices in order.  A bf16 output
+// leaves through the warpgroup's own output tile in shared memory: the
+// bias and the roundings from the registers (stage_rows, its bias and
+// scales copied under the main loop by load_ep), the activation in place
+// (activate_tile), then TMA stores that one thread issues; the warpgroup
+// goes on to its next tile at once, and waits for those stores to have
+// read the tile only before it writes the tile again.  An f32 output is
+// stored from the registers.
+template <int WM, int BN, int ST, typename In, typename Out>
+__device__ __forceinline__ void gemm_body(const GemmLaunch& g) {
   constexpr bool kInt8 = std::is_same<In, int8_t>::value;
+  constexpr bool kBf16Out = std::is_same<Out, bf16>::value;
   using Acc = typename std::conditional<kInt8, int, float>::type;
-  constexpr int BM = 64 * NC, CS = c_stride<BN>(), kKE = kBK * 2 / (int)sizeof(In);
-  constexpr uint32_t kStageA = BM * kBK * 2, kStageB = BN * kBK * 2;
+  constexpr int MW = WM / 64, kKE = kBK * 2 / (int)sizeof(In);
+  constexpr uint32_t kStageA = WM * kBK * 2, kStageB = BN * kBK * 2;
+  constexpr uint32_t kTile = WM * BN * 2;
   extern __shared__ unsigned char smem_raw[];
-  // the swizzled tiles start on a 1024-byte boundary
+  // the swizzled stages and output tiles start on a 1024-byte boundary
   const uint32_t base = smem_u32(smem_raw);
   unsigned char* sa = smem_raw + (((base + 1023) & ~1023u) - base);
   unsigned char* sb = sa + ST * kStageA;
-  bf16* ct = reinterpret_cast<bf16*>(sb + ST * kStageB);          // [BM][CS]
-  uint64_t* full = reinterpret_cast<uint64_t*>(ct + BM * CS);
+  unsigned char* ct = sb + ST * kStageB;                             // [2][kTile]
+  uint16_t* lut = reinterpret_cast<uint16_t*>(ct + kConsumers * kTile);  // [kLutEntries]
+  unsigned char* eps = reinterpret_cast<unsigned char*>(lut + kLutEntries);  // [2][kEpBytes]
+  uint64_t* full = reinterpret_cast<uint64_t*>(eps + kConsumers * kEpBytes);
   uint64_t* empty = full + ST;
-  uint16_t* lut = reinterpret_cast<uint16_t*>(empty + ST);         // [kLutEntries]
-  const int n_tiles = (N + BN - 1) / BN;
-  const int tiles = ((M + BM - 1) / BM) * n_tiles;
-  const int nk = (K + kKE - 1) / kKE;
+  const int tiles = g.op[g.count - 1].end, act = g.act;
+  const int nk = (g.K + kKE - 1) / kKE;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // tile t's product and its first row and column
+  auto locate = [&g](int t, int& m0, int& n0) -> const GemmOperand& {
+    const int i = g.count > 1 && t >= g.op[0].end;
+    const GemmOperand& op = g.op[i];
+    const int tl = t - (i ? g.op[0].end : 0), n_tiles = (op.N + BN - 1) / BN;
+    m0 = (tl / n_tiles) * WM;
+    n0 = (tl % n_tiles) * BN;
+    return op;
+  };
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], NC);
+      mbar_init(&empty[s], 1);        // the slice's warpgroup releases it
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -462,162 +638,138 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* tma_a, const CUtens
 
   // k-slice it (counted across this block's tiles) sits in stage it % ST,
   // the (it / ST)-th use of that stage
-  if (warp == 4 * NC) {                 // producer warp: one lane issues
+  if (warp == 4 * kConsumers) {         // producer warp: one lane issues
     if (lane == 0) {
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(tma_a))
-                   : "memory");
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(tma_b))
-                   : "memory");
+      for (int i = 0; i < g.count; ++i) {
+        asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&g.op[i].a))
+                     : "memory");
+        asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&g.op[i].b))
+                     : "memory");
+        if (kBf16Out)
+          asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&g.op[i].c))
+                       : "memory");
+      }
       int it = 0;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int m0 = (t / n_tiles) * BM, n0 = (t % n_tiles) * BN;
+        int m0, n0;
+        const GemmOperand& op = locate(t, m0, n0);
         for (int kt = 0; kt < nk; ++kt, ++it) {
           const int s = it % ST;
           if (it >= ST) mbar_wait(&empty[s], ((it / ST) + 1) & 1);
           mbar_expect_tx(&full[s], kStageA + kStageB);
-          tma_load_3d(sa + s * kStageA, tma_a, &full[s], kt * kKE, m0, 0);
-          tma_load_3d(sb + s * kStageB, tma_b, &full[s], kt * kKE, n0, layer);
+          tma_load_3d(sa + s * kStageA, &op.a, &full[s], kt * kKE, m0, 0);
+          tma_load_3d(sb + s * kStageB, &op.b, &full[s], kt * kKE, n0, g.layer);
         }
       }
     }
     return;
   }
 
-  // the activation table (bf16 outputs), read after the first tile's
-  // consumers_sync
-  const bool use_lut =
-      std::is_same<Out, bf16>::value && (act == ACT_GELU || act == ACT_SILU);
-  if (use_lut)
-    for (int i = threadIdx.x; i < kLutEntries; i += NC * 128) {
-      const uint32_t sign = i / (kLutExps * 128), r = i % (kLutExps * 128);
-      lut[i] = (uint16_t)act_bits((sign << 15) | ((r / 128 + kLutE0) << 7) | (r % 128), act);
-    }
+  // the activation table's serving part (bf16 outputs), copied while the
+  // first slices load, in before either warpgroup's first epilogue
+  const bool use_lut = kBf16Out && (act == ACT_GELU || act == ACT_SILU);
+  const uint16_t* table = g_act_table[act == ACT_SILU ? 1 : 0];
+  if (use_lut) {
+    load_act_lut(lut, act, threadIdx.x, kConsumers * 128);
+    bar_sync(1, kConsumers * 128);
+  }
 
-  // consumer warpgroup wg: rows m0 + 64 * wg .. + 63 of each tile
   const int wg = warp >> 2;
   const bool leader = (threadIdx.x & 127) == 0;
-  int it = 0;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int m0 = (t / n_tiles) * BM, n0 = (t % n_tiles) * BN;
-    Acc d[BN / 2];
+  unsigned char* cw = ct + wg * kTile;                             // this warpgroup's tile
+  unsigned char* ep = eps + wg * kEpBytes;                         // and its operands
+  const int mine = blockIdx.x < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  for (int j = wg; j < mine; j += kConsumers) {
+    int m0, n0;
+    const GemmOperand& op = locate(blockIdx.x + j * gridDim.x, m0, n0);
+    const Out* bias = static_cast<const Out*>(op.bias);
+    const int M = op.M, N = op.N;
+    Acc d[MW][BN / 2];
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) d[i] = 0;
-    fence_acc(d);
+    for (int mi = 0; mi < MW; ++mi) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) d[mi][i] = 0;
+      fence_acc(d[mi]);
+    }
+    // the epilogue's operands load under the main loop
+    if constexpr (kBf16Out) {
+      if (act >= 0) {
+        load_ep<WM, BN, kInt8>(ep, bias, op.as, op.ws, m0, n0, M, N, threadIdx.x & 127);
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+      }
+    }
+    // tile j's main loop after tile j - 1's last slice was issued
+    if (j > 0) bar_sync(2 + (j & 1), kConsumers * 128);
+    int it = j * nk;
     for (int kt = 0; kt < nk; ++kt, ++it) {
       const int s = it % ST;
       mbar_wait(&full[s], (it / ST) & 1);
-      const unsigned char* a = sa + s * kStageA + wg * 64 * 128;
+      const unsigned char* a = sa + s * kStageA;
       const unsigned char* b = sb + s * kStageB;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)                 // 32 bytes of K a step
-        wgmma_tile<BN>(d, sw128_desc(a + kk * 32), sw128_desc(b + kk * 32));
+#pragma unroll
+        for (int mi = 0; mi < MW; ++mi)
+          wgmma_tile<BN>(d[mi], sw128_desc(a + mi * 64 * 128 + kk * 32), sw128_desc(b + kk * 32));
       wgmma_commit();
       // the previous slice's group is done: its stage goes back
       wgmma_wait<1>();
-      fence_acc(d);
+#pragma unroll
+      for (int mi = 0; mi < MW; ++mi) fence_acc(d[mi]);
       if (kt > 0 && leader) mbar_arrive(&empty[(it - 1) % ST]);
     }
+    if (j + 1 < mine) bar_arrive(2 + ((j + 1) & 1), kConsumers * 128);
     wgmma_wait<0>();
-    fence_acc(d);
+#pragma unroll
+    for (int mi = 0; mi < MW; ++mi) fence_acc(d[mi]);
     if (leader) mbar_arrive(&empty[(it - 1) % ST]);
+    if (act < 0) continue;
 
-    // epilogue, 1: lane (warp wi, quad lane q) holds rows r and r + 8,
-    // columns 8j + 2q and 8j + 2q + 1 of every 8-column group j
-    // (d[4j .. 4j+3])
-    const int q = lane & 3, rl = wg * 64 + (warp & 3) * 16 + (lane >> 2);
-    float rs[2] = {1.f, 1.f};           // the int8 rows' scales
-    if constexpr (kInt8) {
+    if constexpr (kBf16Out) {
+      // the operands are in, and the stores of the tile before have read
+      // the output tile
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      if (leader) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      bar_sync(4 + wg, 128);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) rs[h] = m0 + rl + 8 * h < M ? as[m0 + rl + 8 * h] : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int nl = 8 * j + 2 * q;
-      float b0 = 0.f, b1 = 0.f, w0 = 1.f, w1 = 1.f;
-      if (n0 + nl < N) {
-        if constexpr (std::is_same<Out, bf16>::value) {
-          const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(bias + n0 + nl);
-          b0 = __low2float(bb);
-          b1 = __high2float(bb);
-        } else {
-          const float2 bb = *reinterpret_cast<const float2*>(bias + n0 + nl);
-          b0 = bb.x;
-          b1 = bb.y;
-        }
-        if constexpr (kInt8) {
-          const float2 ww = *reinterpret_cast<const float2*>(ws + n0 + nl);
-          w0 = ww.x;
-          w1 = ww.y;
-        }
+      for (int mi = 0; mi < MW; ++mi) stage_rows<WM, BN, Acc>(d[mi], cw, mi * 64, ep);
+      if (act != ACT_NONE) {
+        bar_sync(4 + wg, 128);
+        activate_tile<WM, BN>(cw, act, lut, table);
       }
+      // the tile's writes, seen by the async proxy, then one thread's stores
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bar_sync(4 + wg, 128);
+      if (leader) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float v0, v1;
-        if constexpr (kInt8) {
-          v0 = __fmul_rn(__fmul_rn(__int2float_rn(d[4 * j + 2 * h]), rs[h]), w0);
-          v1 = __fmul_rn(__fmul_rn(__int2float_rn(d[4 * j + 2 * h + 1]), rs[h]), w1);
-        } else {
-          v0 = d[4 * j + 2 * h];
-          v1 = d[4 * j + 2 * h + 1];
-        }
-        if constexpr (std::is_same<Out, bf16>::value) {
-          // round(v) + bias in bf16 into the output tile
-          *reinterpret_cast<uint32_t*>(ct + (rl + 8 * h) * CS + nl) = attn_core::pack_bf16x2(
-              epilogue_v<bf16>(v0, b0, ACT_NONE), epilogue_v<bf16>(v1, b1, ACT_NONE));
-        } else {
-          const int m = m0 + rl + 8 * h, n = n0 + nl;
-          if (m < M && n < N)
-            *reinterpret_cast<float2*>(C + (size_t)m * N + n) =
-                make_float2(epilogue_v<float>(v0, b0, act), epilogue_v<float>(v1, b1, act));
-        }
+        for (int bx = 0; bx < BN / 64; ++bx)
+          if (n0 + 64 * bx < N) tma_store_3d(&op.c, cw + bx * WM * 128, n0 + 64 * bx, m0);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       }
-    }
-    if constexpr (std::is_same<Out, bf16>::value) {
-      consumers_sync<NC>();
-      // 2: the activation, rounded, and 16-byte stores, a warp writing 512
-      // contiguous bytes of a row
-      for (int c = threadIdx.x; c < BM * BN / 8; c += NC * 128) {
-        const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
-        const int m = m0 + r, n = n0 + col;
-        if (m < M && n < N) {
-          uint4 u = *reinterpret_cast<const uint4*>(ct + r * CS + col);
-          if (act != ACT_NONE) {
-            uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+    } else {
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-              w[i] = use_lut ? act_lookup(lut, w[i] & 0xffffu, act) |
-                                   (act_lookup(lut, w[i] >> 16, act) << 16)
-                             : act_bits(w[i] & 0xffffu, act) | (act_bits(w[i] >> 16, act) << 16);
-          }
-          *reinterpret_cast<uint4*>(C + (size_t)m * N + n) = u;
-        }
-      }
-      consumers_sync<NC>();             // the tile is read before the next is written
+      for (int mi = 0; mi < MW; ++mi)
+        store_rows_f32<BN>(d[mi], mi * 64, bias, op.as, op.ws, static_cast<Out*>(op.C), m0,
+                           n0, M, N, act);
     }
   }
+  // the last stores are done before the block's shared memory goes
+  if (kBf16Out && leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-template <int NC, int BN, int ST>
-__global__ void __launch_bounds__(NC * 128 + 32, (blocks_per_sm<NC, BN, ST>()))
-gemm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
-                       const __grid_constant__ CUtensorMap tma_b, int layer,
-                       const bf16* __restrict__ bias, bf16* __restrict__ C, int M, int N,
-                       int K, int act) {
-  gemm_body<NC, BN, ST, bf16, bf16>(&tma_a, &tma_b, layer, bias, nullptr, nullptr, C, M, N, K,
-                                    act);
+template <int WM, int BN, int ST>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+gemm_bf16_wgmma_kernel(const __grid_constant__ GemmLaunch g) {
+  gemm_body<WM, BN, ST, bf16, bf16>(g);
 }
 
 // W8A8: C = epilogue((Aq . Wt^T) * as[m] * ws[n]), Aq [M, K] and Wt
 // [L, N, K] int8 (layer `layer`), the sum exact in s32
-template <int NC, int BN, int ST, typename T>
-__global__ void __launch_bounds__(NC * 128 + 32, (blocks_per_sm<NC, BN, ST>()))
-gemm_int8_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
-                       const __grid_constant__ CUtensorMap tma_b, int layer,
-                       const float* __restrict__ as, const float* __restrict__ ws,
-                       const T* __restrict__ bias, T* __restrict__ C, int M, int N, int K,
-                       int act) {
-  gemm_body<NC, BN, ST, int8_t, T>(&tma_a, &tma_b, layer, bias, as, ws, C, M, N, K, act);
+template <int WM, int BN, int ST, typename T>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+gemm_int8_wgmma_kernel(const __grid_constant__ GemmLaunch g) {
+  gemm_body<WM, BN, ST, int8_t, T>(g);
 }
 
 }  // namespace gemm90
@@ -1324,39 +1476,55 @@ int tensor_map(CUtensorMap* out, const void* ptr, uint64_t inner, uint64_t rows,
   return 0;
 }
 
-// The tile shapes: consumer warpgroups NC (the tile is BM = 64 NC rows),
-// BN columns, and as many stages as fit beside the output tile in shared
-// memory, for one block per SM (the 128-row tiles, and 64x256) or two
-// (64x128).  The bf16 and the int8 kernels of a shape take the same
-// shared memory (a stage is 128 bytes of K a row in both).
-constexpr int kGemmCfgs = 4;
-constexpr int kCfgBM[kGemmCfgs] = {128, 128, 64, 64};
-constexpr int kCfgBN[kGemmCfgs] = {256, 128, 256, 128};
+// The tile shapes: each consumer warpgroup's tile, WM rows by BN columns
+// (128x128: 128 accumulators a thread, two wgmma row blocks; 64x128: 64),
+// and the ring's stages, as many as fit beside the two output tiles, the
+// activation table and the operands in shared memory: one block an SM.
+// The bf16 and the int8 kernels of a shape take the same shared memory (a
+// stage is 128 bytes of K a row in both).  (A 64x256 tile, the same 128
+// accumulators, loads 25% more bytes a tile than 128x128 and was never
+// the faster at a serving shape.)
+constexpr int kGemmCfgs = 2;
+constexpr int kCfgWM[kGemmCfgs] = {128, 64};
+constexpr int kCfgBN[kGemmCfgs] = {128, 128};
 
 struct GemmSetup {
   int status = 0, sms = 0;
-  int blocks[kGemmCfgs] = {};     // resident blocks per SM of each shape
 };
 
-template <int NC, int BN, int ST>
-int gemm_setup_one(int* blocks) {
-  const int smem = (int)gemm90::smem_bytes<NC, BN, ST>();
-  int e = 0;
-  for (const void* k : {(const void*)gemm90::gemm_int8_wgmma_kernel<NC, BN, ST, bf16>,
-                        (const void*)gemm90::gemm_int8_wgmma_kernel<NC, BN, ST, float>,
-                        (const void*)gemm90::gemm_bf16_wgmma_kernel<NC, BN, ST>})
+template <int WM, int BN, int ST>
+int gemm_setup_one() {
+  const int smem = (int)gemm90::smem_bytes<WM, BN, ST>();
+  int e = 0, blocks = 0;
+  for (const void* k : {(const void*)gemm90::gemm_int8_wgmma_kernel<WM, BN, ST, bf16>,
+                        (const void*)gemm90::gemm_int8_wgmma_kernel<WM, BN, ST, float>,
+                        (const void*)gemm90::gemm_bf16_wgmma_kernel<WM, BN, ST>})
     if (e == 0) e = (int)cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == 0)
     e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, gemm90::gemm_bf16_wgmma_kernel<NC, BN, ST>, NC * 128 + 32, smem);
-  return e == 0 && *blocks < 1 ? kErrShape : e;
+        &blocks, gemm90::gemm_bf16_wgmma_kernel<WM, BN, ST>, gemm90::kGemmThreads, smem);
+  return e == 0 && blocks < 1 ? kErrShape : e;
 }
 
-// the kernels' shared-memory limits, their blocks per SM and the SM
+// the activation tables of this card (g_act_table), built once and
+// waited for, on a stream of their own
+int gemm_act_tables() {
+  cudaStream_t st;
+  int e = (int)cudaStreamCreateWithFlags(&st, cudaStreamNonBlocking);
+  if (e != 0) return e;
+  gemm90::act_table_kernel<<<2 * 65536 / 256, 256, 0, st>>>();
+  e = (int)cudaGetLastError();
+  if (e == 0) e = (int)cudaStreamSynchronize(st);
+  cudaStreamDestroy(st);
+  return e;
+}
+
+// the kernels' shared-memory limits, the activation tables and the SM
 // count, once per device: a function's shared-memory limit is an
-// attribute of the device that was current when it was set, so each card
-// the process launches on is set up on its first launch there (the
-// wrappers make the tensors' device current around every launch)
+// attribute of the device that was current when it was set, and a
+// __device__ table is one per card, so each card the process launches on
+// is set up on its first launch there (the wrappers make the tensors'
+// device current around every launch)
 constexpr int kMaxDevices = 64;
 
 const GemmSetup& gemm_setup() {
@@ -1372,38 +1540,45 @@ const GemmSetup& gemm_setup() {
   std::call_once(once[dev], [dev] {
     GemmSetup& s = table[dev];
     s.status = (int)cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount, dev);
-    if (s.status == 0) s.status = gemm_setup_one<2, 256, 3>(&s.blocks[0]);
-    if (s.status == 0) s.status = gemm_setup_one<2, 128, 5>(&s.blocks[1]);
-    if (s.status == 0) s.status = gemm_setup_one<1, 256, 4>(&s.blocks[2]);
-    if (s.status == 0) s.status = gemm_setup_one<1, 128, 3>(&s.blocks[3]);
+    if (s.status == 0) s.status = gemm_setup_one<128, 128, 4>();
+    if (s.status == 0) s.status = gemm_setup_one<64, 128, 7>();
+    if (s.status == 0) s.status = gemm_act_tables();
   });
   return table[dev];
 }
 
 long gemm_tiles(int i, int M, int N) {
-  return (long)((M + kCfgBM[i] - 1) / kCfgBM[i]) * ((N + kCfgBN[i] - 1) / kCfgBN[i]);
+  return (long)((M + kCfgWM[i] - 1) / kCfgWM[i]) * ((N + kCfgBN[i] - 1) / kCfgBN[i]);
 }
 
-// The tile of an [M, N] product whose rows hold kbytes of K (2K in bf16,
-// K in int8).  A product with fewer
-// 128x128 tiles than SMs cannot fill the card with 128-row tiles: it
-// takes 64-row ones, 64x256 for long rows (2 KB and more: bound by the
-// bytes each SM loads, where the wider tile loads fewer per operation), else
-// 64x128 (two blocks an SM, where the fixed cost of a tile, its first
-// loads and its epilogue, counts most).  Any other takes the 128-row tile
-// with the shortest makespan: rounds of tiles over the SMs times the
-// tile's area.  On a tie, rows of 1 KB of K and more take the larger tile
-// (fewer bytes per operation); shorter ones (the int8 products at K =
-// 512: four slices a tile) the smaller, whose epilogue, the per-tile cost
-// there, is half as long.
-int gemm_config(const GemmSetup& s, int M, int N, int kbytes) {
-  if (gemm_tiles(1, M, N) < s.sms) return kbytes >= 2048 ? 2 : 3;
+// one product of a GEMM launch, as the host gives it (gemm90::GemmOperand
+// holds its tensor maps): A [M, K] and Wt [L, N, K] (bf16, or int8 with
+// the scales as [M] and ws [N]), the bias and C [M, N]
+struct GemmProduct {
+  const void* A;
+  const void* Wt;
+  const void* bias;
+  const float* as;
+  const float* ws;
+  void* C;
+  int M, N;
+};
+
+// The tile of a launch of `count` products (their tiles one list).  The
+// main loop is bound by the bytes the SMs load from L2 (each stage's A and
+// W slices: about 11 TB/s over the card), so the tile with the least such
+// bytes on the busiest SM: rounds of tiles over the SMs (one block an SM,
+// its two warpgroups' main loops in turn) times a tile's rows and columns
+// (its bytes per K slice); on a tie the larger tile.  It depends on the
+// shapes alone.
+int gemm_config(const GemmSetup& s, const GemmProduct* p, int count) {
   int best = 0;
   long best_cost = -1;
-  for (int i = 0; i < 2; ++i) {
-    const long rounds = (gemm_tiles(i, M, N) + s.sms - 1) / s.sms;
-    const long cost = rounds * kCfgBM[i] * kCfgBN[i];
-    if (best_cost < 0 || cost < best_cost || (cost == best_cost && kbytes < 1024)) {
+  for (int i = 0; i < kGemmCfgs; ++i) {
+    long tiles = 0;
+    for (int k = 0; k < count; ++k) tiles += gemm_tiles(i, p[k].M, p[k].N);
+    const long cost = (tiles + s.sms - 1) / s.sms * (kCfgWM[i] + kCfgBN[i]);
+    if (best_cost < 0 || cost < best_cost) {
       best = i;
       best_cost = cost;
     }
@@ -1411,34 +1586,62 @@ int gemm_config(const GemmSetup& s, int M, int N, int kbytes) {
   return best;
 }
 
-template <int NC, int BN, int ST>
-int launch_gemm(const GemmSetup& s, int cfg, const bf16* A, const bf16* Wt, int L, int layer,
-                const bf16* bias, bf16* C, int M, int N, int K, int act, cudaStream_t st) {
-  CUtensorMap ta, tb;
-  CHECK_RC(tensor_map(&ta, A, K, M, 1, 64 * NC, 2));
-  CHECK_RC(tensor_map(&tb, Wt, K, N, L, BN, 2));
-  const long tiles = gemm_tiles(cfg, M, N), slots = (long)s.sms * s.blocks[cfg];
-  const int grid = (int)(tiles < slots ? tiles : slots);
-  gemm90::gemm_bf16_wgmma_kernel<NC, BN, ST>
-      <<<grid, NC * 128 + 32, gemm90::smem_bytes<NC, BN, ST>(), st>>>(ta, tb, layer, bias, C,
-                                                                      M, N, K, act);
+// one launch of the GEMM on tile shape (WM, BN, ST) over `count` products
+// of K-deep sums of In (bf16, or int8 with T the output type), layer
+// `layer` of their stacked weights
+template <int WM, int BN, int ST, typename In, typename T>
+int launch_gemm(const GemmSetup& s, const GemmProduct* p, int count, int L, int layer, int K,
+                int act, cudaStream_t st) {
+  gemm90::GemmLaunch g{};
+  g.count = count;
+  g.K = K;
+  g.layer = layer;
+  g.act = act;
+  int end = 0;
+  for (int i = 0; i < count; ++i) {
+    gemm90::GemmOperand& o = g.op[i];
+    CHECK_RC(tensor_map(&o.a, p[i].A, K, p[i].M, 1, WM, sizeof(In)));
+    CHECK_RC(tensor_map(&o.b, p[i].Wt, K, p[i].N, L, BN, sizeof(In)));
+    if (std::is_same<T, bf16>::value) CHECK_RC(tensor_map(&o.c, p[i].C, p[i].N, p[i].M, 1, WM, 2));
+    o.bias = p[i].bias;
+    o.as = p[i].as;
+    o.ws = p[i].ws;
+    o.C = p[i].C;
+    o.M = p[i].M;
+    o.N = p[i].N;
+    end += (int)(((p[i].M + WM - 1) / WM) * ((p[i].N + BN - 1) / BN));
+    o.end = end;
+  }
+  const int grid = end < s.sms ? end : s.sms;
+  constexpr size_t smem = gemm90::smem_bytes<WM, BN, ST>();
+  if constexpr (std::is_same<In, bf16>::value)
+    gemm90::gemm_bf16_wgmma_kernel<WM, BN, ST><<<grid, gemm90::kGemmThreads, smem, st>>>(g);
+  else
+    gemm90::gemm_int8_wgmma_kernel<WM, BN, ST, T><<<grid, gemm90::kGemmThreads, smem, st>>>(g);
   return (int)cudaGetLastError();
 }
 
-// the bf16 product on tile configuration cfg (-1: gemm_config's choice)
-int gemm_bf16_cfg(int cfg, const bf16* A, const bf16* Wt, int L, int layer, const bf16* bias,
-                  bf16* C, int M, int N, int K, int act, cudaStream_t st) {
-  if (K % 8 != 0 || N % 8 != 0 || M <= 0 || N <= 0 || K <= 0 || cfg < -1 || cfg >= kGemmCfgs)
+template <typename In, typename T>
+int launch_gemm_cfg(const GemmSetup& s, int cfg, const GemmProduct* p, int count, int L,
+                    int layer, int K, int act, cudaStream_t st) {
+  if (cfg == 0) return launch_gemm<128, 128, 4, In, T>(s, p, count, L, layer, K, act, st);
+  return launch_gemm<64, 128, 7, In, T>(s, p, count, L, layer, K, act, st);
+}
+
+// The bf16 products of one launch (one, or a layer's q and kv) on tile
+// configuration cfg (-1: gemm_config's choice); act kActSkip runs the
+// main loop alone (timing).
+int gemm_bf16_cfg(int cfg, const GemmProduct* p, int count, int L, int layer, int K, int act,
+                  cudaStream_t st) {
+  if (K % 8 != 0 || K <= 0 || count < 1 || count > 2 || cfg < -1 || cfg >= kGemmCfgs ||
+      act < gemm90::kActSkip || act > ACT_SILU)
     return kErrShape;
+  for (int i = 0; i < count; ++i)
+    if (p[i].N % 8 != 0 || p[i].M <= 0 || p[i].N <= 0) return kErrShape;
   const GemmSetup& s = gemm_setup();
   CHECK_RC(s.status);
-  if (cfg < 0) cfg = gemm_config(s, M, N, 2 * K);
-  switch (cfg) {
-    case 0: return launch_gemm<2, 256, 3>(s, cfg, A, Wt, L, layer, bias, C, M, N, K, act, st);
-    case 1: return launch_gemm<2, 128, 5>(s, cfg, A, Wt, L, layer, bias, C, M, N, K, act, st);
-    case 2: return launch_gemm<1, 256, 4>(s, cfg, A, Wt, L, layer, bias, C, M, N, K, act, st);
-    default: return launch_gemm<1, 128, 3>(s, cfg, A, Wt, L, layer, bias, C, M, N, K, act, st);
-  }
+  if (cfg < 0) cfg = gemm_config(s, p, count);
+  return launch_gemm_cfg<bf16, bf16>(s, cfg, p, count, L, layer, K, act, st);
 }
 
 // how an f32 product runs: k_slice 0 takes the tiled kernel, else the
@@ -1482,7 +1685,8 @@ int gemm(const T* A, const T* W, int L, int layer, const T* bias, T* C, int M, i
 template <>
 int gemm<bf16>(const bf16* A, const bf16* Wt, int L, int layer, const bf16* bias, bf16* C,
                int M, int N, int K, int act, const F32Split&, cudaStream_t st) {
-  return gemm_bf16_cfg(-1, A, Wt, L, layer, bias, C, M, N, K, act, st);
+  const GemmProduct p{A, Wt, bias, nullptr, nullptr, C, M, N};
+  return gemm_bf16_cfg(-1, &p, 1, L, layer, K, act, st);
 }
 
 template <>
@@ -1490,21 +1694,6 @@ int gemm<float>(const float* A, const float* W, int L, int layer, const float* b
                 float* C, int M, int N, int K, int act, const F32Split& sp, cudaStream_t st) {
   (void)L;
   return gemm_f32(A, W + (size_t)layer * K * N, bias, C, M, N, K, act, sp, st);
-}
-
-template <int NC, int BN, int ST, typename T>
-int launch_qgemm(const GemmSetup& s, int cfg, const int8_t* Aq, const float* as,
-                 const int8_t* Wt, int L, int layer, const float* ws, const T* bias, T* C,
-                 int M, int N, int K, int act, cudaStream_t st) {
-  CUtensorMap ta, tb;
-  CHECK_RC(tensor_map(&ta, Aq, K, M, 1, 64 * NC, 1));
-  CHECK_RC(tensor_map(&tb, Wt, K, N, L, BN, 1));
-  const long tiles = gemm_tiles(cfg, M, N), slots = (long)s.sms * s.blocks[cfg];
-  const int grid = (int)(tiles < slots ? tiles : slots);
-  gemm90::gemm_int8_wgmma_kernel<NC, BN, ST, T>
-      <<<grid, NC * 128 + 32, gemm90::smem_bytes<NC, BN, ST>(), st>>>(ta, tb, layer, as, ws,
-                                                                      bias, C, M, N, K, act);
-  return (int)cudaGetLastError();
 }
 
 // W8A8 product: quantise the rows of A [M, K] (f32 or compute type) into
@@ -1517,19 +1706,16 @@ int qgemm(int cfg, const Tin* A, int8_t* aq, float* as, const int8_t* wt, int L,
           const float* ws, const T* bias, T* C, int M, int N, int K, int act,
           cudaStream_t st) {
   if (K % 16 != 0 || N % 8 != 0 || M <= 0 || N <= 0 || K <= 0 || cfg < -1 ||
-      cfg >= kGemmCfgs || aq == nullptr || as == nullptr || wt == nullptr || ws == nullptr)
+      cfg >= kGemmCfgs || aq == nullptr || as == nullptr || wt == nullptr || ws == nullptr ||
+      act < gemm90::kActSkip || act > ACT_SILU)
     return kErrShape;
   const GemmSetup& s = gemm_setup();
   CHECK_RC(s.status);
-  if (cfg < 0) cfg = gemm_config(s, M, N, K);
+  const GemmProduct p{aq, wt, bias, as, ws, C, M, N};
+  if (cfg < 0) cfg = gemm_config(s, &p, 1);
   quantize_rows_kernel<Tin><<<M, 256, 0, st>>>(A, aq, as, K);
   CHECK_LAUNCH();
-  switch (cfg) {
-    case 0: return launch_qgemm<2, 256, 3>(s, cfg, aq, as, wt, L, layer, ws, bias, C, M, N, K, act, st);
-    case 1: return launch_qgemm<2, 128, 5>(s, cfg, aq, as, wt, L, layer, ws, bias, C, M, N, K, act, st);
-    case 2: return launch_qgemm<1, 256, 4>(s, cfg, aq, as, wt, L, layer, ws, bias, C, M, N, K, act, st);
-    default: return launch_qgemm<1, 128, 3>(s, cfg, aq, as, wt, L, layer, ws, bias, C, M, N, K, act, st);
-  }
+  return launch_gemm_cfg<int8_t, T>(s, cfg, &p, 1, L, layer, K, act, st);
 }
 
 size_t ln_smem_bytes(const EmformerStackArgs& a) {
@@ -1598,20 +1784,28 @@ int run_layer(const EmformerStackArgs& a, int l, const float* src, int reorder,
       a.lnin_s + (size_t)l * D, a.lnin_b + (size_t)l * D, q_in, kv_in,
       (qz & kQWq) ? a.q_in32 : nullptr, D, U, R, M, a.use_mem);
   CHECK_LAUNCH();
-  if (qz & kQWq)
-    CHECK_RC((qgemm<T, float>(-1, a.q_in32, a.aq, a.a_scale, a.wq8, a.L, l,
-                             a.wq_s + (size_t)l * D, bq + (size_t)l * D, q, B * Q, D, D,
-                             ACT_NONE, st)));
-  else
-    CHECK_RC(gemm<T>(q_in, wq, a.L, l, bq + (size_t)l * D, q, B * Q, D, D, ACT_NONE, sp(0),
-                     st));
-  if (qz & kQWkv)
-    CHECK_RC((qgemm<T, T>(-1, kv_in, a.aq, a.a_scale, a.wkv8, a.L, l,
-                         a.wkv_s + (size_t)l * 2 * D, bkv + (size_t)l * 2 * D, kv, B * NKV,
-                         2 * D, D, ACT_NONE, st)));
-  else
-    CHECK_RC(gemm<T>(kv_in, wkv, a.L, l, bkv + (size_t)l * 2 * D, kv, B * NKV, 2 * D, D,
-                     ACT_NONE, sp(1), st));
+  if (std::is_same<T, bf16>::value && !(qz & (kQWq | kQWkv))) {
+    // the bf16 q and kv products in one launch
+    const GemmProduct qkv[2] = {
+        {q_in, wq, bq + (size_t)l * D, nullptr, nullptr, q, B * Q, D},
+        {kv_in, wkv, bkv + (size_t)l * 2 * D, nullptr, nullptr, kv, B * NKV, 2 * D}};
+    CHECK_RC(gemm_bf16_cfg(-1, qkv, 2, a.L, l, D, ACT_NONE, st));
+  } else {
+    if (qz & kQWq)
+      CHECK_RC((qgemm<T, float>(-1, a.q_in32, a.aq, a.a_scale, a.wq8, a.L, l,
+                               a.wq_s + (size_t)l * D, bq + (size_t)l * D, q, B * Q, D, D,
+                               ACT_NONE, st)));
+    else
+      CHECK_RC(gemm<T>(q_in, wq, a.L, l, bq + (size_t)l * D, q, B * Q, D, D, ACT_NONE, sp(0),
+                       st));
+    if (qz & kQWkv)
+      CHECK_RC((qgemm<T, T>(-1, kv_in, a.aq, a.a_scale, a.wkv8, a.L, l,
+                           a.wkv_s + (size_t)l * 2 * D, bkv + (size_t)l * 2 * D, kv, B * NKV,
+                           2 * D, D, ACT_NONE, st)));
+    else
+      CHECK_RC(gemm<T>(kv_in, wkv, a.L, l, bkv + (size_t)l * 2 * D, kv, B * NKV, 2 * D, D,
+                       ACT_NONE, sp(1), st));
+  }
   // the roll reads this layer's input memory row before residual_ffn_ln
   // overwrites it with the next layer's
   state_roll_kernel<T><<<dim3(B, M + 2 * Lc), 128, 0, st>>>(
@@ -1704,7 +1898,7 @@ extern "C" int asr_emformer_layer(const EmformerStackArgs* a) {
 // bias + activation), as run_layer runs each, for tests and timing.
 // x_is_f32: x is f32 (else the compute type); dtype as in
 // EmformerStackArgs; wt [N, K] int8; cfg the tile configuration as in
-// asr_gemm_bf16 (-1: the one run_layer picks).
+// asr_gemm_bf16 (-1: the one run_layer picks); act as there.
 extern "C" int asr_w8a8_linear(int dtype, int x_is_f32, const void* x, int8_t* aq,
                                float* as, const int8_t* wt, const float* ws,
                                const void* bias, void* y, int M, int N, int K, int act,
@@ -1723,12 +1917,26 @@ extern "C" int asr_w8a8_linear(int dtype, int x_is_f32, const void* x, int8_t* a
 
 // The bf16 product alone, y [M, N] = epilogue(x [M, K] . wt [N, K]^T)
 // with bias [N] and the activation, as run_layer runs each product, for
-// tests and timing; cfg is the tile configuration (0..3: 128x256,
-// 128x128, 64x256, 64x128), -1 the one run_layer picks for the shape.
+// tests and timing; cfg is the tile configuration (0, 1: a warpgroup's
+// 128x128 or 64x128 tile), -1 the one run_layer picks for the shape; act
+// kActSkip (-1) runs the main loop alone and writes nothing.
 extern "C" int asr_gemm_bf16(const void* x, const void* wt, const void* bias, void* y,
                              int M, int N, int K, int act, int cfg, void* stream) {
-  return gemm_bf16_cfg(cfg, (const bf16*)x, (const bf16*)wt, 1, 0, (const bf16*)bias,
-                       (bf16*)y, M, N, K, act, (cudaStream_t)stream);
+  const GemmProduct p{x, wt, bias, nullptr, nullptr, y, M, N};
+  return gemm_bf16_cfg(cfg, &p, 1, 1, 0, K, act, (cudaStream_t)stream);
+}
+
+// Two bf16 products with the same K in one launch, as run_layer runs a
+// layer's q and kv products: y0 = x0 . wt0^T + bias0 and y1 = x1 . wt1^T +
+// bias1 (no activation), their tiles one list; cfg as in asr_gemm_bf16
+// (-1: the one run_layer picks for the pair).
+extern "C" int asr_gemm_bf16_pair(const void* x0, const void* wt0, const void* bias0, void* y0,
+                                  int M0, int N0, const void* x1, const void* wt1,
+                                  const void* bias1, void* y1, int M1, int N1, int K, int cfg,
+                                  void* stream) {
+  const GemmProduct p[2] = {{x0, wt0, bias0, nullptr, nullptr, y0, M0, N0},
+                            {x1, wt1, bias1, nullptr, nullptr, y1, M1, N1}};
+  return gemm_bf16_cfg(cfg, p, 2, 1, 0, K, ACT_NONE, (cudaStream_t)stream);
 }
 
 // The f32 product alone, y [M, N] = epilogue(x [M, K] . w [K, N]) with
@@ -1743,12 +1951,27 @@ extern "C" int asr_gemm_f32(const float* x, const float* w, const float* bias, f
                   (cudaStream_t)stream);
 }
 
-// The tile configuration run_layer picks for an [M, N] product whose rows
-// hold kbytes of K (2K in bf16, K in int8); a negative error code if the
-// kernels cannot be set up.
-extern "C" int asr_gemm_config(int M, int N, int kbytes) {
+// The tile configuration run_layer picks for an [M, N] product (bf16 or
+// int8: the choice reads the shapes alone), or with M1 > 0 for it and an
+// [M1, N1] product in one launch; a negative error code if the kernels
+// cannot be set up.
+extern "C" int asr_gemm_config(int M, int N, int M1, int N1) {
   const GemmSetup& s = gemm_setup();
-  return s.status > 0 ? -s.status : s.status < 0 ? s.status : gemm_config(s, M, N, kbytes);
+  const GemmProduct p[2] = {{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, M, N},
+                            {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, M1, N1}};
+  return s.status > 0 ? -s.status : s.status < 0 ? s.status : gemm_config(s, p, M1 > 0 ? 2 : 1);
+}
+
+// This card's activation table (GELU for act 2, SiLU for 3: round(act(v))
+// for each of the 65,536 bf16 bit patterns v) into out (65,536 uint16 on
+// the card), for tests.
+extern "C" int asr_gemm_act_table(int act, void* out, void* stream) {
+  if (act != ACT_GELU && act != ACT_SILU) return kErrShape;
+  const GemmSetup& s = gemm_setup();
+  CHECK_RC(s.status);
+  return (int)cudaMemcpyFromSymbolAsync(out, gemm90::g_act_table, 65536 * sizeof(uint16_t),
+                                        (act == ACT_GELU ? 0 : 65536) * sizeof(uint16_t),
+                                        cudaMemcpyDeviceToDevice, (cudaStream_t)stream);
 }
 
 extern "C" const char* asr_cuda_error_string(int code) {

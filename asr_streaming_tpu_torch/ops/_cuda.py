@@ -138,9 +138,14 @@ def lib() -> ctypes.CDLL:
         handle.asr_emformer_attention.restype = i32
         handle.asr_gemm_bf16.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
         handle.asr_gemm_bf16.restype = i32
+        handle.asr_gemm_bf16_pair.argtypes = [ptr] * 4 + [i32] * 2 + \
+            [ptr] * 4 + [i32] * 4 + [ptr]
+        handle.asr_gemm_bf16_pair.restype = i32
         handle.asr_gemm_f32.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         handle.asr_gemm_f32.restype = i32
-        handle.asr_gemm_config.argtypes = [i32] * 3
+        handle.asr_gemm_act_table.argtypes = [i32, ptr, ptr]
+        handle.asr_gemm_act_table.restype = i32
+        handle.asr_gemm_config.argtypes = [i32] * 4
         handle.asr_gemm_config.restype = i32
         handle.asr_emission_append.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

@@ -28,7 +28,7 @@ from __future__ import annotations
 import ctypes
 import math
 import weakref
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -480,14 +480,18 @@ def run_chain(entry: str, w: dict, qw: dict, x, length, reset, advance, mem,
 
 def w8a8_linear(x2d: torch.Tensor, q: tuple, bias: torch.Tensor,
                 cdt: torch.dtype, activation: Optional[str] = None,
-                config: Optional[int] = None) -> torch.Tensor:
+                config: Optional[int] = None,
+                main_loop_only: bool = False) -> torch.Tensor:
     """One W8A8 product with the kernel's epilogue,
     act(_qdot(x2d, w8, scale).to(cdt) + bias.to(cdt)), for tests and
     timing.  x2d [rows, K] f32 or cdt; q = (w8, scale, w8t) from
     ``quantized_weights``.  CUDA tensor -> the row quantiser and the int8
     wgmma GEMM of csrc/emformer_stack.cu on the tile ``run_layer`` picks,
-    or on ``GEMM_TILES[config]``; CPU tensor -> plain version."""
+    or on ``GEMM_TILES[config]``; CPU tensor -> plain version.
+    ``main_loop_only`` (timing on the card) runs the GEMM without its
+    epilogue: the output is left unwritten."""
     _check_config(config, "w8a8_linear")
+    _check_main_loop_only(main_loop_only, x2d, "w8a8_linear")
     if x2d.device.type == "cpu":
         y = _qdot(x2d.to(torch.float32), q[0], q[1]).to(cdt) + bias.to(cdt)
         return _act(activation)(y) if activation else y
@@ -513,7 +517,7 @@ def w8a8_linear(x2d: torch.Tensor, q: tuple, bias: torch.Tensor,
         1 if cdt == torch.bfloat16 else 0, int(x_f32), x2d.data_ptr(),
         aq.data_ptr(), a_scale.data_ptr(), w8t.data_ptr(), scale.data_ptr(),
         bias.data_ptr(), y.data_ptr(), M, N, K,
-        _ACTS[activation] if activation else 0,
+        _act_code(activation, main_loop_only),
         -1 if config is None else config,
         torch.cuda.current_stream(x2d.device).cuda_stream)
     return y
@@ -680,9 +684,12 @@ def gemm_f32(x2d: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return y
 
 
-# the wgmma GEMM's tile configurations (rows x columns), by index; the
-# bf16 and the int8 (W8A8) products take the same ones
-GEMM_TILES = ((128, 256), (128, 128), (64, 256), (64, 128))
+# the wgmma GEMM's tile configurations (rows x columns of the tile one
+# consumer warpgroup owns), by index; the bf16 and the int8 (W8A8)
+# products take the same ones
+GEMM_TILES = ((128, 128), (64, 128))
+# the activation code that runs the GEMM's main loop alone (kActSkip)
+_MAIN_LOOP_ONLY = -1
 
 
 def _check_config(config: Optional[int], what: str) -> None:
@@ -691,27 +698,57 @@ def _check_config(config: Optional[int], what: str) -> None:
                          f"0..{len(GEMM_TILES) - 1}")
 
 
-def gemm_config(M: int, N: int, K: int,
-                dtype: torch.dtype = torch.bfloat16) -> int:
+def _check_main_loop_only(main_loop_only: bool, x: torch.Tensor,
+                          what: str) -> None:
+    if main_loop_only and x.device.type != "cuda":
+        raise ValueError(f"{what}: main_loop_only times the kernel on the "
+                         f"card; {x.device} has none")
+
+
+def _act_code(activation: Optional[str], main_loop_only: bool) -> int:
+    if main_loop_only:
+        return _MAIN_LOOP_ONLY
+    return _ACTS[activation] if activation else 0
+
+
+def gemm_config(M: int, N: int,
+                pair: Optional[Tuple[int, int]] = None) -> int:
     """The index in ``GEMM_TILES`` of the tile ``run_layer``'s GEMM takes
-    for an [M, N] product with K-deep sums of ``dtype`` on this card:
-    bf16, or int8 for a W8A8 product (``gemm_config`` in
-    csrc/emformer_stack.cu reads the bytes of a row)."""
-    rc = _cuda.lib().asr_gemm_config(M, N, K * dtype.itemsize)
+    on this card for an [M, N] product (bf16 or W8A8 alike: the choice
+    reads the shapes alone), or for it and a ``pair = (M1, N1)`` product
+    in one launch (a layer's q and kv): the least ``gemm_load_span``, the
+    larger tile on a tie (``gemm_config`` in csrc/emformer_stack.cu)."""
+    M1, N1 = pair if pair else (0, 0)
+    rc = _cuda.lib().asr_gemm_config(M, N, M1, N1)
     _cuda.check(min(rc, 0), "gemm_config")
     return rc
 
 
+def gemm_load_span(shapes: Sequence[Tuple[int, int]], config: int,
+                   sms: int) -> int:
+    """What ``gemm_config`` minimises for one launch of the [M, N]
+    products ``shapes``: the bytes the busiest SM loads for the main
+    loops, per 128 bytes of K, on ``GEMM_TILES[config]``: rounds of the
+    products' tiles over ``sms`` SMs (one block an SM) times a tile's rows
+    and columns."""
+    wm, bn = GEMM_TILES[config]
+    tiles = sum(-(-M // wm) * -(-N // bn) for M, N in shapes)
+    return -(-tiles // sms) * (wm + bn)
+
+
 def gemm_bf16(x2d: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
               activation: Optional[str] = None,
-              config: Optional[int] = None) -> torch.Tensor:
+              config: Optional[int] = None,
+              main_loop_only: bool = False) -> torch.Tensor:
     """One bf16 product of the chain as ``run_layer`` runs it, for tests
     and timing: x2d [M, K], w [K, N] (``[in, out]``; the kernel reads its
     transposed copy, made once per weight tensor), bias [N] -> [M, N]
     bf16.  CUDA tensor -> the wgmma GEMM of csrc/emformer_stack.cu on the
     tile ``run_layer`` picks, or on ``GEMM_TILES[config]``; CPU tensor ->
-    ``gemm_bf16_plain``."""
+    ``gemm_bf16_plain``.  ``main_loop_only`` (timing on the card) runs
+    the GEMM without its epilogue: the output is left unwritten."""
     _check_config(config, "gemm_bf16")
+    _check_main_loop_only(main_loop_only, x2d, "gemm_bf16")
     if x2d.device.type == "cpu":
         return gemm_bf16_plain(x2d, w, bias, activation)
     if x2d.device.type != "cuda":
@@ -729,11 +766,64 @@ def gemm_bf16(x2d: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     bias = bias.to(torch.bfloat16).contiguous()
     y = torch.empty((M, N), dtype=torch.bfloat16, device=x2d.device)
     _cuda.launch(
-        x2d.device, "asr_gemm_bf16", "gemm_bf16", x2d.data_ptr(), wt.data_ptr(), bias.data_ptr(), y.data_ptr(), M, N, K,
-        _ACTS[activation] if activation else 0,
+        x2d.device, "asr_gemm_bf16", "gemm_bf16", x2d.data_ptr(),
+        wt.data_ptr(), bias.data_ptr(), y.data_ptr(), M, N, K,
+        _act_code(activation, main_loop_only),
         -1 if config is None else config,
         torch.cuda.current_stream(x2d.device).cuda_stream)
     return y
+
+
+def gemm_act_table(activation: str, device: torch.device) -> torch.Tensor:
+    """The card's table of the bf16 GEMM epilogue's activation ("gelu" or
+    "silu"): [65536] int16, entry h the bits of round(act(v)) for the bf16
+    v with bits h, as the kernel's epilogue must give them (for tests)."""
+    if activation not in ("gelu", "silu") or device.type != "cuda":
+        raise ValueError(f"gemm_act_table: {activation} on {device}")
+    out = torch.empty(65536, dtype=torch.int16, device=device)
+    _cuda.launch(device, "asr_gemm_act_table", "gemm_act_table",
+                 _ACTS[activation], out.data_ptr(),
+                 torch.cuda.current_stream(device).cuda_stream)
+    return out
+
+
+def gemm_bf16_pair(x0: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
+                   x1: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                   config: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two bf16 products with the same K in one launch, as ``run_layer``
+    runs a layer's q and kv products (no activation), for tests and
+    timing: (x0 . w0 + b0, x1 . w1 + b1).  CUDA tensors -> the wgmma GEMM
+    over both products' tiles (entry asr_gemm_bf16_pair) on the tile
+    ``gemm_config(..., pair=...)`` picks or ``GEMM_TILES[config]``; CPU
+    tensors -> ``gemm_bf16_plain`` twice."""
+    _check_config(config, "gemm_bf16_pair")
+    if x0.device.type == "cpu":
+        return gemm_bf16_plain(x0, w0, b0), gemm_bf16_plain(x1, w1, b1)
+    if x0.device.type != "cuda":
+        raise ValueError(f"gemm_bf16_pair: unsupported device {x0.device}")
+    _cuda.refuse_grad("gemm_bf16_pair", x0, w0, b0, x1, w1, b1)
+    K = x0.shape[1]
+    ops = []
+    for x, w, b in ((x0, w0, b0), (x1, w1, b1)):
+        M, N = x.shape[0], w.shape[-1]
+        if K % 8 or N % 8 or tuple(x.shape) != (M, K) or \
+                tuple(w.shape) != (K, N) or tuple(b.shape) != (N,):
+            raise ValueError(f"gemm_bf16_pair: x {tuple(x.shape)}, w "
+                             f"{tuple(w.shape)}, bias {tuple(b.shape)} (one "
+                             f"K, a multiple of 8; N a multiple of 8)")
+        ops.append((x.to(torch.bfloat16).contiguous(),
+                    _kernel_tensor(w, torch.bfloat16, transpose=True),
+                    b.to(torch.bfloat16).contiguous(),
+                    torch.empty((M, N), dtype=torch.bfloat16,
+                                device=x.device), M, N))
+    args = []
+    for x, wt, b, y, M, N in ops:
+        args += [x.data_ptr(), wt.data_ptr(), b.data_ptr(), y.data_ptr(), M, N]
+    _cuda.launch(x0.device, "asr_gemm_bf16_pair", "gemm_bf16_pair", *args, K,
+                 -1 if config is None else config,
+                 torch.cuda.current_stream(x0.device).cuda_stream)
+    return ops[0][3], ops[1][3]
 
 
 def _emformer_stack_cuda(params, x, mem, lc_k, lc_v, length, reset, advance,

@@ -373,10 +373,11 @@ def _stack_kw(cfg, quant="none"):
                 activation=cfg.activation, cdt=cfg.compute_dtype, quant=quant)
 
 
-def stack_digest(cfg, B, seed, device, label):
+def stack_digest(cfg, B, seed, device, label, parts=False):
     """One step of kernel A (bf16, ``cfg``'s geometry) on weights, state
     and inputs made from ``seed`` alone: the sha256 of its outputs' bytes
-    and its device ms.  A commit whose kernel computes the same bits gives
+    and its device ms (and with ``parts`` the step's device time by part,
+    ``stack_parts``).  A commit whose kernel computes the same bits gives
     the same digest: the fingerprint by which two commits' A are held
     equal (run this function with either checkout's package first on
     sys.path)."""
@@ -404,7 +405,12 @@ def stack_digest(cfg, B, seed, device, label):
     ms = device_times(kernel_a, 5, need=A_KERNELS)[0]
     log(f"[kernels] {label}, one step from seed {seed}: outputs' sha256 "
         f"{h.hexdigest()[:16]}, {ms:.3f} ms device time")
-    return h.hexdigest(), ms
+    if not parts:
+        return h.hexdigest(), ms
+    return h.hexdigest(), ms, stack_parts(kernel_a, label, attention_bytes(
+        B, cfg.num_layers, cfg.d_model, cfg.segment_length,
+        cfg.right_context_length, cfg.max_memory_size,
+        cfg.left_context_length))
 
 
 def _mm_split_k(x2d, w, cdt):
@@ -696,9 +702,10 @@ def check_gemm(label, M, K, N, act, gen, device):
     """A's bf16 product (the wgmma GEMM of csrc/emformer_stack.cu) at one
     shape against its plain version (``_mm`` + ``epilogue<bf16>``) within
     ``gemm_bf16_error_bound``: two bf16 ulps and the sum-order slack,
-    doubled through an activation (only the f32 sum order differs).
-    Times it beside the plain version and ``torch.matmul`` on the same bf16
-    operands (no bias: the yardstick)."""
+    doubled through an activation (only the f32 sum order differs); each
+    tile forced gives the picked tile's bits.  Times it beside its main
+    loop alone (``main_loop_only``: no epilogue), the plain version and
+    ``torch.matmul`` on the same bf16 operands (no bias: the yardstick)."""
     import torch
     from asr_streaming_tpu_torch.ops import emformer_stack as es
     x = torch.randn((M, K), generator=gen).to(device, torch.bfloat16)
@@ -708,10 +715,15 @@ def check_gemm(label, M, K, N, act, gen, device):
     want = es.gemm_bf16_plain(x, w, bias, act)
     bound = es.gemm_bf16_error_bound(x, w, want, act)
     # the tile run_layer picks (None), then each tile forced
-    errs, tile_ms = [], {}
+    errs, tile_ms, tile_main, picked = [], {}, {}, None
     for config in [None] + list(range(len(es.GEMM_TILES))):
         got = es.gemm_bf16(x, w, bias, act, config)
         torch.cuda.synchronize()
+        if picked is None:
+            picked = got
+        elif not torch.equal(got, picked):
+            fail(f"GEMM {label}, tile {config}: {int((got != picked).sum())}"
+                 f" outputs differ from the picked tile's")
         err = (got.float() - want.float()).abs()
         worst = (err / bound).max().item()
         if not torch.isfinite(got.float()).all() or worst > 1:
@@ -722,10 +734,17 @@ def check_gemm(label, M, K, N, act, gen, device):
             tile_ms["%dx%d" % es.GEMM_TILES[config]] = device_times(
                 lambda c=config: es.gemm_bf16(x, w, bias, act, c), 20,
                 need="gemm_bf16_wgmma")[0]
+            tile_main["%dx%d" % es.GEMM_TILES[config]] = device_times(
+                lambda c=config: es.gemm_bf16(x, w, bias, act, c,
+                                              main_loop_only=True), 20,
+                need="gemm_bf16_wgmma")[0]
     worst, max_err = max(errs)
-    tile = "%dx%d" % es.GEMM_TILES[es.gemm_config(M, N, K)]
+    tile = "%dx%d" % es.GEMM_TILES[es.gemm_config(M, N)]
     ms = device_times(lambda: es.gemm_bf16(x, w, bias, act), 20,
                       need="gemm_bf16_wgmma")[0]
+    # the same launch without its epilogue (no bias, activation or
+    # stores): what the main loops alone take on the picked tile
+    main_ms = tile_main[tile]
     plain_ms = device_times(lambda: es.gemm_bf16_plain(x, w, bias, act), 5)[0]
     lib_ms = device_times(lambda: torch.matmul(x, w), 20)[0]
     flops = 2.0 * M * K * N
@@ -733,15 +752,53 @@ def check_gemm(label, M, K, N, act, gen, device):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     log(f"[gemm] {label} {M}x{K}x{N}{' +' + act if act else ''}: "
         f"{ms * 1e3:.1f} us on {tile} ({flops / ms / 1e9:.0f} TFLOP/s; "
-        + ", ".join(f"{t} {v * 1e3:.1f}" for t, v in tile_ms.items())
-        + f" us), torch.matmul {lib_ms * 1e3:.1f} us "
-        f"({flops / lib_ms / 1e9:.0f} TFLOP/s), plain {plain_ms * 1e3:.1f} "
-        f"us, bound {max(t_ops, t_bytes) * 1e3:.1f} us; max error "
-        f"{worst:.2f} x bound, {max_err:.2e}")
+        + ", ".join(f"{t} {v * 1e3:.1f} (main loop {tile_main[t] * 1e3:.1f})"
+                    for t, v in tile_ms.items())
+        + f" us; main loop alone {main_ms * 1e3:.1f} us), torch.matmul "
+        f"{lib_ms * 1e3:.1f} us ({flops / lib_ms / 1e9:.0f} TFLOP/s), plain "
+        f"{plain_ms * 1e3:.1f} us, bound {max(t_ops, t_bytes) * 1e3:.1f} us; "
+        f"max error {worst:.2f} x bound, {max_err:.2e}; every tile's bits "
+        f"equal")
     return {"product": label, "m": M, "k": K, "n": N, "tile": tile, "ms": ms,
+            "main_loop_ms": main_ms, "tiles_main_loop_ms": tile_main,
             "tiles_ms": tile_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": max(t_ops, t_bytes),
             "tflops": flops / ms / 1e9, "max_abs_err": max_err}
+
+
+def check_gemm_pair(label, q, kv, gen, device):
+    """A layer's q and kv products as ``run_layer`` runs them in bf16, one
+    launch over both products' tiles (``gemm_bf16_pair``): equal bit for
+    bit to the two products launched alone, and timed beside them and
+    beside ``torch.matmul`` of each.  q and kv are (rows, K, N)."""
+    import torch
+    from asr_streaming_tpu_torch.ops import emformer_stack as es
+    ops = []
+    for M, K, N in (q, kv):
+        ops.append((torch.randn((M, K), generator=gen).to(device,
+                                                          torch.bfloat16),
+                    (torch.randn((K, N), generator=gen) / K ** 0.5).to(
+                        device, torch.bfloat16),
+                    torch.randn((N,), generator=gen).to(device,
+                                                        torch.bfloat16)))
+    y0, y1 = es.gemm_bf16_pair(*ops[0], *ops[1])
+    torch.cuda.synchronize()
+    if not (torch.equal(y0, es.gemm_bf16(*ops[0]))
+            and torch.equal(y1, es.gemm_bf16(*ops[1]))):
+        fail(f"GEMM pair {label}: differs from the products launched alone")
+    ms = device_times(lambda: es.gemm_bf16_pair(*ops[0], *ops[1]), 20,
+                      need="gemm_bf16_wgmma")[0]
+    alone = sum(device_times(lambda o=o: es.gemm_bf16(*o), 20,
+                             need="gemm_bf16_wgmma")[0] for o in ops)
+    lib_ms = sum(device_times(lambda o=o: torch.matmul(o[0], o[1]), 20)[0]
+                 for o in ops)
+    tile = "%dx%d" % es.GEMM_TILES[es.gemm_config(q[0], q[2],
+                                                   pair=(kv[0], kv[2]))]
+    log(f"[gemm] {label} q + kv in one launch on {tile}: {ms * 1e3:.1f} us "
+        f"(alone {alone * 1e3:.1f} us, torch.matmul {lib_ms * 1e3:.1f} us); "
+        f"equal bits")
+    return {"product": f"{label} q+kv", "tile": tile, "ms": ms,
+            "alone_ms": alone, "library_ms": lib_ms}
 
 
 def kernel_ms(fn, name, iters=20):
@@ -808,16 +865,20 @@ def phase_gemm(gen, device):
     each), a ragged shape and each activation; A's f32 product at the
     offline API's five shapes at B = 1 and B = 3, one 512-slot shape, two
     ragged ones (N and K off the tile and slice edges; K no multiple of 4,
-    so tiled) and each activation.  Returns (the ten bf16 serving shapes'
-    entries, the f32 entries)."""
+    so tiled) and each activation; each language's q and kv in one
+    launch.  Returns (the ten bf16 serving shapes' entries and the two
+    pairs', the f32 entries)."""
     from asr_streaming_tpu_torch.models.emformer import EmformerConfig
     from asr_streaming_tpu_torch.models.rnnt import RNNTConfig
     out = []
     for lang, c in (("vi", EmformerConfig()), ("en", RNNTConfig().emformer)):
-        for name, M, K, N, act in gemm_shapes(
-                B_SLOTS, c.segment_length, c.right_context_length,
-                c.max_memory_size, c.d_model, c.ffn_dim, c.activation):
+        shapes = gemm_shapes(B_SLOTS, c.segment_length,
+                             c.right_context_length, c.max_memory_size,
+                             c.d_model, c.ffn_dim, c.activation)
+        for name, M, K, N, act in shapes:
             out.append(check_gemm(f"{lang} {name}", M, K, N, act, gen, device))
+        out.append(check_gemm_pair(lang, shapes[0][1:4], shapes[1][1:4], gen,
+                                   device))
     for label, act in (("ragged", None), ("relu", "relu"), ("gelu", "gelu"),
                        ("silu", "silu")):
         check_gemm(label, 300, 200 if act is None else 512, 136, act, gen,
@@ -856,13 +917,16 @@ def _int8_operands(M, K, N, x_f32, gen, device):
     return x, w, q, bias
 
 
-def w8a8_times(x, q, bias, act=None, config=None):
+def w8a8_times(x, q, bias, act=None, config=None, main_loop_only=False):
     """Device time of one W8A8 product (``w8a8_linear``, bf16 out) by
     kernel: (the int8 GEMM's ms, the row quantiser's ms), on the tile the
-    chain picks or on ``GEMM_TILES[config]``."""
+    chain picks or on ``GEMM_TILES[config]``; with ``main_loop_only``
+    the GEMM without its epilogue."""
     import torch
     from asr_streaming_tpu_torch.ops import emformer_stack as es
     kw = {} if config is None else {"config": config}
+    if main_loop_only:
+        kw["main_loop_only"] = True
     _, rows = device_times(lambda: es.w8a8_linear(
         x, q, bias, torch.bfloat16, act, **kw), 20,
         need=("gemm_int8", "quantize_rows"))
@@ -967,7 +1031,8 @@ def check_int8(label, M, K, N, act, x_f32, gen, device):
     quant = min(quant_ms)
     # with an activation: the same product without it, on the same tile
     no_act_ms = w8a8_times(x, q, bias)[0] if act else None
-    tile = "%dx%d" % es.GEMM_TILES[es.gemm_config(M, N, K, torch.int8)]
+    main_ms = w8a8_times(x, q, bias, main_loop_only=True)[0]
+    tile = "%dx%d" % es.GEMM_TILES[es.gemm_config(M, N)]
     plain_ms = device_times(lambda: es._act(act)(
         es._qdot(x.float(), q[0], q[1]).to(cdt) + bias.to(cdt)) if act else
         es._qdot(x.float(), q[0], q[1]).to(cdt) + bias.to(cdt), 3)[0]
@@ -989,6 +1054,7 @@ def check_int8(label, M, K, N, act, x_f32, gen, device):
         f"{ms * 1e3:.1f} us on {tile} ({ops / ms / 1e9:.0f} TOP/s; "
         + ", ".join(f"{t} {v * 1e3:.1f}" for t, v in tile_ms.items())
         + (f"; without the {act} {no_act_ms * 1e3:.1f}" if act else "")
+        + f"; main loop alone {main_ms * 1e3:.1f}"
         + f" us), torch._int_mm {lib_ms * 1e3:.1f} us "
         f"({ops / lib_ms / 1e9:.0f} TOP/s), bf16 torch.matmul "
         f"{bf16_ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
@@ -997,6 +1063,7 @@ def check_int8(label, M, K, N, act, x_f32, gen, device):
         f"{q_bound * 1e3:.1f} us; exact on every tile")
     return {"product": label, "m": M, "k": K, "n": N, "tile": tile, "ms": ms,
             "tiles_ms": tile_ms, "no_act_ms": no_act_ms,
+            "main_loop_ms": main_ms,
             "quantise": {"ms": quant, "bound_ms": q_bound},
             "plain_ms": plain_ms,
             "library_ms": lib_ms, "bf16_matmul_ms": bf16_ms,
@@ -4529,12 +4596,15 @@ def phase_dist(seed, device, card):
 
 def kernel_a_times():
     """Kernel A's times on the card for the package first on sys.path:
-    one f32 step at 512 slots (the tiled f32 kernel), the bf16 VI step
-    (``stack_digest``), one f32 step at B=1 and ``ASRModel.emissions`` on
-    10 s of audio.  Logs one ``[compare]`` line.  To compare two commits,
-    call it from a small driver with either checkout's package first on
-    sys.path (parent, change, change, parent, a process each)."""
+    one f32 step at 512 slots (the tiled f32 kernel), the bf16 VI and EN
+    steps (``stack_digest``, with their products' share), one f32 step at
+    B=1 and ``ASRModel.emissions`` on 10 s of audio.  Logs one
+    ``[compare]`` line.  To compare two commits, call it from a small
+    driver with either checkout's package first on sys.path (parent,
+    change, change, parent, a process each)."""
+    import dataclasses
     import torch
+    from asr_streaming_tpu_torch.models.rnnt import RNNTConfig
     from asr_streaming_tpu_torch.models.api import ASRModel
     from asr_streaming_tpu_torch.models.asr import ASRConfig
     from asr_streaming_tpu_torch.models.emformer import (
@@ -4543,13 +4613,13 @@ def kernel_a_times():
     from asr_streaming_tpu_torch.ops import emformer_stack as es
     dev = torch.device("cuda", 0)
 
-    def step(cfg, B, seed):
+    def step(cfg, B, seed, quant="none"):
         gen = torch.Generator().manual_seed(seed)
         params = init_emformer_params(gen, cfg, dev)
         mem, lck, lcv, length = _stack_inputs(cfg, B, gen, dev)
         T = cfg.segment_length + cfg.right_context_length
         x = torch.randn((B, T, cfg.d_model), generator=gen).to(dev)
-        kw = _stack_kw(cfg)
+        kw = _stack_kw(cfg, quant)
         return lambda: es.emformer_stack(params, x, mem, lck, lcv, length,
                                          **kw)
 
@@ -4557,8 +4627,21 @@ def kernel_a_times():
     ms_512 = device_times(f32_512, 3, need="gemm_f32")[0]
     del f32_512
     torch.cuda.empty_cache()
-    digest, ms_bf16 = stack_digest(EmformerConfig(compute_dtype=torch.bfloat16),
-                                   B_SLOTS, 0, dev, "A vi bf16 L=20")
+    digest, ms_bf16, vi_parts = stack_digest(
+        EmformerConfig(compute_dtype=torch.bfloat16), B_SLOTS, 0, dev,
+        "A vi bf16 L=20", parts=True)
+    en_digest, ms_en, en_parts = stack_digest(
+        dataclasses.replace(RNNTConfig().emformer,
+                            compute_dtype=torch.bfloat16), B_SLOTS, 0, dev,
+        "A en bf16 L=20", parts=True)
+    vi = EmformerConfig(compute_dtype=torch.bfloat16)
+    int8_parts = stack_parts(step(vi, B_SLOTS, 0, "int8"), "A-int8 vi",
+                             attention_bytes(
+                                 B_SLOTS, vi.num_layers, vi.d_model,
+                                 vi.segment_length, vi.right_context_length,
+                                 vi.max_memory_size, vi.left_context_length),
+                             need=A_INT8_KERNELS)
+    torch.cuda.empty_cache()
     b1 = step(ASRConfig.vietnamese().encoder.emformer, 1, 2)
     dev_b1 = device_times(b1, 5, need="attention")[0]
     model = ASRModel(seed=0, device=dev)
@@ -4572,7 +4655,11 @@ def kernel_a_times():
         runs.append(time.perf_counter() - t0)
     pkg = os.path.relpath(os.path.dirname(os.path.dirname(es.__file__)), HERE)
     log(f"[compare] {pkg}: A vi f32 L=20 at 512 slots {ms_512:.3f} ms device; A vi bf16 "
-        f"{ms_bf16:.3f} ms device, sha256 {digest[:16]}; A f32 B=1 "
+        f"{ms_bf16:.3f} ms device, its products "
+        f"{vi_parts['gemm']['ms']:.3f}, sha256 {digest[:16]}; A en bf16 "
+        f"{ms_en:.3f} ms device, its products {en_parts['gemm']['ms']:.3f},"
+        f" sha256 {en_digest[:16]}; A-int8 vi's int8 products "
+        f"{int8_parts['gemm_int8']['ms']:.3f} ms device; A f32 B=1 "
         f"{dev_b1:.3f} ms device; "
         f"ASRModel {sorted(runs)[2] * 100:.3f} ms per second of audio "
         f"(median of 5)")

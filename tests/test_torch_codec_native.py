@@ -8,10 +8,19 @@ one caller at a time, so calls from many threads at once must still give
 exact rows.  The port's Scheduler gives the same events with the native
 gather and with the numpy one (``ASR_NO_FUSED_GATHER``), on the overfit
 CTC fixture.  Each test skips only when there is no g++.
+
+The JAX package's wrappers are held to the port from a private build of
+their library (``jax_codec``): ``asr_streaming_tpu/utils/codec_native.py``
+runs ``make`` into ``native/audio/`` when the library is absent and loads
+whatever file it finds there, so test processes that start together on a
+fresh tree build and load the same file at once, and one that loses the
+race keeps ``native_available() == False`` for good.
 """
 
+import ctypes
 import os
 import shutil
+import subprocess
 import sys
 import threading
 
@@ -37,10 +46,41 @@ EDGE = np.array([-2.0, 2.0, -1.0, 1.0, 0.0, -0.0, 1e-8, -1e-8, np.inf,
                  0.1, -0.3, 0.7734, 0.25, -0.125, 3e-5, -3e-5], np.float32)
 
 
+JAX_NATIVE_DIR = os.path.dirname(os.path.abspath(jcodec._LIB_PATH))
+JAX_SOURCES = ("Makefile", "mulaw.cc")
+
+
 def _need_gxx():
     if shutil.which("g++") is None:
         pytest.skip("no g++ on PATH: the native codec cannot be built")
     assert codec_native.native_available()
+
+
+@pytest.fixture(scope="module")
+def jax_codec_build(tmp_path_factory):
+    """The JAX package's codec library built from copies of its Makefile
+    and source in a directory of this module's own (``CXX=g++``, as the
+    port builds: the card machine's ``$CXX`` links libstdc++ statically),
+    never into ``native/audio/``.  Returns (directory, library path)."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on PATH: the native codec cannot be built")
+    d = tmp_path_factory.mktemp("jax_codec")
+    for name in JAX_SOURCES:
+        shutil.copyfile(os.path.join(JAX_NATIVE_DIR, name), d / name)
+    subprocess.run(["make", "-C", str(d), "CXX=g++"], check=True,
+                   capture_output=True, timeout=300)
+    return d, str(d / os.path.basename(jcodec._LIB_PATH))
+
+
+@pytest.fixture
+def jax_codec(jax_codec_build, monkeypatch):
+    """``asr_streaming_tpu.utils.codec_native`` pointed at the private
+    build for one test: its library path, and its load latch reset so that
+    it loads that file; monkeypatch restores all three afterwards."""
+    monkeypatch.setattr(jcodec, "_LIB_PATH", jax_codec_build[1])
+    monkeypatch.setattr(jcodec, "_lib", None)
+    monkeypatch.setattr(jcodec, "_tried", False)
+    return jcodec
 
 
 def _pcm16_numpy(x):
@@ -66,26 +106,26 @@ def _rows_through_gather(x, mulaw):
 
 
 @pytest.mark.parametrize("case", ["random", "edge"])
-def test_mulaw_bit_exact_vs_numpy_and_jax(case):
+def test_mulaw_bit_exact_vs_numpy_and_jax(case, jax_codec):
     _need_gxx()
     x = _samples(case)
     out = _rows_through_gather(x, True)
     np.testing.assert_array_equal(out, mulaw_encode_host(x))
     np.testing.assert_array_equal(out, j_mulaw(x))
-    assert jcodec.native_available()
+    assert jax_codec.native_available()
     ref = np.zeros(x.shape, np.uint8)
-    assert jcodec.mulaw_encode_into(x, ref)
+    assert jax_codec.mulaw_encode_into(x, ref)
     np.testing.assert_array_equal(out, ref)
 
 
 @pytest.mark.parametrize("case", ["random", "edge"])
-def test_pcm16_bit_exact_vs_numpy_and_jax(case):
+def test_pcm16_bit_exact_vs_numpy_and_jax(case, jax_codec):
     _need_gxx()
     x = _samples(case)
     out = _rows_through_gather(x, False)
     np.testing.assert_array_equal(out, _pcm16_numpy(x))
     ref = np.zeros(x.shape, np.int16)
-    assert jcodec.pcm16_encode_into(x, ref)
+    assert jax_codec.pcm16_encode_into(x, ref)
     np.testing.assert_array_equal(out, ref)
 
 
@@ -108,6 +148,25 @@ def test_gather_refuses_what_the_native_loop_cannot_check():
             codec_native.gather_encode_into(*args)
 
 
+def test_jax_codec_comes_from_the_private_build(jax_codec_build, jax_codec):
+    """The library the JAX wrappers load in these tests is the fixture's:
+    built in its own directory from byte-equal copies of
+    ``native/audio/``'s Makefile and source, and not a file of
+    ``native/audio/``."""
+    d, path = jax_codec_build
+    for name in JAX_SOURCES:
+        with open(os.path.join(JAX_NATIVE_DIR, name), "rb") as a, \
+                open(d / name, "rb") as b:
+            assert a.read() == b.read(), name
+    assert os.path.dirname(path) == str(d)
+    assert os.path.commonpath([path, JAX_NATIVE_DIR]) != JAX_NATIVE_DIR
+    assert os.path.isfile(path)
+    assert jax_codec.native_available()
+    lib = jax_codec._lib
+    assert isinstance(lib, ctypes.CDLL)
+    assert os.path.samefile(lib._name, path)
+
+
 def _ragged_views(rng, rows, cols):
     """Stream-like views: each a slice at its own offset of its own ring
     buffer, as Stream.pop_chunk_view returns them."""
@@ -123,7 +182,7 @@ def _ragged_views(rng, rows, cols):
 
 @pytest.mark.parametrize("mulaw", [True, False], ids=["mulaw", "pcm16"])
 @pytest.mark.parametrize("rows", [1, 5, 40])
-def test_gather_ragged_views_bit_exact(mulaw, rows):
+def test_gather_ragged_views_bit_exact(mulaw, rows, jax_codec):
     """Row i encodes views[i] into out[slots[i]]; rows not named keep
     their bytes; the JAX package's gather writes the same matrix."""
     _need_gxx()
@@ -135,7 +194,7 @@ def test_gather_ragged_views_bit_exact(mulaw, rows):
     out = np.full((slots_total, cols), 9, dtype)
     ref = out.copy()
     assert codec_native.gather_encode_into(views, slots, out, mulaw)
-    assert jcodec.gather_encode_into(views, slots, ref, mulaw)
+    assert jax_codec.gather_encode_into(views, slots, ref, mulaw)
     np.testing.assert_array_equal(out, ref)
     want = np.full((slots_total, cols), 9, dtype)
     for i, slot in enumerate(slots):

@@ -411,26 +411,166 @@ def test_gemm_bf16_matches_plain_within_its_bound(name):
 @pytest.mark.gpu
 @pytest.mark.parametrize("config", range(len(es.GEMM_TILES)),
                          ids=[f"{m}x{n}" for m, n in es.GEMM_TILES])
-@pytest.mark.parametrize("name", ["ragged", "gelu", "en_q", "en_ffn1",
-                                  "vi_ffn2"])
+@pytest.mark.parametrize("name", ["ragged", "gelu", "relu", "silu", "en_q",
+                                  "en_ffn1", "vi_ffn2"])
 def test_gemm_bf16_each_tile_matches_plain(name, config):
     """Each tile configuration, forced, within the same bound: ragged
-    edges, an activation, and serving shapes of one, a few and many tiles
-    a block."""
+    edges, each activation through the ping-pong epilogue, and serving
+    shapes of one, a few and many tiles a warpgroup."""
     _check_gemm(_cuda(), *GEMM_SHAPES[name], config=config)
 
 
+# the ten serving shapes and a ragged one: every tile, forced, gives the
+# bits of the tile the chain picks
+BIT_SHAPES = [n for n in GEMM_SHAPES if n[:3] in ("vi_", "en_")] + ["ragged"]
+
+
 @pytest.mark.gpu
-def test_gemm_bf16_config_fills_the_card():
-    """The tile picked for each serving product is a valid index, and a
-    product with fewer 128-row tiles than SMs takes a 64-row tile."""
+@pytest.mark.parametrize("name", BIT_SHAPES)
+def test_gemm_bf16_every_tile_gives_the_picked_tiles_bits(name):
+    """Each output's sum runs over the same wgmma k steps in the same
+    order on every tile, and the epilogue rounds at the same points, so
+    the bf16 product does not depend on the tile: each forced tile equals
+    the picked one bit for bit (a second call too)."""
+    dev = _cuda()
+    M, K, N, act = GEMM_SHAPES[name]
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(
+        dev).to(torch.bfloat16)
+    w = torch.from_numpy((rng.standard_normal((K, N)) / np.sqrt(K)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    bias = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(
+        dev).to(torch.bfloat16)
+    picked = es.gemm_bf16(x, w, bias, act)
+    assert torch.equal(es.gemm_bf16(x, w, bias, act), picked)
+    for config in range(len(es.GEMM_TILES)):
+        got = es.gemm_bf16(x, w, bias, act, config)
+        torch.cuda.synchronize()
+        assert torch.equal(got, picked), (
+            f"{es.GEMM_TILES[config]}: {int((got != picked).sum())} of "
+            f"{got.numel()} differ from the picked tile's")
+
+
+@pytest.mark.gpu
+def test_gemm_config_takes_the_least_load_and_fills_the_card_at_en():
+    """The tile picked for each product (bf16 and int8 sums alike), and for
+    a layer's q and kv in one launch, is the one whose busiest SM loads
+    the fewest bytes (rounds of tiles over the SMs times a tile's rows and
+    columns; the larger tile on a tie).  At the EN shape (2,560 rows)
+    that puts a tile on every SM for the q + kv launch (240 tiles of
+    128x128) and for ffn1, where 128x128 tiles of q alone would leave 52
+    of 132 SMs idle."""
     _cuda()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for M, K, N, _ in GEMM_SHAPES.values():
-        c = es.gemm_config(M, N, K)
-        assert c in range(len(es.GEMM_TILES))
-        if -(-M // 128) * -(-N // 128) < sms:
-            assert es.GEMM_TILES[c][0] == 64, (M, N, es.GEMM_TILES[c])
+    configs = range(len(es.GEMM_TILES))
+    for name, (M, K, N, _) in GEMM_SHAPES.items():
+        spans = [es.gemm_load_span([(M, N)], c, sms) for c in configs]
+        assert es.gemm_config(M, N) == spans.index(min(spans)), name
+    for lang in ("vi", "en"):
+        (Mq, K, Nq, _), (Mkv, _, Nkv, _) = (GEMM_SHAPES[f"{lang}_q"],
+                                            GEMM_SHAPES[f"{lang}_kv"])
+        spans = [es.gemm_load_span([(Mq, Nq), (Mkv, Nkv)], c, sms)
+                 for c in configs]
+        c = es.gemm_config(Mq, Nq, pair=(Mkv, Nkv))
+        assert c == spans.index(min(spans)), (lang, spans)
+        if lang == "en":
+            wm, bn = es.GEMM_TILES[c]
+            tiles = sum(-(-M // wm) * -(-N // bn)
+                        for M, N in ((Mq, Nq), (Mkv, Nkv)))
+            assert tiles >= sms, (es.GEMM_TILES[c], tiles)
+            wq, bq = es.GEMM_TILES[es.gemm_config(Mq, Nq)]
+            assert -(-Mq // wq) * -(-Nq // bq) < sms
+    M, K, N, _ = GEMM_SHAPES["en_ffn1"]
+    wm, bn = es.GEMM_TILES[es.gemm_config(M, N)]
+    assert -(-M // wm) * -(-N // bn) >= sms
+
+
+# a layer's q and kv products in one launch: VI, EN and a ragged pair
+PAIR_SHAPES = {
+    "vi": ((10752, 512), (12288, 1024), 512),
+    "en": ((2560, 512), (2560, 1024), 512),
+    "ragged": ((300, 136), (84, 264), 200),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", [None] + list(range(len(es.GEMM_TILES))),
+                         ids=["picked"] + [f"{m}x{n}"
+                                           for m, n in es.GEMM_TILES])
+@pytest.mark.parametrize("name", list(PAIR_SHAPES))
+def test_gemm_bf16_pair_equals_two_launches(name, config):
+    """The q + kv launch (one list of both products' tiles) gives each
+    product's bits as its own launch does."""
+    dev = _cuda()
+    (M0, N0), (M1, N1), K = PAIR_SHAPES[name]
+    rng = np.random.default_rng(17)
+
+    def operands(M, N):
+        x = torch.from_numpy(rng.standard_normal((M, K)).astype(
+            np.float32)).to(dev).to(torch.bfloat16)
+        w = torch.from_numpy((rng.standard_normal((K, N)) / np.sqrt(K))
+                             .astype(np.float32)).to(dev).to(torch.bfloat16)
+        b = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(
+            dev).to(torch.bfloat16)
+        return x, w, b
+
+    a, b = operands(M0, N0), operands(M1, N1)
+    y0, y1 = es.gemm_bf16_pair(*a, *b, config=config)
+    torch.cuda.synchronize()
+    assert torch.equal(y0, es.gemm_bf16(*a))
+    assert torch.equal(y1, es.gemm_bf16(*b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["gelu", "silu"])
+def test_gemm_activation_equals_its_table_on_every_bf16_value(act):
+    """The epilogue's GELU and SiLU (the table's serving range from
+    shared memory, the rest from device memory) give the table's bits,
+    the bits of activate() rounded, for every bf16 input: a product of
+    zero rows whose bias holds all 65,536 bit patterns (the
+    pre-activation is the bias itself; -0.0 becomes +0.0), on each
+    tile."""
+    dev = _cuda()
+    N, K = 65536, 64
+    bias = torch.arange(-32768, 32768, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16).to(dev)
+    x = torch.zeros(64, K, dtype=torch.bfloat16, device=dev)
+    w = torch.zeros(K, N, dtype=torch.bfloat16, device=dev)
+    table = es.gemm_act_table(act, dev).long() & 0xffff
+    pre = (torch.zeros_like(bias) + bias).view(torch.int16).long() & 0xffff
+    want = table[pre]
+    for config in [None] + list(range(len(es.GEMM_TILES))):
+        got = es.gemm_bf16(x, w, bias, act, config)
+        torch.cuda.synchronize()
+        bits = got.view(torch.int16).long() & 0xffff
+        bad = (bits != want[None]).nonzero()
+        assert bad.numel() == 0, (
+            f"{config}: {bad.shape[0]} outputs differ, first input bits "
+            f"{int(pre[bad[0, 1]]):#06x}: {int(bits[tuple(bad[0])]):#06x} "
+            f"against {int(want[bad[0, 1]]):#06x}")
+
+
+@pytest.mark.gpu
+def test_gemm_main_loop_only_leaves_the_output_unwritten():
+    """``main_loop_only`` (timing) launches the same GEMM without its
+    epilogue: nothing is written, and the next full call is exact."""
+    dev = _cuda()
+    M, K, N, act = GEMM_SHAPES["gelu"]
+    x = torch.randn(M, K, device=dev).to(torch.bfloat16)
+    w = (torch.randn(K, N, device=dev) / K ** 0.5).to(torch.bfloat16)
+    bias = torch.randn(N, device=dev).to(torch.bfloat16)
+    want = es.gemm_bf16(x, w, bias, act)
+    wt = es._kernel_tensor(w, torch.bfloat16, transpose=True)
+    y = torch.full((M, N), 7.0, dtype=torch.bfloat16, device=dev)
+    from asr_streaming_tpu_torch.ops import _cuda as cu
+    cu.launch(dev, "asr_gemm_bf16", "gemm_bf16", x.data_ptr(), wt.data_ptr(),
+              bias.data_ptr(), y.data_ptr(), M, N, K, es._MAIN_LOOP_ONLY, -1,
+              torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert bool((y == 7.0).all())
+    assert torch.equal(es.gemm_bf16(x, w, bias, act), want)
+    with pytest.raises(ValueError, match="main_loop_only"):
+        es.gemm_bf16(x.cpu(), w.cpu(), bias.cpu(), act, main_loop_only=True)
 
 
 # A's f32 products: the offline API's five at B = 1 and B = 3 (the
@@ -576,14 +716,15 @@ def test_w8a8_gemm_equals_qdot_on_each_tile(name, config, dtype):
 @pytest.mark.gpu
 def test_w8a8_config_fills_the_card():
     """The tile picked for each W8A8 serving product is a valid index, and
-    a product with fewer 128-row tiles than SMs takes a 64-row tile."""
+    at the EN shape ffn1 puts a tile on every SM."""
     _cuda()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for M, K, N, _ in INT8_SHAPES.values():
-        c = es.gemm_config(M, N, K, torch.int8)
+    for name, (M, K, N, _) in INT8_SHAPES.items():
+        c = es.gemm_config(M, N)
         assert c in range(len(es.GEMM_TILES))
-        if -(-M // 128) * -(-N // 128) < sms:
-            assert es.GEMM_TILES[c][0] == 64, (M, N, es.GEMM_TILES[c])
+        if name == "en_ffn1":
+            wm, bn = es.GEMM_TILES[c]
+            assert -(-M // wm) * -(-N // bn) >= sms, (name, es.GEMM_TILES[c])
 
 
 @pytest.mark.gpu
@@ -595,9 +736,10 @@ def test_w8a8_linear_rejects_what_it_does_not_take():
         es.w8a8_linear(torch.randn(4, 64, device=dev), q,
                        torch.zeros(60, device=dev), torch.bfloat16)
     q = es.quantized_weights({"w": w[:, :56]}, ["w"])["w"]
-    with pytest.raises(ValueError, match="config 4"):
+    with pytest.raises(ValueError, match=f"config {len(es.GEMM_TILES)}"):
         es.w8a8_linear(torch.randn(4, 64, device=dev), q,
-                       torch.zeros(56, device=dev), torch.bfloat16, config=4)
+                       torch.zeros(56, device=dev), torch.bfloat16,
+                       config=len(es.GEMM_TILES))
 
 
 @pytest.mark.gpu

@@ -168,14 +168,15 @@ def test_w8a8_linear_config_out_of_range_raises(config):
     on the CPU too (as gemm_bf16's does)."""
     w = torch.randn(64, 32)
     q = es.quantized_weights({"w": w}, ["w"])["w"]
-    with pytest.raises(ValueError, match=f"config {config} not in 0..3"):
+    last = len(es.GEMM_TILES) - 1
+    with pytest.raises(ValueError, match=f"config {config} not in 0..{last}"):
         es.w8a8_linear(torch.randn(5, 64), q, torch.zeros(32),
                        torch.bfloat16, config=config)
-    with pytest.raises(ValueError, match=f"config {config} not in 0..3"):
+    with pytest.raises(ValueError, match=f"config {config} not in 0..{last}"):
         es.gemm_bf16(torch.randn(5, 64), w, torch.zeros(32), config=config)
 
 
-@pytest.mark.parametrize("config", [None, 0, 3])
+@pytest.mark.parametrize("config", [None, 0, len(es.GEMM_TILES) - 1])
 @pytest.mark.parametrize("activation", [None, "gelu"])
 def test_w8a8_linear_on_the_cpu_is_the_plain_version(config, activation):
     """A forced tile changes nothing on a CPU tensor: the plain version,
