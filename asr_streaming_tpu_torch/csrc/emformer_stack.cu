@@ -55,30 +55,34 @@
 // take the tiled f32 kernel.  The Pallas kernel's VMEM-resident
 // megakernel does not translate (a block has 227 KB of shared memory, the
 // TPU tile had ~100 MB of VMEM), so one layer is a short chain of simple
-// kernels: ln_in -> gemm(q, kv) -> state_roll -> attention -> gemm(out)
-// -> residual_ffn_ln -> gemm(ffn1+act) -> gemm(ffn2) -> out_ln.  That
+// kernels: gemm(q, kv) -> attention -> gemm(out) -> rows_residual ->
+// gemm(ffn1+act) -> gemm(ffn2) -> rows_boundary (this layer's output LN
+// and the next layer's input LN in one pass), with rows_first before the
+// first layer and rows_last in place of the last boundary; the state roll
+// runs inside those row kernels (their notes, below).  That
 // chain is run_layer(); the C entry asr_emformer_layer runs it once
 // (kernel C, one launch per layer from the host) and asr_emformer_stack
 // loops it over the layers in one host call (kernel A), so the two cannot
 // drift apart.  Inter-layer activations stay in f32 device scratch.  The
 // state roll writes new buffers (no in-place shift across threads).  In
 // W8A8 mode the quantiser reads the f32 LN outputs for wq and ffw1
-// (ln_in and residual_ffn_ln then also write f32 copies) and the
+// (the row kernels then also write f32 copies) and the
 // compute-type values for wkv, wout and ffw2, as _qdot(x.astype(f32))
 // does, and q and kv run as two launches.  The Mosaic tiling knobs (tile,
 // layers_per_step, ffn_slices) carry no semantics and are not reproduced.
 // Not yet done: a main loop nearer the bf16 peak (it runs at 55-65% of
 // it, bound by L2 bytes).  Clusters of two blocks sharing each W slice by
 // TMA multicast (a stage refilled once both blocks released it) held the
-// digests but ran slower on the card, and were not kept.  Also the row
-// kernels (and the W8A8 row quantiser) fused into the GEMMs' prologues and
-// epilogues, one persistent launch for all layers.
+// digests but ran slower on the card, and were not kept.  Also the W8A8
+// row quantiser fused into the row kernels, and the row kernels into the
+// GEMMs' prologues and epilogues, one persistent launch for all layers.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <initializer_list>
 #include <mutex>
 #include <type_traits>
@@ -125,24 +129,25 @@ __device__ __forceinline__ T epilogue(float acc, const T* bias, int n, int act) 
   return from_f<T>(epilogue_v<T>(acc, to_f<T>(bias[n]), act));
 }
 
-// LayerNorm of one row held by a warp: lane owns elements lane + 32*i.
-// D <= 32 * kMaxPerLane.
+// LayerNorm of one row held by a warp: lane owns elements lane + 32*i,
+// i < N (D <= 32 * N).  Lanes past D add nothing, so the bits do not
+// depend on N.
 constexpr int kMaxPerLane = 32;
 
-__device__ __forceinline__ void warp_layer_norm(float (&v)[kMaxPerLane], int D,
-                                                const float* scale,
+template <int N>
+__device__ __forceinline__ void warp_layer_norm(float (&v)[N], int D, const float* scale,
                                                 const float* bias) {
   const int lane = threadIdx.x & 31;
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < kMaxPerLane; ++i) {
+  for (int i = 0; i < N; ++i) {
     int d = lane + 32 * i;
     if (d < D) s += v[i];
   }
   const float mean = warp_sum(s) / (float)D;
   float s2 = 0.f;
 #pragma unroll
-  for (int i = 0; i < kMaxPerLane; ++i) {
+  for (int i = 0; i < N; ++i) {
     int d = lane + 32 * i;
     if (d < D) {
       float c = v[i] - mean;
@@ -152,7 +157,7 @@ __device__ __forceinline__ void warp_layer_norm(float (&v)[kMaxPerLane], int D,
   const float var = warp_sum(s2) / (float)D;
   const float inv = rsqrtf(var + 1e-5f);
 #pragma unroll
-  for (int i = 0; i < kMaxPerLane; ++i) {
+  for (int i = 0; i < N; ++i) {
     int d = lane + 32 * i;
     if (d < D) v[i] = (v[i] - mean) * inv * scale[d] + bias[d];
   }
@@ -1044,75 +1049,6 @@ quantize_rows_kernel(const Tin* __restrict__ x, int8_t* __restrict__ xq,
     qr[k] = (int8_t)__float2int_rn(__fmul_rn(to_f<Tin>(xr[k]), r));
 }
 
-// ------------------------------------------------- per-layer row kernels
-
-// Input LN of [rc; utt] (rows in that order), the summary row (mean of
-// the LN'd utterance), with `reorder` the f32 copy of a chunk given in
-// its [utt; rc] order into hin, and with `init_memrow` the memory row
-// (mean of the RAW utterance, the first layer's).  Writes
-// q_in [B,Q,D] = [ln_rc, ln_utt, summary] (and its f32 copy q_in32 when
-// that is given: the W8A8 wq product quantises the f32 values) and
-// kv_in [B,M+T,D] = [mem (zero where reset), ln_rc, ln_utt].
-// One block per slot; one warp per row; LN'd rows kept in shared memory.
-template <typename T>
-__global__ void ln_in_kernel(const float* __restrict__ src, int reorder,
-                             int init_memrow,
-                             float* __restrict__ hin, float* __restrict__ memrow,
-                             const T* __restrict__ mem_in,
-                             const uint8_t* __restrict__ reset,
-                             const float* __restrict__ scale,
-                             const float* __restrict__ bias,
-                             T* __restrict__ q_in, T* __restrict__ kv_in,
-                             float* __restrict__ q_in32,
-                             int D, int U, int R, int M, int use_mem) {
-  extern __shared__ float ln_rows[];          // [T, D]
-  const int b = blockIdx.x;
-  const int Tr = R + U, Q = Tr + use_mem, NKV = M + Tr;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  for (int t = warp; t < Tr; t += nw) {
-    // a chunk (the first layer's input) comes in its [utt; rc] order
-    const int srow = reorder ? (t < R ? U + t : t - R) : t;
-    const float* xr = src + ((size_t)b * Tr + srow) * D;
-    float v[kMaxPerLane];
-#pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) {
-      int d = lane + 32 * i;
-      v[i] = d < D ? xr[d] : 0.f;
-      if (reorder && d < D) hin[((size_t)b * Tr + t) * D + d] = v[i];
-    }
-    warp_layer_norm(v, D, scale, bias);
-#pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) {
-      int d = lane + 32 * i;
-      if (d < D) {
-        ln_rows[t * D + d] = v[i];
-        const T y = from_f<T>(v[i]);
-        q_in[((size_t)b * Q + t) * D + d] = y;
-        kv_in[((size_t)b * NKV + M + t) * D + d] = y;
-        if (q_in32 != nullptr) q_in32[((size_t)b * Q + t) * D + d] = v[i];
-      }
-    }
-  }
-  const bool rs = reset[b] != 0;
-  for (int i = threadIdx.x; i < M * D; i += blockDim.x)
-    kv_in[(size_t)b * NKV * D + i] = rs ? from_f<T>(0.f) : mem_in[(size_t)b * M * D + i];
-  __syncthreads();
-  if (use_mem) {
-    for (int d = threadIdx.x; d < D; d += blockDim.x) {
-      float s = 0.f;
-      for (int u = 0; u < U; ++u) s += ln_rows[(R + u) * D + d];
-      q_in[((size_t)b * Q + Tr) * D + d] = from_f<T>(s / (float)U);
-      if (q_in32 != nullptr) q_in32[((size_t)b * Q + Tr) * D + d] = s / (float)U;
-      if (init_memrow) {
-        float r = 0.f;
-        for (int u = 0; u < U; ++u) r += src[((size_t)b * Tr + u) * D + d];
-        memrow[(size_t)b * D + d] = r / (float)U;
-      }
-    }
-  }
-}
-
 // Masked attention on the core shared with kernel D
 // (emformer_attention_core.cuh), with the stack kernel's rounding points,
 // one block per (slot, head) item.  Keys/values are
@@ -1169,135 +1105,323 @@ attention_kernel(AttnItems<T> it, int use_mem, float neg_inf) {
                                        use_mem, neg_inf);
 }
 
-// State roll into NEW buffers: memory shifts in this layer's input
-// memory row; left-context K/V keep the newest Lc rows of
-// [lc; new utterance K/V].  Committed where advance, else the
-// (post-reset) previous state.  One block per (slot, output row).
+// ------------------------------------------------- per-layer row kernels
+// A layer's row work takes two launches.  After the out product,
+// rows_residual_kernel: the FFN LN of residual = out + input, the next
+// layer's memory row, and, in blocks of their own beside those rows, the
+// left-context half of the state roll.  After ffn2, rows_boundary_kernel:
+// the output LN of this layer (of out + input + h2: the residual is taken
+// again with the same f32 add, not stored) and, on its f32 result still
+// in registers, the input LN of the next layer with its summary row and
+// the memory half of the next layer's roll; at the last layer
+// rows_last_kernel (the output LN, also into y).  The first layer starts
+// with rows_first_kernel (the chunk's input LN).  Each half of the roll
+// runs where its inputs are ready and not yet overwritten: the memory
+// rows need the layer's input memory row, which the layer's
+// rows_residual_kernel overwrites with the next layer's, and the new
+// left-context rows need the layer's kv scratch, which the next layer's
+// kv product overwrites.  The roll writes new buffers (the attention
+// reads the old ones).
+//
+// What bounds them: bytes, about 195 MB a layer at the VI serving shape
+// (B=512), each tensor read or written once (chip_smoke.py::row_bytes);
+// at B=1 the launches' latency.  An LN row is one warp, lane owning
+// d = lane + 32 i (warp_layer_norm's order, so every kernel gives the
+// same bits), with all of a lane's loads issued before the sums; the
+// roll's copies move 16-byte vectors, several a thread, all loads before
+// the stores.  A slot's input LN is one block (the summary row needs the
+// slot's LN'd utterance rows, kept in shared memory: 32 KB at VI, so four
+// blocks an SM and all 512 slots in one wave); with few slots a block
+// takes more warps, so that a slot's rows run at once.  Measured on the
+// card and not kept: the memory rows on spare warps of a few-slot block.
+
+constexpr int kRowThreads = 256;      // 8 warps: a warp an LN row
+constexpr int kSlotThreadsMax = 1024; // a slot's block, with few slots
+constexpr int kFewSlots = 128;        // below the card's 132 SMs
+constexpr int kRollUnits = 4;         // 16-byte vectors a roll thread moves
+
+// What the row kernels read and write, for one launch: the state slices
+// and LN vectors of the layer(s) it serves.  Unused pointers are null.
 template <typename T>
-__global__ void state_roll_kernel(const T* __restrict__ mem_in,
-                                  const T* __restrict__ lck_in,
-                                  const T* __restrict__ lcv_in,
-                                  const T* __restrict__ kv,
-                                  const float* __restrict__ memrow,
-                                  const uint8_t* __restrict__ reset,
-                                  const uint8_t* __restrict__ advance,
-                                  T* __restrict__ mem_out, T* __restrict__ lck_out,
-                                  T* __restrict__ lcv_out, int D, int U, int R,
-                                  int M, int Lc) {
-  const int b = blockIdx.x, row = blockIdx.y;
-  const bool rs = reset[b] != 0, adv = advance[b] != 0;
-  const int NKV = M + R + U;
-  const T zero = from_f<T>(0.f);
-  if (row < M) {
-    T* dst = mem_out + ((size_t)b * M + row) * D;
-    for (int d = threadIdx.x; d < D; d += blockDim.x) {
-      T val;
-      if (adv && row == M - 1) val = from_f<T>(memrow[(size_t)b * D + d]);
-      else {
-        int srow = adv ? row + 1 : row;
-        val = rs ? zero : mem_in[((size_t)b * M + srow) * D + d];
-      }
-      dst[d] = val;
-    }
-    return;
-  }
-  int j = row - M;
-  const bool is_v = j >= Lc;
-  if (is_v) j -= Lc;
-  const T* lc_in = is_v ? lcv_in : lck_in;
-  T* dst = (is_v ? lcv_out : lck_out) + ((size_t)b * Lc + j) * D;
-  const int keep = max(0, Lc - U);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    T val;
-    if (adv && j >= keep) {
-      int u = U - (Lc - keep) + (j - keep);
-      val = kv[((size_t)b * NKV + M + R + u) * 2 * D + (is_v ? D : 0) + d];
-    } else {
-      int srow = adv ? Lc - keep + j : j;
-      val = rs ? zero : lc_in[((size_t)b * Lc + srow) * D + d];
-    }
-    dst[d] = val;
+struct RowArgs {
+  int B, D, U, R, M, Lc, use_mem, tanh_on_mem;
+  int init_memrow;   // rows_first: the memory row from the raw utterance
+  int ln_blocks;     // rows_residual: blocks of LN rows (the roll's after)
+  const uint8_t* reset;
+  const uint8_t* advance;
+  const float* ln_s;    // residual: the FFN LN; boundary, last: the output LN
+  const float* ln_b;
+  const float* in_s;    // first, boundary: the input LN (boundary: the next
+  const float* in_b;    // layer's)
+  const float* x;       // first: the chunk [B, T, D] in [utt; rc] order
+  const T* out;         // the out product [B, Q, D]
+  const T* h2;          // boundary, last: ffn2 [B, T, D]
+  const T* kv;          // residual: the kv product [B, M+T, 2D]
+  const T* mem_in;      // first, boundary: the layer's memory [B, M, D]
+  const T* lck_in;      // residual: the layer's left context [B, Lc, D]
+  const T* lcv_in;
+  float* hin;           // [B, T, D] f32 rows [rc; utt] (boundary, last:
+                        // read, then overwritten row by row)
+  float* memrow;        // [B, D] f32 memory row
+  T* q_in;              // [B, Q, D]
+  T* kv_in;             // [B, M+T, D]
+  float* q_in32;        // its f32 copy (W8A8 wq) or null
+  T* ff_in;             // [B, T, D]
+  float* ff_in32;       // its f32 copy (W8A8 ffw1) or null
+  T* mem_out;           // rolled state: [B, M, D], [B, Lc, D]
+  T* lck_out;
+  T* lcv_out;
+  float* y;             // last: [B, U, D]
+};
+
+// lane's share of a row: v[i] = row[lane + 32 i], 0 past D
+template <int N, typename T>
+__device__ __forceinline__ void load_row(float (&v)[N], const T* row, int D) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int d = lane + 32 * i;
+    v[i] = d < D ? to_f<T>(row[d]) : 0.f;
   }
 }
 
-// After the out projection: rows t < T give residual = out + input and
-// the FFN LN (written in the compute type for the FFN product, and in f32
-// to ff_in32 when that is given, for the W8A8 ffw1 product); row T
-// (with memory) gives the next layer's memory row, tanh or +-10 clip.
-// One warp per row.
-template <typename T>
-__global__ void residual_ffn_ln_kernel(const T* __restrict__ out,
-                                       const float* __restrict__ hin,
-                                       float* __restrict__ hres,
-                                       float* __restrict__ memrow,
-                                       const float* __restrict__ scale,
-                                       const float* __restrict__ bias,
-                                       T* __restrict__ ff_in,
-                                       float* __restrict__ ff_in32, int B, int D,
-                                       int Tr, int use_mem, int tanh_on_mem) {
+template <int N, typename T>
+__device__ __forceinline__ void store_row(T* row, const float (&v)[N], int D) {
   const int lane = threadIdx.x & 31;
-  const int Q = Tr + use_mem;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int d = lane + 32 * i;
+    if (d < D) row[d] = from_f<T>(v[i]);
+  }
+}
+
+// The input LN of row t ([rc; utt] order) of slot b, v its f32 values:
+// into q_in, kv_in (after the memory rows) and q_in32; an utterance row
+// also into ln_utt [U, D] (shared memory) for the summary row.
+template <int N, typename T>
+__device__ __forceinline__ void input_ln_row(float (&v)[N], const RowArgs<T>& p,
+                                             const float* scale, const float* bias, int b,
+                                             int t, float* ln_utt) {
+  const int D = p.D, Tr = p.R + p.U, Q = Tr + p.use_mem, NKV = p.M + Tr;
+  warp_layer_norm(v, D, scale, bias);
+  store_row(p.q_in + ((size_t)b * Q + t) * D, v, D);
+  store_row(p.kv_in + ((size_t)b * NKV + p.M + t) * D, v, D);
+  if (p.q_in32 != nullptr) store_row(p.q_in32 + ((size_t)b * Q + t) * D, v, D);
+  if (p.use_mem && t >= p.R) store_row(ln_utt + (t - p.R) * D, v, D);
+}
+
+// The roll's copies move 16-byte vectors: check_rows_args holds D to a
+// whole number of them, row_kernel the pointers to 16-byte alignment.
+using Vec16 = uint4;
+
+// The memory rows of slot b, in 16-byte vectors: kv_in's M memory rows
+// (the layer's input memory, zero where reset) and the rolled state from
+// the same values (advance: up one row; else as they are); each input
+// value is read once.
+template <typename T>
+__device__ __forceinline__ void memory_rows(const T* mem, T* kv_in, T* mem_out, bool rs,
+                                            bool adv, int M, int D) {
+  const int per_row = D / (int)(sizeof(Vec16) / sizeof(T)), n = M * per_row;
+  const Vec16* src = reinterpret_cast<const Vec16*>(mem);
+  Vec16* kv = reinterpret_cast<Vec16*>(kv_in);
+  Vec16* dst = reinterpret_cast<Vec16*>(mem_out);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const Vec16 val = rs ? make_uint4(0, 0, 0, 0) : src[i];
+    kv[i] = val;
+    if (!adv) dst[i] = val;
+    else if (i >= per_row) dst[i - per_row] = val;
+  }
+}
+
+// The memory half of slot b's roll and kv_in's memory rows, first in a
+// slot's block (they read no LN row), and where advance is set the last
+// memory row from the layer's input memory row, unless the block computes
+// that row itself (init_memrow: slot_summary writes it).
+template <typename T>
+__device__ __forceinline__ void slot_memory(const RowArgs<T>& p, int b) {
+  if (!p.use_mem) return;
+  const int D = p.D, M = p.M;
+  const bool rs = p.reset[b] != 0, adv = p.advance[b] != 0;
+  const T* mem = p.mem_in + (size_t)b * M * D;
+  T* kv = p.kv_in + (size_t)b * (M + p.R + p.U) * D;
+  T* out = p.mem_out + (size_t)b * M * D;
+  memory_rows(mem, kv, out, rs, adv, M, D);
+  if (adv && !p.init_memrow)
+    for (int d = threadIdx.x; d < D; d += blockDim.x)
+      out[(size_t)(M - 1) * D + d] = from_f<T>(p.memrow[(size_t)b * D + d]);
+}
+
+// After a slot's input LN rows: the summary row (the mean of the LN'd
+// utterance, summed in u order) into q_in and q_in32; with init_memrow
+// the memory row (the mean of the raw utterance, the first layer's), and
+// where advance is set the rolled memory's last row from it.
+template <typename T>
+__device__ __forceinline__ void slot_summary(const RowArgs<T>& p, int b,
+                                             const float* ln_utt) {
+  if (!p.use_mem) return;
+  const int D = p.D, U = p.U, Tr = p.R + U, Q = Tr + 1;
+  const bool adv = p.advance[b] != 0;
+  __syncthreads();
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float s = 0.f;
+    for (int u = 0; u < U; ++u) s += ln_utt[u * D + d];
+    p.q_in[((size_t)b * Q + Tr) * D + d] = from_f<T>(s / (float)U);
+    if (p.q_in32 != nullptr) p.q_in32[((size_t)b * Q + Tr) * D + d] = s / (float)U;
+    if (p.init_memrow) {
+      float r = 0.f;
+      for (int u = 0; u < U; ++u) r += p.x[((size_t)b * Tr + u) * D + d];
+      p.memrow[(size_t)b * D + d] = r / (float)U;
+      if (adv) p.mem_out[((size_t)b * p.M + p.M - 1) * D + d] = from_f<T>(r / (float)U);
+    }
+  }
+}
+
+// The first layer's input: the chunk x in its [utt; rc] order, copied to
+// hin as [rc; utt], its input LN, the summary row, the memory row (with
+// init_memrow) and the layer's memory rows.  One block per slot.
+template <typename T, int N>
+__global__ void __launch_bounds__(kSlotThreadsMax) rows_first_kernel(RowArgs<T> p) {
+  extern __shared__ float ln_utt[];     // [U, D] with memory
+  const int b = blockIdx.x, D = p.D, U = p.U, R = p.R, Tr = R + U;
+  const int nw = blockDim.x >> 5;
+  slot_memory(p, b);
+  for (int t = threadIdx.x >> 5; t < Tr; t += nw) {
+    const int srow = t < R ? U + t : t - R;
+    float v[N];
+    load_row(v, p.x + ((size_t)b * Tr + srow) * D, D);
+    store_row(p.hin + ((size_t)b * Tr + t) * D, v, D);
+    input_ln_row(v, p, p.in_s, p.in_b, b, t, ln_utt);
+  }
+  slot_summary(p, b, ln_utt);
+}
+
+// Between two layers: the output LN of layer l (residual + h2, the
+// residual out + hin taken again with rows_residual's f32 add, so the
+// residual never goes through memory) into hin, and on the same f32
+// values the input LN of layer l+1, its summary row and its memory rows.
+// One block per slot.
+template <typename T, int N>
+__global__ void __launch_bounds__(kSlotThreadsMax) rows_boundary_kernel(RowArgs<T> p) {
+  extern __shared__ float ln_utt[];     // [U, D] with memory
+  const int b = blockIdx.x, D = p.D, Tr = p.R + p.U, Q = Tr + p.use_mem;
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  slot_memory(p, b);
+  for (int t = threadIdx.x >> 5; t < Tr; t += nw) {
+    const size_t base = ((size_t)b * Tr + t) * D;
+    const T* o = p.out + ((size_t)b * Q + t) * D;
+    float v[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int d = lane + 32 * i;
+      v[i] = d < D ? (to_f<T>(o[d]) + p.hin[base + d]) + to_f<T>(p.h2[base + d]) : 0.f;
+    }
+    warp_layer_norm(v, D, p.ln_s, p.ln_b);
+    store_row(p.hin + base, v, D);
+    input_ln_row(v, p, p.in_s, p.in_b, b, t, ln_utt);
+  }
+  slot_summary(p, b, ln_utt);
+}
+
+// The left-context half of the roll in 16-byte vectors, kRollUnits a
+// thread from vector `first`, blockDim apart:
+// output row j of slot b keeps the newest Lc rows of [lc; new utterance
+// K/V] where advance is set (rows j >= keep from this layer's kv), else
+// row j of the post-reset input.
+template <typename T>
+__device__ __forceinline__ void roll_left_context(const RowArgs<T>& p, long first) {
+  using W = Vec16;
+  constexpr int V = sizeof(W) / sizeof(T);
+  const int D = p.D, Lc = p.Lc, per_row = D / V, keep = max(0, Lc - p.U);
+  const int NKV = p.M + p.R + p.U;
+  const long units = (long)p.B * 2 * Lc * per_row;
+  W val[kRollUnits];
+  W* dst[kRollUnits];
+#pragma unroll
+  for (int k = 0; k < kRollUnits; ++k) {
+    const long u = first + (long)k * blockDim.x;
+    dst[k] = nullptr;
+    if (u >= units) continue;
+    const int c = (int)(u % per_row);
+    const long rest = u / per_row;
+    int j = (int)(rest % (2 * Lc));
+    const int b = (int)(rest / (2 * Lc));
+    const bool is_v = j >= Lc;
+    if (is_v) j -= Lc;
+    const bool rs = p.reset[b] != 0, adv = p.advance[b] != 0;
+    const T* src;
+    if (adv && j >= keep) {
+      const int nu = p.U - (Lc - keep) + (j - keep);
+      src = p.kv + ((size_t)b * NKV + p.M + p.R + nu) * 2 * D + (is_v ? D : 0);
+    } else {
+      const int srow = adv ? Lc - keep + j : j;
+      src = rs ? nullptr : (is_v ? p.lcv_in : p.lck_in) + ((size_t)b * Lc + srow) * D;
+    }
+    val[k] = src == nullptr ? make_uint4(0, 0, 0, 0) : reinterpret_cast<const W*>(src)[c];
+    dst[k] = reinterpret_cast<W*>((is_v ? p.lcv_out : p.lck_out) + ((size_t)b * Lc + j) * D) + c;
+  }
+#pragma unroll
+  for (int k = 0; k < kRollUnits; ++k)
+    if (dst[k] != nullptr) *dst[k] = val[k];
+}
+
+// After the out product.  Blocks below ln_blocks, a warp a row: rows
+// t < T give residual = out + input and its FFN LN (ff_in, and
+// ff_in32 for the W8A8 ffw1 product); row T (with memory) the next
+// layer's memory row, tanh or +-10 clip.  The blocks after: the
+// left-context half of this layer's roll.
+template <typename T, int N>
+__global__ void __launch_bounds__(kRowThreads, 4) rows_residual_kernel(RowArgs<T> p) {
+  if ((int)blockIdx.x >= p.ln_blocks) {
+    const long first =
+        (long)(blockIdx.x - p.ln_blocks) * kRollUnits * blockDim.x + threadIdx.x;
+    roll_left_context(p, first);
+    return;
+  }
+  const int lane = threadIdx.x & 31, D = p.D;
+  const int Tr = p.R + p.U, Q = Tr + p.use_mem;
   const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row >= B * Q) return;
+  if (row >= p.B * Q) return;
   const int b = row / Q, t = row % Q;
-  const T* o = out + ((size_t)b * Q + t) * D;
+  const T* o = p.out + ((size_t)b * Q + t) * D;
   if (t == Tr) {
     for (int d = lane; d < D; d += 32) {
       float x = to_f<T>(o[d]);
-      memrow[(size_t)b * D + d] = tanh_on_mem ? tanhf(x) : fminf(fmaxf(x, -10.f), 10.f);
+      p.memrow[(size_t)b * D + d] = p.tanh_on_mem ? tanhf(x) : fminf(fmaxf(x, -10.f), 10.f);
     }
     return;
   }
   const size_t base = ((size_t)b * Tr + t) * D;
-  float v[kMaxPerLane];
+  float v[N];
 #pragma unroll
-  for (int i = 0; i < kMaxPerLane; ++i) {
-    int d = lane + 32 * i;
-    v[i] = 0.f;
-    if (d < D) {
-      v[i] = to_f<T>(o[d]) + hin[base + d];
-      hres[base + d] = v[i];
-    }
+  for (int i = 0; i < N; ++i) {
+    const int d = lane + 32 * i;
+    v[i] = d < D ? to_f<T>(o[d]) + p.hin[base + d] : 0.f;
   }
-  warp_layer_norm(v, D, scale, bias);
-#pragma unroll
-  for (int i = 0; i < kMaxPerLane; ++i) {
-    int d = lane + 32 * i;
-    if (d < D) {
-      ff_in[base + d] = from_f<T>(v[i]);
-      if (ff_in32 != nullptr) ff_in32[base + d] = v[i];
-    }
-  }
+  warp_layer_norm(v, D, p.ln_s, p.ln_b);
+  store_row(p.ff_in + base, v, D);
+  if (p.ff_in32 != nullptr) store_row(p.ff_in32 + base, v, D);
 }
 
-// Output LN of residual + FFN; the result is the next layer's input
-// (rows [rc; utt]); at the last layer the utterance rows also go to y.
-template <typename T>
-__global__ void out_ln_kernel(const float* __restrict__ hres, const T* __restrict__ h2,
-                              const float* __restrict__ scale,
-                              const float* __restrict__ bias,
-                              float* __restrict__ hout, float* __restrict__ y,
-                              int B, int D, int Tr, int R) {
-  const int lane = threadIdx.x & 31;
+// The last layer's output LN of residual (out + hin, as rows_boundary
+// takes it) + FFN into hin (rows [rc; utt]) and its utterance rows into
+// y.  A warp a row.
+template <typename T, int N>
+__global__ void __launch_bounds__(kRowThreads, 4) rows_last_kernel(RowArgs<T> p) {
+  const int lane = threadIdx.x & 31, D = p.D, R = p.R, U = p.U, Tr = R + U;
   const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row >= B * Tr) return;
-  const int b = row / Tr, t = row % Tr, U = Tr - R;
+  if (row >= p.B * Tr) return;
+  const int b = row / Tr, t = row % Tr;
   const size_t base = (size_t)row * D;
-  float v[kMaxPerLane];
+  const T* o = p.out + ((size_t)b * (Tr + p.use_mem) + t) * D;
+  float v[N];
 #pragma unroll
-  for (int i = 0; i < kMaxPerLane; ++i) {
-    int d = lane + 32 * i;
-    v[i] = d < D ? hres[base + d] + to_f<T>(h2[base + d]) : 0.f;
+  for (int i = 0; i < N; ++i) {
+    const int d = lane + 32 * i;
+    v[i] = d < D ? (to_f<T>(o[d]) + p.hin[base + d]) + to_f<T>(p.h2[base + d]) : 0.f;
   }
-  warp_layer_norm(v, D, scale, bias);
-#pragma unroll
-  for (int i = 0; i < kMaxPerLane; ++i) {
-    int d = lane + 32 * i;
-    if (d < D) {
-      hout[base + d] = v[i];
-      if (y != nullptr && t >= R) y[((size_t)b * U + (t - R)) * D + d] = v[i];
-    }
-  }
+  warp_layer_norm(v, D, p.ln_s, p.ln_b);
+  store_row(p.hin + base, v, D);
+  if (t >= R) store_row(p.y + ((size_t)b * U + (t - R)) * D, v, D);
 }
 
 }  // namespace
@@ -1352,7 +1476,6 @@ struct EmformerStackArgs {
   void* h1;     // [B, T, F]
   void* h2;     // [B, T, D]
   float* hin;   // [B, T, D] f32
-  float* hres;  // [B, T, D] f32
   float* memrow;// [B, D] f32
   // W8A8 scratch (only with quant != 0)
   int8_t* aq;   // quantised rows, [max rows, max K]
@@ -1718,8 +1841,84 @@ int qgemm(int cfg, const Tin* A, int8_t* aq, float* as, const int8_t* wt, int L,
   return launch_gemm_cfg<int8_t, T>(s, cfg, &p, 1, L, layer, K, act, st);
 }
 
-size_t ln_smem_bytes(const EmformerStackArgs& a) {
-  return (size_t)(a.R + a.U) * a.D * sizeof(float);
+// ------------------------------------------------------ row kernels, host
+
+enum RowKind { kRowsFirst = 0, kRowsResidual = 1, kRowsBoundary = 2, kRowsLast = 3 };
+
+// each row kernel's launches, counted on the host as each is queued
+// (asr_row_launch_counts): a profile may drop kernel records, these do not
+std::atomic<long long> g_row_launches[4];
+
+// a lane's share N of a row of D (D <= 32 N)
+int lanes_for(int D) {
+  return D <= 64 ? 2 : D <= 128 ? 4 : D <= 256 ? 8 : D <= 512 ? 16 : kMaxPerLane;
+}
+
+// the roll's 16-byte vectors may be read and written at these addresses
+// (check_rows_args holds D, so row offsets keep the alignment)
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* q : ptrs)
+    if (((uintptr_t)q & 15) != 0) return false;
+  return true;
+}
+
+template <typename T, int N>
+int launch_rows_n(int kind, RowArgs<T> p, cudaStream_t st) {
+  const int Tr = p.R + p.U, Q = Tr + p.use_mem, warps = kRowThreads / 32;
+  if (kind == kRowsFirst || kind == kRowsBoundary) {
+    const int slot_warps = p.B < kFewSlots ? kSlotThreadsMax / 32 : warps;
+    const size_t smem = p.use_mem ? (size_t)p.U * p.D * sizeof(float) : 0;
+    auto kernel = kind == kRowsFirst ? rows_first_kernel<T, N> : rows_boundary_kernel<T, N>;
+    CHECK_RC(allow_smem(kernel, smem));
+    kernel<<<p.B, 32 * (Tr < slot_warps ? Tr : slot_warps), smem, st>>>(p);
+  } else if (kind == kRowsResidual) {
+    p.ln_blocks = (p.B * Q + warps - 1) / warps;
+    const long per_row = p.D / (long)(sizeof(Vec16) / sizeof(T));
+    const long per_block = (long)kRowThreads * kRollUnits;
+    const long roll = ((long)p.B * 2 * p.Lc * per_row + per_block - 1) / per_block;
+    rows_residual_kernel<T, N><<<p.ln_blocks + (int)roll, kRowThreads, 0, st>>>(p);
+  } else {
+    rows_last_kernel<T, N><<<(p.B * Tr + warps - 1) / warps, kRowThreads, 0, st>>>(p);
+  }
+  const int rc = (int)cudaGetLastError();
+  if (rc == 0) ++g_row_launches[kind];
+  return rc;
+}
+
+// One row kernel of layer l: `kind`'s, with the input LN and memory rows
+// of layer l_in (the first layer's, or the next one's at a boundary).
+template <typename T>
+int row_kernel(const EmformerStackArgs& a, int kind, int l, int l_in, int init_memrow,
+         cudaStream_t st) {
+  const size_t D = a.D, sMem = (size_t)l_in * a.B * a.M * D, sLc = (size_t)l * a.B * a.Lc * D;
+  RowArgs<T> p{};
+  p.B = a.B; p.D = a.D; p.U = a.U; p.R = a.R; p.M = a.M; p.Lc = a.Lc;
+  p.use_mem = a.use_mem; p.tanh_on_mem = a.tanh_on_mem; p.init_memrow = init_memrow;
+  p.reset = a.reset; p.advance = a.advance;
+  const bool ffn = kind == kRowsResidual;
+  p.ln_s = (ffn ? a.ffln_s : a.lnout_s) + l * D;
+  p.ln_b = (ffn ? a.ffln_b : a.lnout_b) + l * D;
+  p.in_s = a.lnin_s + l_in * D;
+  p.in_b = a.lnin_b + l_in * D;
+  p.x = a.x;
+  p.out = (const T*)a.out; p.h2 = (const T*)a.h2; p.kv = (const T*)a.kv;
+  p.mem_in = (const T*)a.mem_in + sMem; p.mem_out = (T*)a.mem_out + sMem;
+  p.lck_in = (const T*)a.lck_in + sLc; p.lcv_in = (const T*)a.lcv_in + sLc;
+  p.lck_out = (T*)a.lck_out + sLc; p.lcv_out = (T*)a.lcv_out + sLc;
+  p.hin = a.hin; p.memrow = a.memrow;
+  p.q_in = (T*)a.q_in; p.kv_in = (T*)a.kv_in; p.ff_in = (T*)a.ff_in; p.y = a.y;
+  p.q_in32 = (a.quant & kQWq) ? a.q_in32 : nullptr;
+  p.ff_in32 = (a.quant & kQW1) ? a.ff_in32 : nullptr;
+  if (!(ffn ? aligned16({p.kv, p.lck_in, p.lcv_in, p.lck_out, p.lcv_out})
+            : aligned16({p.mem_in, p.kv_in, p.mem_out})))
+    return kErrShape;
+  switch (lanes_for(a.D)) {
+    case 2: return launch_rows_n<T, 2>(kind, p, st);
+    case 4: return launch_rows_n<T, 4>(kind, p, st);
+    case 8: return launch_rows_n<T, 8>(kind, p, st);
+    case 16: return launch_rows_n<T, 16>(kind, p, st);
+  }
+  return launch_rows_n<T, kMaxPerLane>(kind, p, st);
 }
 
 template <typename T, int KJ, bool kMma>
@@ -1750,14 +1949,15 @@ int attention(const EmformerStackArgs& a, const T* q, const T* kv, const T* lck,
   return kErrShape;
 }
 
-// One layer of the step: the chain of ten kernels (more in W8A8 mode).
-// Layer l of the stacked weights and state; src is the layer's input
-// ([utt; rc] order with reorder, else hin's [rc; utt]); y gets the
-// utterance rows of the output (nullptr: not written).  The output rows
-// [rc; utt] are left in hin and the next layer's memory row in memrow.
+// One layer of the step: the chain of nine kernels (more in W8A8 mode),
+// from the layer's input rows (q_in, kv_in, hin and its memory rows, left
+// by rows_first or the previous layer's boundary): the q and kv products,
+// the attention, the out product, rows_residual, ffn1, ffn2, then the
+// boundary into layer l + 1, or at the last layer rows_last (y).  Layer l
+// of the stacked weights and state.  The output rows [rc; utt] are left
+// in hin and the next layer's memory row in memrow.
 template <typename T>
-int run_layer(const EmformerStackArgs& a, int l, const float* src, int reorder,
-              int init_memrow, float* y) {
+int run_layer(const EmformerStackArgs& a, int l, bool last) {
   cudaStream_t st = (cudaStream_t)a.stream;
   const int B = a.B, D = a.D, F = a.F, U = a.U, R = a.R, M = a.M, Lc = a.Lc;
   const int Tr = R + U, Q = Tr + a.use_mem, NKV = M + Tr;
@@ -1773,17 +1973,10 @@ int run_layer(const EmformerStackArgs& a, int l, const float* src, int reorder,
   // product p's f32 split (q, kv, out, ffn1, ffn2; ignored in bf16)
   auto sp = [&a](int p) { return F32Split{a.f32_kslice[p], a.f32_ws, a.f32_tiles}; };
 
-  const size_t sMem = (size_t)l * B * M * D, sLc = (size_t)l * B * Lc * D;
-  const T* mem_in = (const T*)a.mem_in + sMem;
+  const size_t sLc = (size_t)l * B * Lc * D;
   const T* lck_in = (const T*)a.lck_in + sLc;
   const T* lcv_in = (const T*)a.lcv_in + sLc;
-  const int rows_per_block = 4;          // warps per block in row kernels
 
-  ln_in_kernel<T><<<B, 256, ln_smem_bytes(a), st>>>(
-      src, reorder, init_memrow, a.hin, a.memrow, mem_in, a.reset,
-      a.lnin_s + (size_t)l * D, a.lnin_b + (size_t)l * D, q_in, kv_in,
-      (qz & kQWq) ? a.q_in32 : nullptr, D, U, R, M, a.use_mem);
-  CHECK_LAUNCH();
   if (std::is_same<T, bf16>::value && !(qz & (kQWq | kQWkv))) {
     // the bf16 q and kv products in one launch
     const GemmProduct qkv[2] = {
@@ -1806,12 +1999,6 @@ int run_layer(const EmformerStackArgs& a, int l, const float* src, int reorder,
       CHECK_RC(gemm<T>(kv_in, wkv, a.L, l, bkv + (size_t)l * 2 * D, kv, B * NKV, 2 * D, D,
                        ACT_NONE, sp(1), st));
   }
-  // the roll reads this layer's input memory row before residual_ffn_ln
-  // overwrites it with the next layer's
-  state_roll_kernel<T><<<dim3(B, M + 2 * Lc), 128, 0, st>>>(
-      mem_in, lck_in, lcv_in, kv, a.memrow, a.reset, a.advance,
-      (T*)a.mem_out + sMem, (T*)a.lck_out + sLc, (T*)a.lcv_out + sLc, D, U, R, M, Lc);
-  CHECK_LAUNCH();
   CHECK_RC(attention<T>(a, q, kv, lck_in, lcv_in, attn, st));
   if (qz & kQWout)
     CHECK_RC((qgemm<T, T>(-1, attn, a.aq, a.a_scale, a.wout8, a.L, l,
@@ -1820,11 +2007,8 @@ int run_layer(const EmformerStackArgs& a, int l, const float* src, int reorder,
   else
     CHECK_RC(gemm<T>(attn, wout, a.L, l, bout + (size_t)l * D, out, B * Q, D, D, ACT_NONE,
                      sp(2), st));
-  residual_ffn_ln_kernel<T><<<(B * Q + rows_per_block - 1) / rows_per_block,
-                              32 * rows_per_block, 0, st>>>(
-      out, a.hin, a.hres, a.memrow, a.ffln_s + (size_t)l * D, a.ffln_b + (size_t)l * D,
-      ff_in, (qz & kQW1) ? a.ff_in32 : nullptr, B, D, Tr, a.use_mem, a.tanh_on_mem);
-  CHECK_LAUNCH();
+  // with the left-context roll, which reads this layer's kv
+  CHECK_RC(row_kernel<T>(a, kRowsResidual, l, l, 0, st));
   if (qz & kQW1)
     CHECK_RC((qgemm<T, float>(-1, a.ff_in32, a.aq, a.a_scale, a.w18, a.L, l,
                              a.w1_s + (size_t)l * F, b1 + (size_t)l * F, h1, B * Tr, F, D,
@@ -1838,37 +2022,40 @@ int run_layer(const EmformerStackArgs& a, int l, const float* src, int reorder,
   else
     CHECK_RC(gemm<T>(h1, w2, a.L, l, b2 + (size_t)l * D, h2, B * Tr, D, F, ACT_NONE, sp(4),
                      st));
-  out_ln_kernel<T><<<(B * Tr + rows_per_block - 1) / rows_per_block,
-                     32 * rows_per_block, 0, st>>>(
-      a.hres, h2, a.lnout_s + (size_t)l * D, a.lnout_b + (size_t)l * D, a.hin, y, B, D,
-      Tr, R);
-  CHECK_LAUNCH();
-  return 0;
+  return last ? row_kernel<T>(a, kRowsLast, l, l, 0, st)
+              : row_kernel<T>(a, kRowsBoundary, l, l + 1, 0, st);
 }
 
-// all layers: layer 0 reads the chunk x, the others hin; the last writes y
+// all layers: the first reads the chunk x, the last writes y
 template <typename T>
 int run_stack(const EmformerStackArgs& a) {
-  CHECK_RC(allow_smem(ln_in_kernel<T>, ln_smem_bytes(a)));
-  for (int l = 0; l < a.L; ++l)
-    CHECK_RC(run_layer<T>(a, l, l == 0 ? a.x : a.hin, l == 0, l == 0,
-                          l == a.L - 1 ? a.y : nullptr));
+  CHECK_RC(row_kernel<T>(a, kRowsFirst, 0, 0, 1, (cudaStream_t)a.stream));
+  for (int l = 0; l < a.L; ++l) CHECK_RC(run_layer<T>(a, l, l == a.L - 1));
   return 0;
 }
 
 template <typename T>
 int run_one_layer(const EmformerStackArgs& a) {
-  CHECK_RC(allow_smem(ln_in_kernel<T>, ln_smem_bytes(a)));
-  return run_layer<T>(a, 0, a.x, 1, a.init_memrow, a.y);
+  CHECK_RC(row_kernel<T>(a, kRowsFirst, 0, 0, a.init_memrow, (cudaStream_t)a.stream));
+  return run_layer<T>(a, 0, true);
+}
+
+// what every entry of the chain needs: memory exactly when M > 0, and D a
+// whole number of the roll's 16-byte vectors (8 bf16 or 4 f32)
+int check_rows_args(const EmformerStackArgs* a) {
+  if (a == nullptr || a->struct_size != (int64_t)sizeof(EmformerStackArgs))
+    return kErrStructSize;
+  if (a->D <= 0 || a->D > 32 * kMaxPerLane || a->B <= 0 || a->L <= 0 || a->U <= 0 ||
+      a->R < 0 || a->M < 0 || a->Lc < 0 || (a->use_mem != 0) != (a->M > 0) ||
+      (a->dtype != 0 && a->dtype != 1) || a->D % (a->dtype == 1 ? 8 : 4) != 0)
+    return kErrShape;
+  return 0;
 }
 
 int check_args(const EmformerStackArgs* a) {
-  if (a == nullptr || a->struct_size != (int64_t)sizeof(EmformerStackArgs))
-    return kErrStructSize;
-  if (a->D > 32 * kMaxPerLane || a->H <= 0 || a->D % a->H != 0 || a->B <= 0 ||
-      a->L <= 0 || a->U <= 0 || (a->use_mem && a->M <= 0) || a->y == nullptr ||
-      (a->quant != 0 && (a->D % 16 != 0 || a->F % 16 != 0)) ||
-      (a->dtype != 0 && a->dtype != 1))
+  CHECK_RC(check_rows_args(a));
+  if (a->H <= 0 || a->D % a->H != 0 || a->y == nullptr ||
+      (a->quant != 0 && (a->D % 16 != 0 || a->F % 16 != 0)))
     return kErrShape;
   const int Q = a->R + a->U + a->use_mem, K = a->M + a->R + a->Lc + a->U, Dh = a->D / a->H;
   if (!(a->dtype == 1 ? attn_core::supports<bf16>(Q, K, Dh) && attn_core::supports_mma(Q, K, Dh)
@@ -1892,6 +2079,27 @@ extern "C" int asr_emformer_layer(const EmformerStackArgs* a) {
   CHECK_RC(check_args(a));
   if (a->L != 1) return kErrShape;
   return a->dtype == 1 ? run_one_layer<bf16>(*a) : run_one_layer<float>(*a);
+}
+
+// One row kernel of the chain alone, as run_layer launches it, for tests
+// and timing, on one layer's (L = 1) LN vectors and state: kind 0 the
+// first layer's input (x; with init_memrow the memory row from x, else
+// memrow as given), 1 rows_residual (with the left-context roll), 2 the
+// boundary (the output LN with lnout_s/lnout_b, then the input LN with
+// lnin_s/lnin_b and the memory rows of mem_in), 3 rows_last (into y).
+extern "C" int asr_emformer_rows(const EmformerStackArgs* a, int kind) {
+  CHECK_RC(check_rows_args(a));
+  if (a->L != 1 || kind < kRowsFirst || kind > kRowsLast) return kErrShape;
+  cudaStream_t st = (cudaStream_t)a->stream;
+  const int init_memrow = kind == kRowsFirst ? a->init_memrow : 0;
+  return a->dtype == 1 ? row_kernel<bf16>(*a, kind, 0, 0, init_memrow, st)
+                       : row_kernel<float>(*a, kind, 0, 0, init_memrow, st);
+}
+
+// Each row kernel's launches since the library was loaded, out[kind]
+// (kRowsFirst .. kRowsLast), as queued without a launch error.
+extern "C" void asr_row_launch_counts(long long* out) {
+  for (int k = 0; k < 4; ++k) out[k] = g_row_launches[k].load();
 }
 
 // The W8A8 product alone (quantise the rows of x, int8 GEMM, dequant +

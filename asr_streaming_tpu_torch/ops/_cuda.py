@@ -130,6 +130,10 @@ def lib() -> ctypes.CDLL:
             getattr(handle, name).argtypes = [ctypes.c_void_p]
             getattr(handle, name).restype = ctypes.c_int
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        handle.asr_emformer_rows.argtypes = [ptr, i32]
+        handle.asr_emformer_rows.restype = i32
+        handle.asr_row_launch_counts.argtypes = [ptr]
+        handle.asr_row_launch_counts.restype = None
         handle.asr_w8a8_linear.argtypes = [i32, i32] + [ptr] * 7 + [i32] * 5 \
             + [ptr]
         handle.asr_w8a8_linear.restype = i32

@@ -151,6 +151,45 @@ def _act(name):
             "silu": F.silu}[name]
 
 
+def _attention_plain(q, kv, lc_k, lc_v, length, *, U, R, M, Lc, H,
+                     use_mem, neg_inf, cdt):
+    """The layer's masked attention (pallas_emformer.py::_layer_math):
+    q [B, Q, D] and kv [B, M+R+U, 2D] from the products, lc_k / lc_v
+    [B, Lc, D] the left context (zero where reset) -> [B, Q, D] cdt."""
+    B, Q, D = q.shape
+    Dh = D // H
+    K = M + R + Lc + U
+    k_part, v_part = kv[:, :, :D], kv[:, :, D:]
+    full_k = torch.cat([k_part[:, :M + R], lc_k, k_part[:, M + R:]], 1)
+    full_v = torch.cat([v_part[:, :M + R], lc_v, v_part[:, M + R:]], 1)
+
+    # key validity from the per-slot fill counters
+    length = length.view(B, 1).to(torch.int64)
+    col = torch.arange(K, device=q.device).view(1, K)
+    m_kv = torch.clamp(length, max=Lc)
+    lc_start = M + R
+    valid = ~((col >= lc_start) & (col < lc_start + (Lc - m_kv)))
+    if use_mem:
+        m_m = torch.clamp(torch.div(length, max(U, 1), rounding_mode="floor"),
+                          max=M)
+        valid = valid & ~((col < M) & (col < (M - m_m)))
+    mask = valid.view(B, 1, K).expand(B, Q, K).clone()
+    if use_mem:
+        mask[:, Q - 1, :M] = False                 # summary row: no memory
+
+    scaling = 1.0 / math.sqrt(Dh)
+    qh = (q * scaling).view(B, Q, H, Dh).transpose(1, 2)          # cdt
+    kh = full_k.view(B, K, H, Dh).transpose(1, 2)
+    vh = full_v.view(B, K, H, Dh).transpose(1, 2)
+    logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+    logits = torch.where(mask[:, None], logits,
+                         torch.tensor(neg_inf, dtype=torch.float32,
+                                      device=logits.device))
+    probs = torch.softmax(logits, -1).to(cdt)
+    attn = torch.matmul(probs.float(), vh.float())                 # f32
+    return attn.transpose(1, 2).reshape(B, Q, D).to(cdt)
+
+
 def _layer_plain(utt, rc, mem_row, mem_state_in, lc_k_in, lc_v_in, length,
                  reset, advance, w, *, U, R, M, Lc, H, use_mem, tanh_on_mem,
                  neg_inf, activation, cdt, qw=None):
@@ -165,8 +204,6 @@ def _layer_plain(utt, rc, mem_row, mem_state_in, lc_k_in, lc_v_in, length,
                          qw[name][1]).to(cdt)
         return _mm(x2d, w[name], cdt)
 
-    Dh = D // H
-    K = M + R + Lc + U
     Q = R + U + (1 if use_mem else 0)
     reset3 = reset.view(B, 1, 1)
     adv3 = advance.view(B, 1, 1)
@@ -195,34 +232,8 @@ def _layer_plain(utt, rc, mem_row, mem_state_in, lc_k_in, lc_v_in, length,
 
     lc_k = torch.where(reset3, torch.zeros_like(lc_k_in), lc_k_in).to(cdt)
     lc_v = torch.where(reset3, torch.zeros_like(lc_v_in), lc_v_in).to(cdt)
-    full_k = torch.cat([k_part[:, :M + R], lc_k, next_k], 1)
-    full_v = torch.cat([v_part[:, :M + R], lc_v, next_v], 1)
-
-    # key validity from the per-slot fill counters
-    length = length.view(B, 1).to(torch.int64)
-    col = torch.arange(K, device=utt.device).view(1, K)
-    m_kv = torch.clamp(length, max=Lc)
-    lc_start = M + R
-    valid = ~((col >= lc_start) & (col < lc_start + (Lc - m_kv)))
-    if use_mem:
-        m_m = torch.clamp(torch.div(length, max(U, 1), rounding_mode="floor"),
-                          max=M)
-        valid = valid & ~((col < M) & (col < (M - m_m)))
-    mask = valid.view(B, 1, K).expand(B, Q, K).clone()
-    if use_mem:
-        mask[:, Q - 1, :M] = False                 # summary row: no memory
-
-    scaling = 1.0 / math.sqrt(Dh)
-    qh = (q * scaling).view(B, Q, H, Dh).transpose(1, 2)          # cdt
-    kh = full_k.view(B, K, H, Dh).transpose(1, 2)
-    vh = full_v.view(B, K, H, Dh).transpose(1, 2)
-    logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
-    logits = torch.where(mask[:, None], logits,
-                         torch.tensor(neg_inf, dtype=torch.float32,
-                                      device=logits.device))
-    probs = torch.softmax(logits, -1).to(cdt)
-    attn = torch.matmul(probs.float(), vh.float())                 # f32
-    attn = attn.transpose(1, 2).reshape(B, Q, D).to(cdt)
+    attn = _attention_plain(q, kv, lc_k, lc_v, length, U=U, R=R, M=M, Lc=Lc,
+                            H=H, use_mem=use_mem, neg_inf=neg_inf, cdt=cdt)
 
     out = (proj(attn.reshape(B * Q, D), "w_out")
            + w["b_out"].to(cdt)).reshape(B, Q, D)
@@ -305,7 +316,7 @@ class _Args(ctypes.Structure):
                     "w18", "w1_s", "w28", "w2_s",
                     "y", "mem_out", "lck_out", "lcv_out",
                     "q_in", "kv_in", "q", "kv", "attn", "out", "ff_in",
-                    "h1", "h2", "hin", "hres", "memrow",
+                    "h1", "h2", "hin", "memrow",
                     "aq", "a_scale", "q_in32", "ff_in32")]
                 + [("f32_kslice", ctypes.c_int32 * 5)]
                 + [(n, ctypes.c_void_p) for n in (
@@ -357,6 +368,19 @@ def _ptr(t):
     return t.data_ptr() if t is not None and t.numel() else None
 
 
+def _check_vectors(what: str, cdt: torch.dtype, D: int, **tensors) -> None:
+    """Raise unless the row kernels' 16-byte vectors fit: D a whole number
+    of them (8 bf16 or 4 f32 values) and each named tensor's data 16-byte
+    aligned (a fresh allocation is; a view at an odd offset is not)."""
+    vec = 16 // torch.empty((), dtype=cdt).element_size()
+    if D % vec:
+        raise ValueError(f"{what}: D={D} is not a multiple of {vec} "
+                         f"({cdt} values in 16 bytes)")
+    for name, t in tensors.items():
+        if t is not None and t.numel() and t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned")
+
+
 def run_chain(entry: str, w: dict, qw: dict, x, length, reset, advance, mem,
               lc_k, lc_v, memrow, *, U, R, M, Lc, H, use_mem, tanh_on_mem,
               neg_inf, activation, cdt, init_memrow=0):
@@ -398,13 +422,15 @@ def run_chain(entry: str, w: dict, qw: dict, x, length, reset, advance, mem,
         # a cached kernel copy lives on its source weight's device
         if t.device != dev:
             raise ValueError(f"weight {name} is on {t.device}, x on {dev}")
-    if use_mem and M == 0:
-        raise ValueError("use_mem requires M > 0")
+    if use_mem != (M > 0):
+        raise ValueError(f"use_mem={use_mem} needs M > 0, and M={M} needs "
+                         f"use_mem")
     check_geometry(R + U + int(use_mem), M + R + Lc + U, D // H, cdt,
                    mma=cdt == torch.bfloat16, what="emformer kernel")
 
     x = x.to(torch.float32).contiguous()
     mem, lc_k, lc_v = mem.contiguous(), lc_k.contiguous(), lc_v.contiguous()
+    _check_vectors("emformer kernel", cdt, D, mem=mem, lc_k=lc_k, lc_v=lc_v)
     length = length.to(device=dev, dtype=torch.int32).contiguous()
     reset = reset.to(device=dev, dtype=torch.uint8).contiguous()
     advance = advance.to(device=dev, dtype=torch.uint8).contiguous()
@@ -425,8 +451,7 @@ def run_chain(entry: str, w: dict, qw: dict, x, length, reset, advance, mem,
          "attn": scratch(B, Q, D), "out": scratch(B, Q, D),
          "ff_in": scratch(B, T, D), "h1": scratch(B, T, Fd),
          "h2": scratch(B, T, D),
-         "hin": scratch(B, T, D, dtype=torch.float32),
-         "hres": scratch(B, T, D, dtype=torch.float32)}
+         "hin": scratch(B, T, D, dtype=torch.float32)}
     q = {}
     if qw:
         rows = B * max(Q, NKV, T)
@@ -873,3 +898,340 @@ def emformer_stack(params: dict, x: torch.Tensor, mem: torch.Tensor,
                                     reset.bool(), advance.bool(),
                                     quant=quant, **kw)
     raise ValueError(f"emformer_stack: unsupported device {x.device}")
+
+
+# ------------------------------------------------- the chain's row kernels
+# Each row kernel of csrc/emformer_stack.cu alone, as run_layer launches it
+# (C entry asr_emformer_rows), for tests and timing, with its plain
+# version: ``rows_first`` (the first layer's input), ``rows_residual``
+# (after the out product: the FFN LN, with the left-context half of the
+# state roll), ``rows_boundary`` (after ffn2: this layer's output LN of
+# out + hin + h2, then the next layer's input LN and the memory half of
+# its roll), ``rows_last`` (the last layer's output LN).  The plain
+# versions compute what ``_layer_plain`` computes, split as the kernels
+# split it.  CUDA tensors launch the kernel, CPU tensors run the plain
+# version.
+
+_ROW_KINDS = {"first": 0, "residual": 1, "boundary": 2, "last": 3}
+_RELAUNCH = None      # rows_relaunch's list while it runs a wrapper
+
+
+def _rows_in(utt, rc, mem, memrow, reset, advance, scale, bias, *, use_mem,
+             cdt, f32_copy):
+    """A layer's input LN of its rows utt [B, U, D] and rc [B, R, D] (f32):
+    (q_in [B, Q, D] and kv_in [B, M+T, D] in ``cdt``, q_in in f32 with
+    ``f32_copy`` else None, the memory half of the layer's roll [B, M, D]
+    from ``mem`` and the layer's input memory row ``memrow`` [B, D])."""
+    B = utt.shape[0]
+    ln_rc = _ln(rc, scale, bias)
+    ln_utt = _ln(utt, scale, bias)
+    parts = [ln_rc, ln_utt]
+    if use_mem:
+        parts.append(ln_utt.mean(1, keepdim=True))
+    q_in32 = torch.cat(parts, 1)
+    reset3, adv3 = reset.view(B, 1, 1), advance.view(B, 1, 1)
+    mem_state = torch.where(reset3, torch.zeros_like(mem), mem)
+    kv_in = torch.cat(([mem_state.to(cdt)] if use_mem else [])
+                      + [ln_rc.to(cdt), ln_utt.to(cdt)], 1)
+    mem_out = mem_state
+    if use_mem:
+        rolled = torch.cat([mem_state[:, 1:],
+                            memrow.view(B, 1, -1).to(mem.dtype)], 1)
+        mem_out = torch.where(adv3, rolled, mem_state)
+    return q_in32.to(cdt), kv_in, q_in32 if f32_copy else None, mem_out
+
+
+def rows_first_plain(x, mem, reset, advance, scale, bias, memrow=None, *, U,
+                     R, use_mem, cdt, f32_copy=False):
+    """The plain version of ``rows_first``."""
+    xf = x.to(torch.float32)
+    utt, rc = xf[:, :U], xf[:, U:U + R]
+    if use_mem and memrow is None:
+        memrow = utt.mean(1)
+    q_in, kv_in, q_in32, mem_out = _rows_in(
+        utt, rc, mem, memrow, reset.bool(), advance.bool(), scale, bias,
+        use_mem=use_mem, cdt=cdt, f32_copy=f32_copy)
+    return (torch.cat([rc, utt], 1), q_in, kv_in, q_in32,
+            memrow if use_mem else None, mem_out)
+
+
+def rows_residual_plain(out, hin, kv, lc_k, lc_v, reset, advance, scale,
+                        bias, *, U, R, M, Lc, use_mem, tanh_on_mem,
+                        f32_copy=False):
+    """The plain version of ``rows_residual``."""
+    B, T, D = hin.shape
+    cdt = out.dtype
+    ff = _ln(out[:, :T].float() + hin, scale, bias)
+    memrow = None
+    if use_mem:
+        m = out[:, T].float()
+        memrow = torch.tanh(m) if tanh_on_mem else torch.clamp(m, -10.0, 10.0)
+    reset3, adv3 = reset.bool().view(B, 1, 1), advance.bool().view(B, 1, 1)
+    keep = max(0, Lc - U)
+    rolled = []
+    for lc, new in ((lc_k, kv[:, M + R:, :D]), (lc_v, kv[:, M + R:, D:])):
+        lc0 = torch.where(reset3, torch.zeros_like(lc), lc).to(cdt)
+        shifted = torch.cat([lc0[:, Lc - keep:], new[:, U - (Lc - keep):]],
+                            1).to(lc.dtype)
+        rolled.append(torch.where(adv3, shifted, lc0.to(lc.dtype)))
+    return (ff.to(cdt), ff if f32_copy else None, memrow, *rolled)
+
+
+def _output_ln(out, hin, h2, scale, bias):
+    """The layer's output LN of its residual out + hin and the FFN's h2."""
+    T = hin.shape[1]
+    return _ln((out[:, :T].float() + hin) + h2.float(), scale, bias)
+
+
+def rows_boundary_plain(out, hin, h2, mem, memrow, reset, advance, out_scale,
+                        out_bias, in_scale, in_bias, *, U, R, use_mem,
+                        f32_copy=False):
+    """The plain version of ``rows_boundary``."""
+    hin = _output_ln(out, hin, h2, out_scale, out_bias)
+    q_in, kv_in, q_in32, mem_out = _rows_in(
+        hin[:, R:], hin[:, :R], mem, memrow, reset.bool(), advance.bool(),
+        in_scale, in_bias, use_mem=use_mem, cdt=h2.dtype, f32_copy=f32_copy)
+    return hin, q_in, kv_in, q_in32, mem_out
+
+
+def rows_last_plain(out, hin, h2, scale, bias, *, U, R):
+    """The plain version of ``rows_last``."""
+    hin = _output_ln(out, hin, h2, scale, bias)
+    return hin, hin[:, R:]
+
+
+def _check_rows(what, dev, **tensors):
+    """Raise unless each named (tensor, shape, dtype) is as given and on
+    ``dev``."""
+    for name, (t, shape, dtype) in tensors.items():
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype or \
+                t.device != dev:
+            raise ValueError(f"{what}: {name} is {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}, expected {tuple(shape)} "
+                             f"{dtype} on {dev}")
+
+
+def _launch_rows(kind, dev, cdt, *, B, D, U, R, M=0, Lc=0, tanh_on_mem=False,
+                 init_memrow=False, f32_copy=False, **tensors):
+    """Launch one row kernel (entry asr_emformer_rows) on the tensors named
+    by their ``_Args`` fields."""
+    if cdt not in (torch.bfloat16, torch.float32) or D > 1024:
+        raise ValueError(f"rows_{kind}: {cdt}, D={D} (bf16 or f32, D <= "
+                         f"1024)")
+    if not all(t is None or t.is_contiguous() for t in tensors.values()):
+        raise ValueError(f"rows_{kind}: every tensor must be contiguous")
+    _check_vectors(f"rows_{kind}", cdt, D, **tensors)
+    args = _Args(
+        struct_size=ctypes.sizeof(_Args),
+        dtype=1 if cdt == torch.bfloat16 else 0, B=B, L=1, D=D, H=1, U=U,
+        R=R, M=M, Lc=Lc, use_mem=int(M > 0), tanh_on_mem=int(tanh_on_mem),
+        quant=_QBITS["w_q"] | _QBITS["ff_w1"] if f32_copy else 0,
+        init_memrow=int(init_memrow),
+        **{k: _ptr(t) for k, t in tensors.items()},
+        stream=torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch(keep=tensors):   # keep: args' tensors live as long as it
+        _cuda.launch(dev, "asr_emformer_rows", f"rows_{kind}",
+                     ctypes.byref(args), _ROW_KINDS[kind])
+
+    launch()
+    if _RELAUNCH is not None:
+        _RELAUNCH.append(launch)
+
+
+def row_launch_counts() -> dict:
+    """Each row kernel's launches in this process ({"rows_first": n, ...}),
+    counted by the library on the host as each launch is queued, so that a
+    profile that drops kernel records cannot hide one; needs the CUDA
+    library."""
+    counts = (ctypes.c_longlong * len(_ROW_KINDS))()
+    _cuda.lib().asr_row_launch_counts(counts)
+    return {f"rows_{kind}": counts[i] for kind, i in _ROW_KINDS.items()}
+
+
+def rows_relaunch(wrapper, *args, **kw):
+    """Call a row kernel's wrapper (``rows_first`` ... ``rows_last``) on
+    CUDA tensors and return (its outputs, a callable that launches the same
+    kernel again on the same buffers and queues nothing else: no copy, no
+    allocation), to time the kernel alone.  A relaunch of ``rows_boundary``
+    or ``rows_last`` takes the LN of the hin it wrote before: other values,
+    the same work."""
+    global _RELAUNCH
+    _RELAUNCH = []
+    try:
+        out = wrapper(*args, **kw)
+        (launch,) = _RELAUNCH
+    finally:
+        _RELAUNCH = None
+    return out, launch
+
+
+def _flags(reset, advance, dev):
+    return (reset.to(device=dev, dtype=torch.uint8).contiguous(),
+            advance.to(device=dev, dtype=torch.uint8).contiguous())
+
+
+def _device(t, what):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return t.device.type == "cuda"
+
+
+def rows_first(x, mem, reset, advance, scale, bias, memrow=None, *, U, R,
+               use_mem, cdt, f32_copy=False):
+    """The first layer's input rows: x [B, U+R, D] f32 (utterance then
+    right context), its memory state mem [B, M, D] in ``cdt``, the masks
+    [B], its input LN (scale, bias [D] f32) and its input memory row
+    memrow [B, D] f32 (None: the mean of the raw utterance, as the stack
+    computes it).  Returns (hin [B, T, D] f32 rows [rc; utt], q_in
+    [B, Q, D], kv_in [B, M+T, D], q_in f32 with ``f32_copy`` else None,
+    the memory row (None without memory), the rolled memory [B, M, D])."""
+    if not _device(x, "rows_first"):
+        return rows_first_plain(x, mem, reset, advance, scale, bias, memrow,
+                                U=U, R=R, use_mem=use_mem, cdt=cdt,
+                                f32_copy=f32_copy)
+    _cuda.refuse_grad("rows_first", x, mem, scale, bias, memrow)
+    dev, (B, T, D), M = x.device, x.shape, mem.shape[1]
+    if T != U + R or use_mem != (M > 0):
+        raise ValueError(f"rows_first: x {tuple(x.shape)}, U={U}, R={R}, "
+                         f"M={M}, use_mem={use_mem}")
+    Q = T + int(use_mem)
+    init = use_mem and memrow is None
+    if not use_mem:
+        memrow = None
+    elif init:
+        memrow = torch.empty((B, D), dtype=torch.float32, device=dev)
+    else:
+        memrow = memrow.to(torch.float32).contiguous()
+    _check_rows("rows_first", dev, mem=(mem, (B, M, D), cdt),
+                scale=(scale, (D,), torch.float32),
+                bias=(bias, (D,), torch.float32),
+                **({"memrow": (memrow, (B, D), torch.float32)}
+                   if use_mem else {}))
+    reset, advance = _flags(reset, advance, dev)
+    hin = torch.empty((B, T, D), dtype=torch.float32, device=dev)
+    q_in = torch.empty((B, Q, D), dtype=cdt, device=dev)
+    kv_in = torch.empty((B, M + T, D), dtype=cdt, device=dev)
+    q_in32 = torch.empty((B, Q, D), dtype=torch.float32, device=dev) \
+        if f32_copy else None
+    mem_out = torch.empty_like(mem)
+    _launch_rows("first", dev, cdt, B=B, D=D, U=U, R=R, M=M,
+                 init_memrow=init, f32_copy=f32_copy,
+                 x=x.to(torch.float32).contiguous(), reset=reset,
+                 advance=advance, mem_in=mem.contiguous(), mem_out=mem_out,
+                 lnin_s=scale, lnin_b=bias, hin=hin, q_in=q_in, kv_in=kv_in,
+                 q_in32=q_in32, memrow=memrow)
+    return hin, q_in, kv_in, q_in32, memrow, mem_out
+
+
+def rows_residual(out, hin, kv, lc_k, lc_v, reset, advance, scale, bias, *,
+                  U, R, M, Lc, use_mem, tanh_on_mem, f32_copy=False):
+    """After the out product: out [B, Q, D] and kv [B, M+T, 2D] in the
+    compute type, hin [B, T, D] f32 (the layer's input rows [rc; utt]),
+    the layer's left context lc_k / lc_v [B, Lc, D], the masks and the FFN
+    LN (scale, bias).  Returns (ff_in [B, T, D], the FFN LN of out + hin;
+    ff_in f32 with ``f32_copy`` else None; the next memory row [B, D] f32
+    (None without memory); the rolled lc_k and lc_v)."""
+    if not _device(out, "rows_residual"):
+        return rows_residual_plain(out, hin, kv, lc_k, lc_v, reset, advance,
+                                   scale, bias, U=U, R=R, M=M, Lc=Lc,
+                                   use_mem=use_mem, tanh_on_mem=tanh_on_mem,
+                                   f32_copy=f32_copy)
+    _cuda.refuse_grad("rows_residual", out, hin, kv, lc_k, lc_v, scale, bias)
+    dev, cdt, (B, T, D) = out.device, out.dtype, hin.shape
+    Q = T + int(use_mem)
+    if T != U + R or use_mem != (M > 0):
+        raise ValueError(f"rows_residual: hin {tuple(hin.shape)}, U={U}, "
+                         f"R={R}, M={M}, use_mem={use_mem}")
+    _check_rows("rows_residual", dev, out=(out, (B, Q, D), cdt),
+                hin=(hin, (B, T, D), torch.float32),
+                kv=(kv, (B, M + T, 2 * D), cdt),
+                lc_k=(lc_k, (B, Lc, D), cdt), lc_v=(lc_v, (B, Lc, D), cdt),
+                scale=(scale, (D,), torch.float32),
+                bias=(bias, (D,), torch.float32))
+    reset, advance = _flags(reset, advance, dev)
+    ff_in = torch.empty((B, T, D), dtype=cdt, device=dev)
+    ff_in32 = torch.empty((B, T, D), dtype=torch.float32, device=dev) \
+        if f32_copy else None
+    memrow = torch.empty((B, D), dtype=torch.float32, device=dev) \
+        if use_mem else None
+    lck_out, lcv_out = torch.empty_like(lc_k), torch.empty_like(lc_v)
+    _launch_rows("residual", dev, cdt, B=B, D=D, U=U, R=R, M=M, Lc=Lc,
+                 tanh_on_mem=tanh_on_mem, f32_copy=f32_copy, out=out,
+                 hin=hin, kv=kv, lck_in=lc_k, lcv_in=lc_v, reset=reset,
+                 advance=advance, ffln_s=scale, ffln_b=bias, ff_in=ff_in,
+                 ff_in32=ff_in32, memrow=memrow, lck_out=lck_out,
+                 lcv_out=lcv_out)
+    return ff_in, ff_in32, memrow, lck_out, lcv_out
+
+
+def rows_boundary(out, hin, h2, mem, memrow, reset, advance, out_scale,
+                  out_bias, in_scale, in_bias, *, U, R, use_mem,
+                  f32_copy=False):
+    """After ffn2, between two layers: the residual out [B, Q, D] (the out
+    product, compute type) + hin [B, T, D] f32 (the layer's input rows)
+    and h2 [B, T, D] give this layer's output LN (out_scale, out_bias),
+    and its rows the next layer's input LN (in_scale, in_bias) with that
+    layer's memory state mem [B, M, D] and input memory row memrow [B, D]
+    f32.  Returns (the new hin [B, T, D] f32, q_in, kv_in, q_in f32 with
+    ``f32_copy`` else None, the next layer's rolled memory); the kernel
+    writes hin where it reads it, so the wrapper hands it a copy."""
+    if not _device(h2, "rows_boundary"):
+        return rows_boundary_plain(out, hin, h2, mem, memrow, reset, advance,
+                                   out_scale, out_bias, in_scale, in_bias,
+                                   U=U, R=R, use_mem=use_mem,
+                                   f32_copy=f32_copy)
+    _cuda.refuse_grad("rows_boundary", out, hin, h2, mem, memrow, out_scale,
+                      out_bias, in_scale, in_bias)
+    dev, cdt, (B, T, D), M = h2.device, h2.dtype, h2.shape, mem.shape[1]
+    Q = T + int(use_mem)
+    if T != U + R or use_mem != (M > 0):
+        raise ValueError(f"rows_boundary: h2 {tuple(h2.shape)}, U={U}, "
+                         f"R={R}, M={M}, use_mem={use_mem}")
+    vec = ((D,), torch.float32)
+    _check_rows("rows_boundary", dev, out=(out, (B, Q, D), cdt),
+                hin=(hin, (B, T, D), torch.float32),
+                mem=(mem, (B, M, D), cdt), out_scale=(out_scale, *vec),
+                out_bias=(out_bias, *vec), in_scale=(in_scale, *vec),
+                in_bias=(in_bias, *vec),
+                **({"memrow": (memrow, (B, D), torch.float32)}
+                   if use_mem else {}))
+    reset, advance = _flags(reset, advance, dev)
+    hin = hin.clone(memory_format=torch.contiguous_format)
+    q_in = torch.empty((B, Q, D), dtype=cdt, device=dev)
+    kv_in = torch.empty((B, M + T, D), dtype=cdt, device=dev)
+    q_in32 = torch.empty((B, Q, D), dtype=torch.float32, device=dev) \
+        if f32_copy else None
+    mem_out = torch.empty_like(mem)
+    _launch_rows("boundary", dev, cdt, B=B, D=D, U=U, R=R, M=M,
+                 f32_copy=f32_copy, out=out, h2=h2, mem_in=mem,
+                 mem_out=mem_out, memrow=memrow if use_mem else None,
+                 reset=reset, advance=advance, lnout_s=out_scale,
+                 lnout_b=out_bias, lnin_s=in_scale, lnin_b=in_bias, hin=hin,
+                 q_in=q_in, kv_in=kv_in, q_in32=q_in32)
+    return hin, q_in, kv_in, q_in32, mem_out
+
+
+def rows_last(out, hin, h2, scale, bias, *, U, R):
+    """The last layer's output LN (scale, bias) of its residual out
+    [B, Q, D] + hin [B, T, D] f32 and h2 [B, T, D]: (the new hin [B, T, D]
+    f32 rows [rc; utt], y [B, U, D] f32 its utterance); the kernel writes
+    hin where it reads it, so the wrapper hands it a copy."""
+    if not _device(h2, "rows_last"):
+        return rows_last_plain(out, hin, h2, scale, bias, U=U, R=R)
+    _cuda.refuse_grad("rows_last", out, hin, h2, scale, bias)
+    dev, cdt, (B, T, D) = h2.device, h2.dtype, h2.shape
+    if T != U + R or out.shape[1] not in (T, T + 1):
+        raise ValueError(f"rows_last: h2 {tuple(h2.shape)}, out "
+                         f"{tuple(out.shape)}, U={U}, R={R}")
+    _check_rows("rows_last", dev, out=(out, (B, out.shape[1], D), cdt),
+                hin=(hin, (B, T, D), torch.float32),
+                scale=(scale, (D,), torch.float32),
+                bias=(bias, (D,), torch.float32))
+    hin = hin.clone(memory_format=torch.contiguous_format)
+    y = torch.empty((B, U, D), dtype=torch.float32, device=dev)
+    # M > 0 marks out's summary row (use_mem), which the kernel steps over
+    _launch_rows("last", dev, cdt, B=B, D=D, U=U, R=R,
+                 M=out.shape[1] - T, out=out, h2=h2, lnout_s=scale,
+                 lnout_b=bias, hin=hin, y=y)
+    return hin, y

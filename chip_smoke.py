@@ -16,9 +16,14 @@ Phases (any failure exits non-zero; nothing is caught):
      version's time, the card's bound and a library yardstick where one
      PyTorch call computes the same function, plus a device-time
      breakdown by kernel;
-     A's parts (its bf16 GEMMs, its attention, the rest) from the profile
-     at VI and EN, and D in bf16 in/out (bit for bit the f32 kernel on
-     the widened inputs, then cast) beside SDPA on the same tensors;
+     A's parts (its bf16 GEMMs, its attention, its row kernels with their
+     launches and bytes bound, the rest) from the profile at VI and EN;
+     each of A's row kernels alone (rows_first, rows_residual,
+     rows_boundary, rows_last) against its plain version (check_rows: the
+     roll's rows bit for bit, LN outputs within f32 rounding), beside
+     F.layer_norm and Tensor.copy_; and D in bf16 in/out (bit for bit the
+     f32 kernel on the widened inputs, then cast) beside SDPA on the same
+     tensors;
   3b. A's bf16 product alone (the wgmma GEMM, entry asr_gemm_bf16) at the
      ten serving product shapes (five at VI, five at EN), a ragged shape
      and each activation, on the tile run_layer picks and on each tile
@@ -101,7 +106,8 @@ Phases (any failure exits non-zero; nothing is caught):
  11. the offline API (``--only offline``): A at batch 1 and 3 in f32
      against its plain version (1e-4), slot 0 of the B = 3 step bit for
      bit a B = 1 step of that slot, the B = 1 step by part beside its 100
-     products on the f32 torch.matmul; ASRModel at full width (VI f32)
+     products on the f32 torch.matmul, A's row kernels alone at B = 1;
+     ASRModel at full width (VI f32)
      against the CPU plain version (1e-3 on log-probs) and its time per
      second of audio; the fixture's golden text and word windows through
      ASRModel; ``python -m asr_streaming_tpu_torch.tools.transcribe``
@@ -167,11 +173,26 @@ PEAK_INT8_OPS = 1979e12       # dense int8 tensor-core peak
 PEAK_F32_FLOPS = 67e12        # f32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # HBM3
 B_SLOTS = 512                 # server-vi.yaml's max_active_connections
+# A's row kernels (csrc/emformer_stack.cu): two a layer (the residual,
+# with the left-context roll, and the boundary between layers, with the
+# next layer's memory rows), the first layer's input and the last layer's
+# output
+ROW_KERNELS = ("rows_first", "rows_residual", "rows_boundary", "rows_last")
+
+
+def row_launches(L: int) -> dict:
+    """Each row kernel's launches in one step of A with L layers."""
+    return {"rows_first": 1, "rows_residual": L, "rows_boundary": L - 1,
+            "rows_last": 1}
+
+
 # kernels one call of A launches (device_times' ``need``): its GEMM,
-# attention and state roll, in bf16 and in W8A8 mode
-A_KERNELS = ("gemm_bf16_wgmma", "attention_kernel", "state_roll")
-A_INT8_KERNELS = ("gemm_int8_wgmma", "quantize_rows", "attention_kernel",
-                  "state_roll")
+# attention and row kernels, in bf16 and in W8A8 mode; kernel C (one
+# layer) launches no boundary
+A_KERNELS = ("gemm_bf16_wgmma", "attention_kernel") + ROW_KERNELS
+A_INT8_KERNELS = ("gemm_int8_wgmma", "quantize_rows",
+                  "attention_kernel") + ROW_KERNELS
+C_KERNELS = ("gemm_bf16_wgmma", "attention_kernel", "rows_residual")
 
 
 def fail(msg: str) -> None:
@@ -196,6 +217,33 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def event_ms(fn, iters: int = 20) -> float:
+    """Device time per call of fn, which queues device work only (one
+    kernel, say), between CUDA events: a spin kernel holds the stream
+    until every call is queued, so the host's launch time is not counted.
+    If the spin ended before the last call was queued, it is taken again,
+    four times longer; eight such tries fail the run."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = 1 << 21
+    for _ in range(8):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        held = not start.query()
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    fail(f"{getattr(fn, '__name__', 'a call')}: the spin kernel never held "
+         f"the stream until {iters} calls were queued")
 
 
 def device_times(fn, iters: int = 1, need=""):
@@ -240,30 +288,67 @@ def device_times(fn, iters: int = 1, need=""):
          f"kernel records{' of ' + str(need) if need else ''}")
 
 
-def stack_parts(fn, label: str, attn_bytes: float, need=A_KERNELS):
+def stack_parts(fn, label: str, geo, need=None, itemsize=2, reset=None,
+                advance=None, f32_copies=False):
     """Device time of one call of kernel A by part, from the profile: its
     bf16 or f32 GEMMs, its int8 GEMMs and row quantiser (W8A8 mode), its
-    attention (beside the bytes bound of ``attn_bytes``) and the rest
-    (LNs, state roll, and anything else the call launches).  Returns
-    {part: {"ms": ms}}, the attention's with its "bound_ms"."""
-    total, rows = device_times(fn, 3, need=need)
-    parts = {"gemm": 0.0, "gemm_int8": 0.0, "quantise": 0.0, "attention": 0.0}
-    for t, _, name in rows:
+    attention (beside its bytes bound, ``attention_bytes``), its row
+    kernels (``ROW_KERNELS``: their launches, and beside them their bytes
+    bound, ``row_bytes``, and the design's extra writes,
+    ``row_duplicate_bytes``) and the rest (anything else the call
+    launches).  ``geo`` is (B, L, D, U, R, M, Lc); ``itemsize``, the masks
+    and ``f32_copies`` as ``row_bytes``'.  ``need`` as device_times'
+    (None: ``A_KERNELS``).  The row kernels' launches in one call come
+    from the library's own counters (``es.row_launch_counts``), and the
+    run fails unless they are ``row_launches(L)``; a row kernel's time is
+    its mean time per profiled launch times those launches.  Returns
+    {part: {"ms": ms}}, the attention's and the rows' with their
+    "bound_ms", the rows' with their "launches" and "duplicate_ms"."""
+    import torch
+    from asr_streaming_tpu_torch.ops import emformer_stack as es
+    torch.cuda.synchronize()
+    before = es.row_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    by_kernel = {k: n - before[k] for k, n in es.row_launch_counts().items()}
+    if by_kernel != row_launches(geo[1]):
+        fail(f"{label}: row kernel launches {by_kernel}, expected "
+             f"{row_launches(geo[1])}")
+    total, rows = device_times(fn, 3, need=A_KERNELS if need is None else need)
+    parts = {"gemm": 0.0, "gemm_int8": 0.0, "quantise": 0.0, "attention": 0.0,
+             "rows": 0.0}
+    recorded = 0
+    for t, c, name in rows:
         key = ("gemm" if "gemm_bf16_wgmma" in name or "gemm_f32" in name else
                "gemm_int8" if "gemm_int8_wgmma" in name else
                "quantise" if "quantize_rows" in name else
-               "attention" if "attention_kernel" in name else None)
+               "attention" if "attention_kernel" in name else
+               "rows" if any(k in name for k in ROW_KERNELS) else None)
+        if key == "rows":
+            kernel = next(k for k in ROW_KERNELS if k in name)
+            total += t / c * by_kernel[kernel] - t
+            t = t / c * by_kernel[kernel]
+            recorded += c
         if key:
             parts[key] += t
+    row_launches_step = sum(by_kernel.values())
     parts["rest"] = total - sum(parts.values())
-    bound = attn_bytes / PEAK_BYTES * 1e3
+    bound = attention_bytes(*geo, itemsize=itemsize) / PEAK_BYTES * 1e3
     int8 = (f"int8 GEMMs {parts['gemm_int8']:.3f} ms, row quantiser "
             f"{parts['quantise']:.3f} ms, " if parts["gemm_int8"] else "")
+    rows_bound = row_bytes(*geo, itemsize, reset, advance,
+                           f32_copies) / PEAK_BYTES * 1e3
+    dup = row_duplicate_bytes(*geo, itemsize) / PEAK_BYTES * 1e3
     log(f"[profile] {label} by part: GEMMs {parts['gemm']:.3f} ms, {int8}"
         f"attention {parts['attention']:.3f} ms (bytes bound {bound:.3f} "
-        f"ms), the rest {parts['rest']:.3f} ms, of {total:.3f} ms")
+        f"ms), row kernels {parts['rows']:.3f} ms in {row_launches_step} "
+        f"launches ({recorded} a call in the profile; bytes bound {rows_bound:.3f} ms, and {dup:.3f} ms of "
+        f"the LN rows written twice, into q_in and kv_in), the rest "
+        f"{parts['rest']:.3f} ms, of {total:.3f} ms")
     out = {k: {"ms": v} for k, v in parts.items()}
     out["attention"]["bound_ms"] = bound
+    out["rows"].update(launches=row_launches_step, bound_ms=rows_bound,
+                       duplicate_ms=dup)
     return out
 
 
@@ -274,6 +359,171 @@ def attention_bytes(B, L, D, U, R, M, Lc, itemsize=2) -> float:
     T = U + R
     Q = T + (1 if M else 0)
     return float(L * itemsize * B * D * (2 * Q + 2 * (M + T) + 2 * Lc))
+
+
+def row_bytes(B, L, D, U, R, M, Lc, itemsize=2, reset=None, advance=None,
+              f32_copies=False) -> float:
+    """Bytes A's row kernels must move in one step of L layers, each tensor
+    they read or write counted once (f32 rows 4 bytes a value, the compute
+    type ``itemsize``).  Each layer: the residual (out and hin in; the
+    FFN input and the memory row out), the roll (the memory and
+    left-context rows written, and read where this step's masks take them
+    from: the layer's input state unless reset, its kv for the new rows
+    where advance is set; the memory row where advance is set) and the
+    memory rows of kv_in; each boundary (out's rows, hin and h2 in; hin,
+    the next layer's LN rows and summary row out); the first layer's chunk
+    in, hin, LN rows, summary and memory row out; the last layer's out
+    rows, hin and h2 in, hin and y out.  The LN rows count once: the
+    kernels write them twice, into q_in and kv_in, as the q and kv
+    products read them (``row_duplicate_bytes``).
+    ``f32_copies``: the W8A8 f32 copies of q_in and the FFN input too.
+    Masks None: no slot reset, every slot advancing."""
+    import torch
+    T, c = U + R, itemsize
+    Q = T + (1 if M else 0)
+    keep = max(0, Lc - U)
+    rs = torch.zeros(B, dtype=torch.bool) if reset is None else \
+        reset.bool().cpu()
+    adv = torch.ones(B, dtype=torch.bool) if advance is None else \
+        advance.bool().cpu()
+    live, n_adv = int((~rs).sum()), int(adv.sum())
+    lc_read = 2 * D * c * (int((adv & ~rs).sum()) * keep
+                           + n_adv * (Lc - keep)
+                           + int((~adv & ~rs).sum()) * Lc)
+    residual = B * Q * D * c + B * T * D * (4 + c) + (B * D * 4 if M else 0)
+    roll = (lc_read + 2 * B * Lc * D * c + live * M * D * c
+            + 2 * B * M * D * c + (n_adv * D * 4 if M else 0))
+    into_layer = B * T * D * 4 + B * T * D * c + (B * D * c if M else 0)
+    output_ln = B * T * D * (c + 4 + c)         # out's rows, hin, h2
+    boundary = output_ln + into_layer
+    first = B * T * D * 4 + into_layer + (B * D * 4 if M else 0)
+    last = output_ln + B * T * D * 4 + B * U * D * 4
+    copies = L * (B * Q * D * 4 + B * T * D * 4) if f32_copies else 0
+    return float(L * (residual + roll) + (L - 1) * boundary + first + last
+                 + copies)
+
+
+def row_duplicate_bytes(B, L, D, U, R, M, Lc, itemsize=2) -> float:
+    """Bytes A's row kernels write beyond ``row_bytes`` in one step: each
+    layer's input LN rows a second time (q_in [rc; utt; summary] and kv_in
+    [mem; rc; utt] hold the same rows).  One buffer [mem; rc; utt;
+    summary] read by both products would save them."""
+    return float(L * B * (U + R) * D * itemsize)
+
+
+def row_library_ms(B, L, D, U, R, M, Lc, cdt, device) -> dict:
+    """The row kernels' library yardsticks on the card: one F.layer_norm
+    on [B·T, D] f32 rows, one Tensor.copy_ of a layer's rolled state
+    [B, M + 2 Lc, D] in ``cdt``, and a step of them (3 LNs and the copy a
+    layer, L layers), each call timed alone (``event_ms``).
+    {"layer_norm_ms", "copy_ms", "ms"}."""
+    import torch
+    import torch.nn.functional as F
+    T = U + R
+    x = torch.randn((B * T, D), device=device)
+    w, b = torch.randn(D, device=device), torch.randn(D, device=device)
+    ln = event_ms(lambda: F.layer_norm(x, (D,), w, b, 1e-5))
+    src = torch.randn((B, M + 2 * Lc, D), device=device).to(cdt)
+    dst = torch.empty_like(src)
+    copy = event_ms(lambda: dst.copy_(src))
+    return {"layer_norm_ms": ln, "copy_ms": copy, "ms": L * (3 * ln + copy)}
+
+
+def _us(ms):
+    return f"{ms * 1e3:.2f} us"
+
+
+def check_rows(label, B, D, U, R, M, Lc, cdt, gen, device,
+               tanh_on_mem=True) -> dict:
+    """Each of A's row kernels alone (``emformer_stack.rows_*``, as the
+    chain launches them) against its plain version on the same inputs on
+    the card, with the W8A8 f32 copies: the roll's rows (the rolled state,
+    kv_in's memory rows) and the chunk's copy bit for bit; the LN outputs,
+    the summary and memory rows within f32 rounding (f32 1e-4; the compute
+    type one of its ulps, rtol 2^-7, atol 1e-4).  Each timed alone
+    (``event_ms`` of ``es.rows_relaunch``'s launch: the kernel without the
+    wrapper's copies) beside its plain version (``cuda_ms``).  Returns
+    {kind: {ms, plain_ms, max_abs_err}}."""
+    import torch
+    from asr_streaming_tpu_torch.ops import emformer_stack as es
+    T = U + R
+    Q = T + (1 if M else 0)
+    use_mem = M > 0
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen)).to(device=device,
+                                                               dtype=dtype)
+
+    reset = (torch.rand(B, generator=gen) < 0.15).to(device)
+    advance = (torch.rand(B, generator=gen) < 0.8).to(device)
+    ln = [(1 + randn(D, scale=0.1), randn(D, scale=0.1)) for _ in range(3)]
+    x, hin = randn(B, T, D), randn(B, T, D)
+    mem, memrow = randn(B, M, D, dtype=cdt), randn(B, D).tanh()
+    out, h2 = randn(B, Q, D, dtype=cdt), randn(B, T, D, dtype=cdt)
+    kv = randn(B, M + T, 2 * D, dtype=cdt)
+    lck, lcv = randn(B, Lc, D, dtype=cdt), randn(B, Lc, D, dtype=cdt)
+    g = dict(U=U, R=R, use_mem=use_mem)
+    calls = {
+        "first": (es.rows_first, es.rows_first_plain,
+                  (x, mem, reset, advance, *ln[0]), dict(g, cdt=cdt),
+                  ("hin", "q_in", "kv_in", "q_in32", "memrow", "mem"),
+                  ("hin", "mem")),
+        "residual": (es.rows_residual, es.rows_residual_plain,
+                     (out, hin, kv, lck, lcv, reset, advance, *ln[1]),
+                     dict(U=U, R=R, M=M, Lc=Lc, use_mem=use_mem,
+                          tanh_on_mem=tanh_on_mem),
+                     ("ff_in", "ff_in32", "memrow", "lc_k", "lc_v"),
+                     ("lc_k", "lc_v")),
+        "boundary": (es.rows_boundary, es.rows_boundary_plain,
+                     (out, hin, h2, mem, memrow, reset, advance, *ln[2],
+                      *ln[0]),
+                     g, ("hin", "q_in", "kv_in", "q_in32", "mem"), ("mem",)),
+        "last": (es.rows_last, es.rows_last_plain, (out, hin, h2, *ln[2]),
+                 dict(U=U, R=R), ("hin", "y"), ()),
+    }
+    result = {}
+    for kind, (kernel, plain, args, kw, names, exact) in calls.items():
+        copies = {} if kind == "last" else {"f32_copy": True}
+        got = kernel(*args, **kw, **copies)
+        torch.cuda.synchronize()
+        want = plain(*args, **kw, **copies)
+        if kind == "first" and use_mem:
+            # the rolled memory's last row is the memory row the kernel
+            # computed (held to the plain one within f32 rounding)
+            want = (*want[:5], plain(*args, got[4], **kw)[5])
+        worst = 0.0
+        for name, a, b in zip(names, got, want):
+            if a is None and b is None:
+                continue
+            if a.shape != b.shape or a.dtype != b.dtype:
+                fail(f"{label} rows_{kind} {name}: {tuple(a.shape)} "
+                     f"{a.dtype} vs {tuple(b.shape)} {b.dtype}")
+            if a.numel() == 0:
+                continue
+            if name in exact or name == "kv_in":
+                # kv_in's memory rows are the roll's copies
+                sl = (slice(None), slice(0, M)) if name == "kv_in" else ...
+                if not torch.equal(a[sl], b[sl]):
+                    fail(f"{label} rows_{kind} {name}: not bit for bit its "
+                         f"plain version")
+            if name in exact:
+                continue
+            err = (a.float() - b.float()).abs().max().item()
+            worst = max(worst, err)
+            rtol = 1e-4 if a.dtype == torch.float32 else 2.0 ** -7
+            if not torch.isfinite(a.float()).all() or not torch.allclose(
+                    a.float(), b.float(), rtol=rtol, atol=1e-4):
+                fail(f"{label} rows_{kind} {name}: max |err| {err:.3e} "
+                     f"beyond rtol={rtol:.2e}, atol=1e-4")
+        # the kernel alone (the wrappers of the boundary and the last
+        # layer copy hin first), as the bf16 and f32 chains launch it
+        ms = event_ms(es.rows_relaunch(kernel, *args, **kw)[1])
+        plain_ms = cuda_ms(lambda: plain(*args, **kw), 3)
+        result[kind] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": worst}
+        log(f"[kernels] {label} rows_{kind}: device time {_us(ms)} (plain "
+            f"{_us(plain_ms)}), the roll's rows bit for bit, LN outputs max "
+            f"|err| {worst:.3e}")
+    return result
 
 
 def profile_top(fn, label: str, n: int = 8, also=()):
@@ -407,10 +657,11 @@ def stack_digest(cfg, B, seed, device, label, parts=False):
         f"{h.hexdigest()[:16]}, {ms:.3f} ms device time")
     if not parts:
         return h.hexdigest(), ms
-    return h.hexdigest(), ms, stack_parts(kernel_a, label, attention_bytes(
-        B, cfg.num_layers, cfg.d_model, cfg.segment_length,
-        cfg.right_context_length, cfg.max_memory_size,
-        cfg.left_context_length))
+    geo = (B, cfg.num_layers, cfg.d_model, cfg.segment_length,
+           cfg.right_context_length, cfg.max_memory_size,
+           cfg.left_context_length)
+    return h.hexdigest(), ms, stack_parts(kernel_a, label, geo, reset=reset,
+                                          advance=advance)
 
 
 def _mm_split_k(x2d, w, cdt):
@@ -1195,9 +1446,26 @@ def phase_kernels(gen, device):
     digest = stack_digest(vi, B, 0, device, "A vi bf16 L=20")[0]
     profile_top(kernel_a, "A emformer_stack, one VI step at 512 slots")
     L, D, Fd = vi.num_layers, vi.d_model, vi.ffn_dim
-    parts = stack_parts(kernel_a, "A, one VI step", attention_bytes(
-        B, L, D, vi.segment_length, vi.right_context_length,
-        vi.max_memory_size, vi.left_context_length))
+    geo = (B, L, D, vi.segment_length, vi.right_context_length,
+           vi.max_memory_size, vi.left_context_length)
+    parts = stack_parts(kernel_a, "A, one VI step", geo, reset=reset,
+                        advance=advance)
+    # the row kernels alone against their plain versions, and their
+    # library yardsticks (F.layer_norm, Tensor.copy_)
+    row_check = check_rows("A vi bf16", B, D, vi.segment_length,
+                           vi.right_context_length, vi.max_memory_size,
+                           vi.left_context_length, torch.bfloat16, gen,
+                           device)
+    parts["rows"].update(library=row_library_ms(*geo, torch.bfloat16,
+                                                device))
+    parts["rows"]["library_ms"] = parts["rows"]["library"]["ms"]
+    lib = parts["rows"]["library"]
+    log(f"[kernels] A vi row kernels: {parts['rows']['ms']:.3f} ms a step in "
+        f"{parts['rows']['launches']} launches, bound "
+        f"{parts['rows']['bound_ms']:.3f} ms; library yardstick "
+        f"{_us(lib['ms'])} a step (F.layer_norm on [B*T, D] f32 "
+        f"{_us(lib['layer_norm_ms'])}, copy_ of a layer's roll "
+        f"{_us(lib['copy_ms'])})")
     # the yardstick of the bf16 GEMMs: the step's 100 products on
     # torch.matmul, timed together (no single call computes the step)
     parts["gemm"]["library_ms"] = matmul_step(params, vi, B, gen, device)
@@ -1222,7 +1490,7 @@ def phase_kernels(gen, device):
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None, "parts": parts, "sha256": digest,
-        "vi_f32_ms": ms_f32})
+        "vi_f32_ms": ms_f32, "rows": row_check})
 
     # ---- kernel B: VI serving shape, exact equality with the plain version
     results.append(check_append(B, 1024, 16, 803, gen, device, "B"))
@@ -1244,9 +1512,9 @@ def phase_kernels(gen, device):
     ms_q = device_times(kernel_a, 5, need=A_INT8_KERNELS)[0]
     plain_q = device_times(plain_a, 2)[0]
     profile_top(kernel_a, "A emformer_stack int8, one VI step at 512 slots")
-    parts_q = stack_parts(kernel_a, "A-int8, one VI step", attention_bytes(
-        B, L, D, vi.segment_length, vi.right_context_length,
-        vi.max_memory_size, vi.left_context_length), need=A_INT8_KERNELS)
+    parts_q = stack_parts(kernel_a, "A-int8, one VI step", geo,
+                          need=A_INT8_KERNELS, reset=reset, advance=advance,
+                          f32_copies=True)
     # the yardstick of the int8 GEMMs: the step's 100 products on
     # torch._int_mm, timed together (no single call computes the step)
     parts_q["gemm_int8"]["library_ms"] = int_mm_step(params, vi, B, gen,
@@ -1280,7 +1548,7 @@ def phase_kernels(gen, device):
                                           "C vi bf16 one layer")
     from asr_streaming_tpu_torch.ops import emformer_layer as el
     ms_c = device_times(lambda: el.emformer_layer(*args, **kw_c), 10,
-                        need=A_KERNELS)[0]
+                        need=C_KERNELS)[0]
     plain_c = device_times(
         lambda: el.emformer_layer_plain(*args[:8], args[8].bool(),
                                         args[9].bool(), **kw_c), 3)[0]
@@ -1752,9 +2020,17 @@ def check_stack_en(gen, device):
         lambda: es.emformer_stack_plain(params, x, mem, lck, lcv, eff, reset,
                                         advance, **kw), 2)[0]
     profile_top(kernel_a, "A emformer_stack, one EN step at 512 slots")
-    parts = stack_parts(kernel_a, "A, one EN step", attention_bytes(
-        B, bf.num_layers, bf.d_model, bf.segment_length,
-        bf.right_context_length, 0, bf.left_context_length))
+    geo = (B, bf.num_layers, bf.d_model, bf.segment_length,
+           bf.right_context_length, 0, bf.left_context_length)
+    parts = stack_parts(kernel_a, "A, one EN step", geo, reset=reset,
+                        advance=advance)
+    row_check = check_rows("A en bf16", B, bf.d_model, bf.segment_length,
+                           bf.right_context_length, 0, bf.left_context_length,
+                           torch.bfloat16, gen, device,
+                           tanh_on_mem=bf.tanh_on_mem)
+    parts["rows"].update(library=row_library_ms(*geo, torch.bfloat16,
+                                                device))
+    parts["rows"]["library_ms"] = parts["rows"]["library"]["ms"]
     parts["gemm"]["library_ms"] = matmul_step(params, bf, B, gen, device,
                                               label="A en")
     flops = stack_flops(B, bf.num_layers, bf.d_model, bf.ffn_dim,
@@ -1769,7 +2045,7 @@ def check_stack_en(gen, device):
     return {"en": {"ms": ms, "plain_ms": plain_ms,
                    "bound_ms": max(t_ops, t_bytes),
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                   "max_abs_err": err, "parts": parts,
+                   "max_abs_err": err, "parts": parts, "rows": row_check,
                    "sha256": stack_digest(bf, B, 0, device,
                                           "A en bf16 L=20")[0]}}
 
@@ -3351,6 +3627,7 @@ def offline_kernel_checks(gen, device):
     A's entry for the kernels line: {"b1_f32": {ms, launches, plain_ms,
     bound_ms, bound_by, max_abs_err, parts (the products' with their
     library_ms and bound_ms)}}."""
+    import torch
     from asr_streaming_tpu_torch.models.asr import ASRConfig
     from asr_streaming_tpu_torch.ops import emformer_stack as es
     emf = ASRConfig.vietnamese().encoder.emformer
@@ -3369,9 +3646,14 @@ def offline_kernel_checks(gen, device):
     U, R = emf.segment_length, emf.right_context_length
     M, Lc = emf.max_memory_size, emf.left_context_length
     parts = stack_parts(lambda: es.emformer_stack(*args, **kw),
-                        "A f32, one B=1 step",
-                        attention_bytes(1, L, D, U, R, M, Lc, itemsize=4),
-                        need=need)
+                        "A f32, one B=1 step", (1, L, D, U, R, M, Lc),
+                        need=need + ROW_KERNELS, itemsize=4, reset=reset,
+                        advance=advance)
+    row_check = check_rows("A f32 B=1", 1, D, U, R, M, Lc, torch.float32,
+                           gen, device)
+    parts["rows"].update(library=row_library_ms(1, L, D, U, R, M, Lc,
+                                                torch.float32, device))
+    parts["rows"]["library_ms"] = parts["rows"]["library"]["ms"]
     # the 100 products alone: their bound, and torch.matmul in f32
     shapes = gemm_shapes(1, U, R, M, D, Fd, None)
     g_bytes = 4.0 * L * sum(m * k + k * n + n + m * n
@@ -3386,7 +3668,8 @@ def offline_kernel_checks(gen, device):
     entry = {"ms": ms, "launches": sum(r[1] for r in rows),
              "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-             "max_abs_err": max(errs.values()), "parts": parts}
+             "max_abs_err": max(errs.values()), "parts": parts,
+             "rows": row_check}
     log(f"[kernels] A f32 at B=1 (the offline API's shape): {ms:.3f} ms "
         f"device in {entry['launches']} launches, plain {plain_ms:.3f} ms, "
         f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}); its 100 "
@@ -4636,14 +4919,20 @@ def kernel_a_times():
         "A en bf16 L=20", parts=True)
     vi = EmformerConfig(compute_dtype=torch.bfloat16)
     int8_parts = stack_parts(step(vi, B_SLOTS, 0, "int8"), "A-int8 vi",
-                             attention_bytes(
-                                 B_SLOTS, vi.num_layers, vi.d_model,
-                                 vi.segment_length, vi.right_context_length,
-                                 vi.max_memory_size, vi.left_context_length),
-                             need=A_INT8_KERNELS)
+                             (B_SLOTS, vi.num_layers, vi.d_model,
+                              vi.segment_length, vi.right_context_length,
+                              vi.max_memory_size, vi.left_context_length),
+                             need=A_INT8_KERNELS, f32_copies=True)
     torch.cuda.empty_cache()
-    b1 = step(ASRConfig.vietnamese().encoder.emformer, 1, 2)
+    emf = ASRConfig.vietnamese().encoder.emformer
+    b1 = step(emf, 1, 2)
     dev_b1 = device_times(b1, 5, need="attention")[0]
+    geo = (1, emf.num_layers, emf.d_model, emf.segment_length,
+           emf.right_context_length, emf.max_memory_size,
+           emf.left_context_length)
+    b1_parts = stack_parts(b1, "A f32 B=1", geo,
+                           need=("attention_kernel",) + ROW_KERNELS,
+                           itemsize=4)
     model = ASRModel(seed=0, device=dev)
     wave = _speechlike(10.0, seed=3)
     model.emissions(wave)
@@ -4654,13 +4943,18 @@ def kernel_a_times():
         model.emissions(wave)
         runs.append(time.perf_counter() - t0)
     pkg = os.path.relpath(os.path.dirname(os.path.dirname(es.__file__)), HERE)
+    def rows(p):
+        return f"row part {p['rows']['ms']:.3f} in {p['rows']['launches']}"
+
     log(f"[compare] {pkg}: A vi f32 L=20 at 512 slots {ms_512:.3f} ms device; A vi bf16 "
         f"{ms_bf16:.3f} ms device, its products "
-        f"{vi_parts['gemm']['ms']:.3f}, sha256 {digest[:16]}; A en bf16 "
+        f"{vi_parts['gemm']['ms']:.3f}, {rows(vi_parts)}, sha256 "
+        f"{digest[:16]}; A en bf16 "
         f"{ms_en:.3f} ms device, its products {en_parts['gemm']['ms']:.3f},"
-        f" sha256 {en_digest[:16]}; A-int8 vi's int8 products "
-        f"{int8_parts['gemm_int8']['ms']:.3f} ms device; A f32 B=1 "
-        f"{dev_b1:.3f} ms device; "
+        f" {rows(en_parts)}, sha256 {en_digest[:16]}; A-int8 vi's int8 "
+        f"products {int8_parts['gemm_int8']['ms']:.3f} ms device, "
+        f"{rows(int8_parts)}; A f32 B=1 "
+        f"{dev_b1:.3f} ms device, {rows(b1_parts)}; "
         f"ASRModel {sorted(runs)[2] * 100:.3f} ms per second of audio "
         f"(median of 5)")
 

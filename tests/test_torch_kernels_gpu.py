@@ -887,3 +887,191 @@ def test_kernels_refuse_a_call_autograd_would_record(wrapper):
     with torch.no_grad():
         call(grad_params, x.clone().requires_grad_(True))
     torch.cuda.synchronize()
+
+
+# A's row kernels alone (``es.rows_*``, entry asr_emformer_rows): B, D, U,
+# R, M, Lc and the compute type of the VI and EN serving steps, the offline
+# API's B = 1 f32 step, the tiny geometry, and a narrow f32 one (D = 36:
+# nine 16-byte vectors a row, no row a multiple of 128 bytes, Lc < U)
+ROW_SHAPES = {
+    "vi": (512, 512, 16, 4, 4, 32, torch.bfloat16),
+    "en": (512, 512, 4, 1, 0, 30, torch.bfloat16),
+    "b1_f32": (1, 512, 16, 4, 4, 32, torch.float32),
+    "tiny": (6, 64, 8, 2, 4, 16, torch.bfloat16),
+    "narrow_f32": (5, 36, 3, 2, 2, 2, torch.float32),
+}
+
+
+def _row_calls(shape, dev, seed=31):
+    """{kind: (kernel wrapper, plain version, args, kwargs, output names,
+    outputs equal bit for bit)} on seeded inputs on ``dev``."""
+    B, D, U, R, M, Lc, cdt = shape
+    T, use_mem = U + R, M > 0
+    Q = T + int(use_mem)
+    rng = np.random.default_rng(seed)
+
+    def normal(*s, dtype=torch.float32, scale=1.0):
+        return torch.from_numpy(scale * rng.standard_normal(s).astype(
+            np.float32)).to(device=dev, dtype=dtype)
+
+    reset = torch.from_numpy(rng.random(B) < 0.2).to(dev)
+    advance = torch.from_numpy(rng.random(B) < 0.8).to(dev)
+    ln = [(1 + normal(D, scale=0.1), normal(D, scale=0.1)) for _ in range(3)]
+    mem = normal(B, M, D, dtype=cdt)
+    memrow = normal(B, D).tanh()
+    out, hin = normal(B, Q, D, dtype=cdt), normal(B, T, D)
+    h2 = normal(B, T, D, dtype=cdt)
+    g = dict(U=U, R=R, use_mem=use_mem)
+    return {
+        "first": (es.rows_first, es.rows_first_plain,
+                  (normal(B, T, D), mem, reset, advance, *ln[0], memrow),
+                  dict(g, cdt=cdt),
+                  ("hin", "q_in", "kv_in", "q_in32", "memrow", "mem"),
+                  ("hin", "memrow", "mem")),
+        "residual": (es.rows_residual, es.rows_residual_plain,
+                     (out, hin, normal(B, M + T, 2 * D, dtype=cdt),
+                      normal(B, Lc, D, dtype=cdt), normal(B, Lc, D, dtype=cdt),
+                      reset, advance, *ln[1]),
+                     dict(U=U, R=R, M=M, Lc=Lc, use_mem=use_mem,
+                          tanh_on_mem=True),
+                     ("ff_in", "ff_in32", "memrow", "lc_k", "lc_v"),
+                     ("lc_k", "lc_v")),
+        "boundary": (es.rows_boundary, es.rows_boundary_plain,
+                     (out, hin, h2, mem, memrow, reset, advance, *ln[2],
+                      *ln[0]), g,
+                     ("hin", "q_in", "kv_in", "q_in32", "mem"), ("mem",)),
+        "last": (es.rows_last, es.rows_last_plain,
+                 (out, hin, h2, *ln[2]), dict(U=U, R=R), ("hin", "y"), ()),
+    }, M
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["first", "residual", "boundary", "last"])
+@pytest.mark.parametrize("shape", list(ROW_SHAPES))
+def test_row_kernel_matches_plain(shape, kind):
+    """The roll's rows (the rolled state, kv_in's memory rows) and the
+    chunk's copy bit for bit; LN outputs, the summary and the memory row
+    within f32 rounding (f32 1e-4; the compute type one of its ulps, rtol
+    2^-7), with the W8A8 f32 copies; the inputs are left as they were."""
+    dev = _cuda()
+    calls, M = _row_calls(ROW_SHAPES[shape], dev)
+    kernel, plain, args, kw, names, exact = calls[kind]
+    copies = {} if kind == "last" else {"f32_copy": True}
+    before = [a.clone() for a in args if isinstance(a, torch.Tensor)]
+    got = kernel(*args, **kw, **copies)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(
+        [a for a in args if isinstance(a, torch.Tensor)], before))
+    want = plain(*args, **kw, **copies)
+    for name, g, w in zip(names, got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        if name in exact:
+            assert torch.equal(g, w), name
+            continue
+        if name == "kv_in":
+            assert torch.equal(g[:, :M], w[:, :M]), name
+        rtol = 1e-4 if g.dtype == torch.float32 else 2.0 ** -7
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=1e-4,
+                                   msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["bf16_d36", "misaligned"])
+def test_row_kernels_refuse_what_16_byte_vectors_cannot_cover(case,
+                                                              monkeypatch):
+    """The roll copies only 16-byte vectors: a bf16 D = 36 (four and a half
+    a row) or a left context that starts 2 bytes off is refused by the
+    wrapper, and by the C entry itself when the wrapper's check is
+    skipped."""
+    dev = _cuda()
+    shape = (4, 36 if case == "bf16_d36" else 64, 8, 2, 4, 16,
+             torch.bfloat16)
+    calls, _ = _row_calls(shape, dev)
+    kernel, _, args, kw, *_ = calls["residual"]
+    args = list(args)
+    if case == "misaligned":
+        lc = args[3]
+        args[3] = torch.zeros(lc.numel() + 1, dtype=lc.dtype,
+                              device=dev)[1:].view(lc.shape)
+    with pytest.raises(ValueError, match="multiple of 8|16-byte aligned"):
+        kernel(*args, **kw)
+    monkeypatch.setattr(es, "_check_vectors", lambda *a, **k: None)
+    with pytest.raises(RuntimeError, match="rows_residual failed"):
+        kernel(*args, **kw)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_row_kernel_first_computes_the_memory_row():
+    """Without a memory row given, rows_first takes the mean of the raw
+    utterance (the first layer's), and rolls it in where advance is set."""
+    dev = _cuda()
+    calls, M = _row_calls(ROW_SHAPES["vi"], dev)
+    kernel, plain, args, kw, *_ = calls["first"]
+    got = kernel(*args[:6], **kw)
+    torch.cuda.synchronize()
+    U = kw["U"]
+    torch.testing.assert_close(got[4], args[0][:, :U].mean(1), rtol=1e-5,
+                               atol=1e-6)
+    assert torch.equal(got[5], plain(*args[:6], got[4], **kw)[5])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,want", [("vi", "3b1285556ac07a17"),
+                                       ("en", "08d7d419dc924606")])
+def test_emformer_stack_digest_is_unchanged(name, want):
+    """One full-width bf16 step of kernel A (512 slots, 20 layers, seed 0,
+    chip_smoke.stack_digest) gives the same bits as the chain whose row
+    kernels ran in four launches a layer (the digests it gave on an H100)."""
+    import dataclasses
+    import chip_smoke
+    from asr_streaming_tpu_torch.models.rnnt import RNNTConfig
+    dev = _cuda()
+    cfg = (te.EmformerConfig(compute_dtype=torch.bfloat16) if name == "vi"
+           else dataclasses.replace(RNNTConfig().emformer,
+                                    compute_dtype=torch.bfloat16))
+    digest, _ = chip_smoke.stack_digest(cfg, chip_smoke.B_SLOTS, 0, dev, name)
+    assert digest[:16] == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geo", [VI, EN], ids=["vi_mem", "en_nomem"])
+@pytest.mark.parametrize("dtype,quant", [(torch.bfloat16, "none"),
+                                         (torch.float32, "none"),
+                                         (torch.bfloat16, "int8")],
+                         ids=["bf16", "f32", "int8"])
+def test_a_step_launches_two_row_kernels_a_layer(geo, dtype, quant):
+    """A step of L layers launches 2 L + 1 row kernels: rows_first once,
+    rows_residual L times, rows_boundary L - 1 times, rows_last once (the
+    library's counters), and the profile holds no other row kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = _cuda()
+    cfg = te.EmformerConfig(**geo, compute_dtype=dtype, quant=quant)
+    params = te.init_emformer_params(torch.Generator().manual_seed(0), cfg,
+                                     dev)
+    st = te.init_emformer_state(cfg, 4, dev)
+    x = torch.randn((4, cfg.segment_length + cfg.right_context_length,
+                     cfg.d_model), device=dev)
+    kw = dict(U=cfg.segment_length, R=cfg.right_context_length,
+              M=cfg.max_memory_size, Lc=cfg.left_context_length,
+              H=cfg.num_heads, use_mem=cfg.use_mem,
+              tanh_on_mem=cfg.tanh_on_mem, neg_inf=cfg.negative_inf,
+              activation=cfg.activation, cdt=dtype, quant=quant)
+    es.emformer_stack(params, x, st.mem, st.lc_k, st.lc_v, st.length, **kw)
+    torch.cuda.synchronize()
+    before = es.row_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        es.emformer_stack(params, x, st.mem, st.lc_k, st.lc_v, st.length,
+                          **kw)
+        torch.cuda.synchronize()
+    counts = {k: n - before[k] for k, n in es.row_launch_counts().items()}
+    L = cfg.num_layers
+    assert counts == {"rows_first": 1, "rows_residual": L,
+                      "rows_boundary": L - 1, "rows_last": 1}
+    names = {e.key for e in prof.key_averages()}
+    assert not [n for n in names
+                if any(k in n for k in ("state_roll", "ln_in", "out_ln",
+                                        "residual_ffn_ln"))]
