@@ -45,10 +45,11 @@
 // 128x256 tile with an asynchronous TMA-store epilogue, was slower at
 // every serving product (tools/gemm_epilogue.py; PERF.md).  The attention runs on the core it
 // shares with kernel D (emformer_attention_core.cuh), in bf16 on the
-// tensor cores (mma.sync); the W8A8 products run a row-quantiser kernel
-// and the same GEMM on int8 (gemm_int8_wgmma_kernel: wgmma m64n128k32 s8
-// with exact s32 sums, the dequant epilogue of _qdot; at 1,979 TOP/s the
-// int8 peak is twice the bf16 one).  In f32 (the offline API: 1-3 slots,
+// tensor cores (mma.sync); the W8A8 products run the same GEMM on int8
+// (gemm_int8_wgmma_kernel: wgmma m64n128k32 s8 with exact s32 sums, the
+// dequant epilogue of _qdot; at 1,979 TOP/s the int8 peak is twice the
+// bf16 one) on rows quantised where they are made, or by a quantiser
+// kernel (below).  In f32 (the offline API: 1-3 slots,
 // 20-72 rows a product) the work is bound by the weights' bytes, and a
 // product of up to 128 rows runs on a split-K kernel that streams them
 // over the whole card (gemm_f32_splitk_kernel, note below); more rows
@@ -65,17 +66,21 @@
 // loops it over the layers in one host call (kernel A), so the two cannot
 // drift apart.  Inter-layer activations stay in f32 device scratch.  The
 // state roll writes new buffers (no in-place shift across threads).  In
-// W8A8 mode the quantiser reads the f32 LN outputs for wq and ffw1
-// (the row kernels then also write f32 copies) and the
-// compute-type values for wkv, wout and ffw2, as _qdot(x.astype(f32))
-// does, and q and kv run as two launches.  The Mosaic tiling knobs (tile,
-// layers_per_step, ffn_slices) carry no semantics and are not reproduced.
+// W8A8 mode each product quantises the values _qdot(x.astype(f32)) reads:
+// the row kernels quantise q's rows (the f32 LN rows and summary row),
+// kv's (the memory rows and the LN rows rounded to the compute type) and
+// ffn1's (the f32 FFN-LN rows) as they make them (store_row_q8), so q and
+// kv run in one int8 launch; out's rows (the attention's, a row over its
+// heads' blocks) and ffn2's (ffn1's epilogue, a row over its N tiles)
+// take quantize_rows_kernel, a warp a row held in registers.  The Mosaic
+// tiling knobs (tile, layers_per_step, ffn_slices) carry no semantics and
+// are not reproduced.
 // Not yet done: a main loop nearer the bf16 peak (it runs at 55-65% of
 // it, bound by L2 bytes).  Clusters of two blocks sharing each W slice by
 // TMA multicast (a stage refilled once both blocks released it) held the
-// digests but ran slower on the card, and were not kept.  Also the W8A8
-// row quantiser fused into the row kernels, and the row kernels into the
-// GEMMs' prologues and epilogues, one persistent launch for all layers.
+// digests but ran slower on the card, and were not kept.  Also the row
+// kernels (and out's and ffn2's quantisers) in the GEMMs' prologues and
+// epilogues, one persistent launch for all layers.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -1018,35 +1023,91 @@ gemm_f32_splitk_kernel(const float* __restrict__ A, const float* __restrict__ W,
 // K-major, as wgmma takes 8-bit ones.  The product runs on
 // gemm_int8_wgmma_kernel (above).
 
-// One block per row of x [rows, K]: amax, then s = max(amax, 1e-8) *
-// (1/127) and xq = rint(x * (1/s)): the reciprocal is taken and then
-// multiplied, as _qdot does (a division would flip some values), and
-// rint rounds half to even like jnp.round.  The constants are the f32
-// roundings of the doubles that JAX's weak types round.
+// The rows the chain cannot quantise where it makes them (out's, from the
+// attention, a row spread over its heads' blocks; ffn2's, from ffn1's
+// GEMM epilogue, a row over its N tiles), and w8a8_linear's: x [rows, K]
+// (f32 or the compute type) into int8 xq [rows, K] and scales xs [rows],
+// as store_row_q8 computes them.  Bound by bytes (the row read once, the
+// int8 row and its scale written once: 79 MB a layer at the VI serving
+// shape, out's and ffn2's rows), so a warp takes a row and a block
+// kQuantRows rows, and the row stays in registers between its amax and
+// its quantisation: a lane holds NC chunks of kQuantChunk values (16-byte
+// loads; its int8 chunk one 16-byte store), chunk c of the row in lane c
+// % 32.  NC = 0 is the fallback for a row that does not split into such
+// chunks (K % 16, an x or xq not 16-byte aligned, K past 32 * 16 * 4):
+// scalar loads, the row read twice.
+constexpr int kQuantRows = 8;
+constexpr int kQuantChunk = 16;
+constexpr int kQuantMaxChunks = 4;    // a lane's, so K <= 2048 in registers
+
+// value e of a chunk of 16-byte vectors (bf16: two a 32-bit word, the
+// lower first; f32: one)
 template <typename Tin>
-__global__ void __launch_bounds__(256)
-quantize_rows_kernel(const Tin* __restrict__ x, int8_t* __restrict__ xq,
-                     float* __restrict__ xs, int K) {
-  __shared__ float red[8];
-  const int row = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const Tin* xr = x + (size_t)row * K;
-  float m = 0.f;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) m = fmaxf(m, fabsf(to_f<Tin>(xr[k])));
-  m = warp_max(m);
-  if (lane == 0) red[warp] = m;
-  __syncthreads();
-  if (warp == 0) {
-    m = warp_max(lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f);
-    if (lane == 0) red[0] = m;
+__device__ __forceinline__ float chunk_value(const uint4* c, int e) {
+  const uint4 w = c[e / (16 / (int)sizeof(Tin))];
+  const int i = e % (16 / (int)sizeof(Tin));
+  if constexpr (std::is_same<Tin, float>::value) {
+    return __uint_as_float(i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w);
+  } else {
+    const uint32_t u = (i >> 1) == 0 ? w.x : (i >> 1) == 1 ? w.y : (i >> 1) == 2 ? w.z : w.w;
+    return __uint_as_float((i & 1) ? (u & 0xffff0000u) : (u << 16));
   }
-  __syncthreads();
-  const float s = __fmul_rn(fmaxf(red[0], (float)1e-8), (float)(1.0 / 127.0));
-  const float r = __frcp_rn(s);
-  if (threadIdx.x == 0) xs[row] = s;
+}
+
+template <typename Tin, int NC>
+__global__ void __launch_bounds__(32 * kQuantRows)
+quantize_rows_kernel(const Tin* __restrict__ x, int8_t* __restrict__ xq,
+                     float* __restrict__ xs, int rows, int K) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kQuantRows + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const Tin* xr = x + (size_t)row * K;
   int8_t* qr = xq + (size_t)row * K;
-  for (int k = threadIdx.x; k < K; k += blockDim.x)
-    qr[k] = (int8_t)__float2int_rn(__fmul_rn(to_f<Tin>(xr[k]), r));
+  float m = 0.f;
+  if constexpr (NC == 0) {
+    for (int k = lane; k < K; k += 32) m = fmaxf(m, fabsf(to_f<Tin>(xr[k])));
+  }
+  constexpr int kLoads = kQuantChunk * (int)sizeof(Tin) / 16;
+  const int chunks = K / kQuantChunk;
+  uint4 raw[NC > 0 ? NC : 1][kLoads];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int k = lane + 32 * c;
+    if (k >= chunks) continue;
+#pragma unroll
+    for (int l = 0; l < kLoads; ++l)
+      raw[c][l] = reinterpret_cast<const uint4*>(xr + (size_t)k * kQuantChunk)[l];
+  }
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    if (lane + 32 * c >= chunks) continue;
+#pragma unroll
+    for (int e = 0; e < kQuantChunk; ++e) m = fmaxf(m, fabsf(chunk_value<Tin>(raw[c], e)));
+  }
+  m = warp_max(m);
+  const float s = __fmul_rn(fmaxf(m, (float)1e-8), (float)(1.0 / 127.0));
+  const float r = __frcp_rn(s);
+  if (lane == 0) xs[row] = s;
+  if constexpr (NC == 0) {
+    for (int k = lane; k < K; k += 32)
+      qr[k] = (int8_t)__float2int_rn(__fmul_rn(to_f<Tin>(xr[k]), r));
+  }
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int k = lane + 32 * c;
+    if (k >= chunks) continue;
+    uint32_t w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      w[j] = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = __float2int_rn(__fmul_rn(chunk_value<Tin>(raw[c], 4 * j + e), r));
+        w[j] |= (uint32_t)(q & 0xff) << (8 * e);
+      }
+    }
+    reinterpret_cast<uint4*>(qr)[k] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
 }
 
 // Masked attention on the core shared with kernel D
@@ -1134,6 +1195,10 @@ attention_kernel(AttnItems<T> it, int use_mem, float neg_inf) {
 // blocks an SM and all 512 slots in one wave); with few slots a block
 // takes more warps, so that a slot's rows run at once.  Measured on the
 // card and not kept: the memory rows on spare warps of a few-slot block.
+// In W8A8 mode the warp that holds a row quantises it (store_row_q8: its
+// amax by warp_max, then the int8 row and its scale) into the product's
+// int8 operand, in place of the compute-type row (and in place of the f32
+// copy that a quantiser kernel would read back).
 
 constexpr int kRowThreads = 256;      // 8 warps: a warp an LN row
 constexpr int kSlotThreadsMax = 1024; // a slot's block, with few slots
@@ -1165,9 +1230,13 @@ struct RowArgs {
   float* memrow;        // [B, D] f32 memory row
   T* q_in;              // [B, Q, D]
   T* kv_in;             // [B, M+T, D]
-  float* q_in32;        // its f32 copy (W8A8 wq) or null
   T* ff_in;             // [B, T, D]
-  float* ff_in32;       // its f32 copy (W8A8 ffw1) or null
+  // W8A8: the q, kv and ffn1 products' operands as int8 rows [rows, D]
+  // and their scales [rows] (store_row_q8), written in place of q_in,
+  // kv_in and ff_in; null where that product runs in the compute type
+  int8_t* q8; float* q8_s;      // [B, Q, D]
+  int8_t* kv8; float* kv8_s;    // [B, M+T, D]
+  int8_t* ff8; float* ff8_s;    // [B, T, D]
   T* mem_out;           // rolled state: [B, M, D], [B, Lc, D]
   T* lck_out;
   T* lcv_out;
@@ -1195,19 +1264,53 @@ __device__ __forceinline__ void store_row(T* row, const float (&v)[N], int D) {
   }
 }
 
+// _qdot's activation quant (pallas_emformer.py:54-62) of a row held as
+// load_row holds it, into int8 row and its scale: s = max(amax, 1e-8) *
+// (1/127), then xq = rint(x * (1/s)), the reciprocal taken and then
+// multiplied (a division would flip some values), rint half to even like
+// jnp.round; the constants are the f32 roundings of the doubles JAX's
+// weak types round.  quantize_rows_kernel computes the same.
+template <int N>
+__device__ __forceinline__ void store_row_q8(int8_t* row, float* scale, const float (&v)[N],
+                                             int D) {
+  const int lane = threadIdx.x & 31;
+  float m = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (lane + 32 * i < D) m = fmaxf(m, fabsf(v[i]));
+  m = warp_max(m);
+  const float s = __fmul_rn(fmaxf(m, (float)1e-8), (float)(1.0 / 127.0));
+  const float r = __frcp_rn(s);
+  if (lane == 0) *scale = s;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int d = lane + 32 * i;
+    if (d < D) row[d] = (int8_t)__float2int_rn(__fmul_rn(v[i], r));
+  }
+}
+
 // The input LN of row t ([rc; utt] order) of slot b, v its f32 values:
-// into q_in, kv_in (after the memory rows) and q_in32; an utterance row
+// into q_in (W8A8: q8 from the f32 values, as _qdot(x.astype(f32))
+// reads them) and kv_in after the memory rows (W8A8: kv8 from the values
+// rounded to the compute type, as kv_in holds them); an utterance row
 // also into ln_utt [U, D] (shared memory) for the summary row.
 template <int N, typename T>
 __device__ __forceinline__ void input_ln_row(float (&v)[N], const RowArgs<T>& p,
                                              const float* scale, const float* bias, int b,
                                              int t, float* ln_utt) {
   const int D = p.D, Tr = p.R + p.U, Q = Tr + p.use_mem, NKV = p.M + Tr;
+  const size_t qr = (size_t)b * Q + t, kvr = (size_t)b * NKV + p.M + t;
   warp_layer_norm(v, D, scale, bias);
-  store_row(p.q_in + ((size_t)b * Q + t) * D, v, D);
-  store_row(p.kv_in + ((size_t)b * NKV + p.M + t) * D, v, D);
-  if (p.q_in32 != nullptr) store_row(p.q_in32 + ((size_t)b * Q + t) * D, v, D);
+  if (p.q8 != nullptr) store_row_q8(p.q8 + qr * D, p.q8_s + qr, v, D);
+  else store_row(p.q_in + qr * D, v, D);
   if (p.use_mem && t >= p.R) store_row(ln_utt + (t - p.R) * D, v, D);
+  if (p.kv8 == nullptr) {
+    store_row(p.kv_in + kvr * D, v, D);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = rnd<T>(v[i]);
+  store_row_q8(p.kv8 + kvr * D, p.kv8_s + kvr, v, D);
 }
 
 // The roll's copies move 16-byte vectors: check_rows_args holds D to a
@@ -1215,9 +1318,9 @@ __device__ __forceinline__ void input_ln_row(float (&v)[N], const RowArgs<T>& p,
 using Vec16 = uint4;
 
 // The memory rows of slot b, in 16-byte vectors: kv_in's M memory rows
-// (the layer's input memory, zero where reset) and the rolled state from
-// the same values (advance: up one row; else as they are); each input
-// value is read once.
+// (the layer's input memory, zero where reset; none with kv_in null) and
+// the rolled state from the same values (advance: up one row; else as
+// they are); each input value is read once.
 template <typename T>
 __device__ __forceinline__ void memory_rows(const T* mem, T* kv_in, T* mem_out, bool rs,
                                             bool adv, int M, int D) {
@@ -1227,52 +1330,69 @@ __device__ __forceinline__ void memory_rows(const T* mem, T* kv_in, T* mem_out, 
   Vec16* dst = reinterpret_cast<Vec16*>(mem_out);
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const Vec16 val = rs ? make_uint4(0, 0, 0, 0) : src[i];
-    kv[i] = val;
+    if (kv != nullptr) kv[i] = val;
     if (!adv) dst[i] = val;
     else if (i >= per_row) dst[i - per_row] = val;
   }
 }
 
-// The memory half of slot b's roll and kv_in's memory rows, first in a
+// The memory half of slot b's roll and kv's memory rows, first in a
 // slot's block (they read no LN row), and where advance is set the last
 // memory row from the layer's input memory row, unless the block computes
-// that row itself (init_memrow: slot_summary writes it).
-template <typename T>
+// that row itself (init_memrow: slot_summary writes it).  kv's memory rows
+// go to kv_in with the roll's vectors, or in W8A8 to kv8, a warp a row.
+template <int N, typename T>
 __device__ __forceinline__ void slot_memory(const RowArgs<T>& p, int b) {
   if (!p.use_mem) return;
-  const int D = p.D, M = p.M;
+  const int D = p.D, M = p.M, NKV = M + p.R + p.U;
   const bool rs = p.reset[b] != 0, adv = p.advance[b] != 0;
   const T* mem = p.mem_in + (size_t)b * M * D;
-  T* kv = p.kv_in + (size_t)b * (M + p.R + p.U) * D;
   T* out = p.mem_out + (size_t)b * M * D;
-  memory_rows(mem, kv, out, rs, adv, M, D);
+  memory_rows(mem, p.kv8 != nullptr ? nullptr : p.kv_in + (size_t)b * NKV * D, out, rs, adv,
+              M, D);
+  if (p.kv8 != nullptr)
+    for (int m = threadIdx.x >> 5; m < M; m += blockDim.x >> 5) {
+      float v[N];
+      load_row(v, mem + (size_t)m * D, rs ? 0 : D);
+      const size_t r = (size_t)b * NKV + m;
+      store_row_q8(p.kv8 + r * D, p.kv8_s + r, v, D);
+    }
   if (adv && !p.init_memrow)
     for (int d = threadIdx.x; d < D; d += blockDim.x)
       out[(size_t)(M - 1) * D + d] = from_f<T>(p.memrow[(size_t)b * D + d]);
 }
 
 // After a slot's input LN rows: the summary row (the mean of the LN'd
-// utterance, summed in u order) into q_in and q_in32; with init_memrow
-// the memory row (the mean of the raw utterance, the first layer's), and
-// where advance is set the rolled memory's last row from it.
-template <typename T>
-__device__ __forceinline__ void slot_summary(const RowArgs<T>& p, int b,
-                                             const float* ln_utt) {
+// utterance, summed in u order) into q_in (W8A8: its f32 values over
+// ln_utt's row 0, each column by the thread that summed it, then into q8
+// by warp 0); with init_memrow the memory row (the mean of the raw
+// utterance, the first layer's), and where advance is set the rolled
+// memory's last row from it.
+template <int N, typename T>
+__device__ __forceinline__ void slot_summary(const RowArgs<T>& p, int b, float* ln_utt) {
   if (!p.use_mem) return;
   const int D = p.D, U = p.U, Tr = p.R + U, Q = Tr + 1;
+  const size_t qr = (size_t)b * Q + Tr;
   const bool adv = p.advance[b] != 0;
   __syncthreads();
   for (int d = threadIdx.x; d < D; d += blockDim.x) {
     float s = 0.f;
     for (int u = 0; u < U; ++u) s += ln_utt[u * D + d];
-    p.q_in[((size_t)b * Q + Tr) * D + d] = from_f<T>(s / (float)U);
-    if (p.q_in32 != nullptr) p.q_in32[((size_t)b * Q + Tr) * D + d] = s / (float)U;
+    if (p.q8 != nullptr) ln_utt[d] = s / (float)U;
+    else p.q_in[qr * D + d] = from_f<T>(s / (float)U);
     if (p.init_memrow) {
       float r = 0.f;
       for (int u = 0; u < U; ++u) r += p.x[((size_t)b * Tr + u) * D + d];
       p.memrow[(size_t)b * D + d] = r / (float)U;
       if (adv) p.mem_out[((size_t)b * p.M + p.M - 1) * D + d] = from_f<T>(r / (float)U);
     }
+  }
+  if (p.q8 == nullptr) return;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float v[N];
+    load_row(v, ln_utt, D);
+    store_row_q8(p.q8 + qr * D, p.q8_s + qr, v, D);
   }
 }
 
@@ -1284,7 +1404,7 @@ __global__ void __launch_bounds__(kSlotThreadsMax) rows_first_kernel(RowArgs<T> 
   extern __shared__ float ln_utt[];     // [U, D] with memory
   const int b = blockIdx.x, D = p.D, U = p.U, R = p.R, Tr = R + U;
   const int nw = blockDim.x >> 5;
-  slot_memory(p, b);
+  slot_memory<N>(p, b);
   for (int t = threadIdx.x >> 5; t < Tr; t += nw) {
     const int srow = t < R ? U + t : t - R;
     float v[N];
@@ -1292,7 +1412,7 @@ __global__ void __launch_bounds__(kSlotThreadsMax) rows_first_kernel(RowArgs<T> 
     store_row(p.hin + ((size_t)b * Tr + t) * D, v, D);
     input_ln_row(v, p, p.in_s, p.in_b, b, t, ln_utt);
   }
-  slot_summary(p, b, ln_utt);
+  slot_summary<N>(p, b, ln_utt);
 }
 
 // Between two layers: the output LN of layer l (residual + h2, the
@@ -1305,7 +1425,7 @@ __global__ void __launch_bounds__(kSlotThreadsMax) rows_boundary_kernel(RowArgs<
   extern __shared__ float ln_utt[];     // [U, D] with memory
   const int b = blockIdx.x, D = p.D, Tr = p.R + p.U, Q = Tr + p.use_mem;
   const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  slot_memory(p, b);
+  slot_memory<N>(p, b);
   for (int t = threadIdx.x >> 5; t < Tr; t += nw) {
     const size_t base = ((size_t)b * Tr + t) * D;
     const T* o = p.out + ((size_t)b * Q + t) * D;
@@ -1319,7 +1439,7 @@ __global__ void __launch_bounds__(kSlotThreadsMax) rows_boundary_kernel(RowArgs<
     store_row(p.hin + base, v, D);
     input_ln_row(v, p, p.in_s, p.in_b, b, t, ln_utt);
   }
-  slot_summary(p, b, ln_utt);
+  slot_summary<N>(p, b, ln_utt);
 }
 
 // The left-context half of the roll in 16-byte vectors, kRollUnits a
@@ -1365,8 +1485,8 @@ __device__ __forceinline__ void roll_left_context(const RowArgs<T>& p, long firs
 }
 
 // After the out product.  Blocks below ln_blocks, a warp a row: rows
-// t < T give residual = out + input and its FFN LN (ff_in, and
-// ff_in32 for the W8A8 ffw1 product); row T (with memory) the next
+// t < T give residual = out + input and its FFN LN (ff_in, or in W8A8
+// the ffn1 product's int8 rows ff8 from the f32 values); row T (with memory) the next
 // layer's memory row, tanh or +-10 clip.  The blocks after: the
 // left-context half of this layer's roll.
 template <typename T, int N>
@@ -1390,7 +1510,7 @@ __global__ void __launch_bounds__(kRowThreads, 4) rows_residual_kernel(RowArgs<T
     }
     return;
   }
-  const size_t base = ((size_t)b * Tr + t) * D;
+  const size_t r = (size_t)b * Tr + t, base = r * D;
   float v[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
@@ -1398,8 +1518,8 @@ __global__ void __launch_bounds__(kRowThreads, 4) rows_residual_kernel(RowArgs<T
     v[i] = d < D ? to_f<T>(o[d]) + p.hin[base + d] : 0.f;
   }
   warp_layer_norm(v, D, p.ln_s, p.ln_b);
-  store_row(p.ff_in + base, v, D);
-  if (p.ff_in32 != nullptr) store_row(p.ff_in32 + base, v, D);
+  if (p.ff8 != nullptr) store_row_q8(p.ff8 + base, p.ff8_s + r, v, D);
+  else store_row(p.ff_in + base, v, D);
 }
 
 // The last layer's output LN of residual (out + hin, as rows_boundary
@@ -1477,11 +1597,15 @@ struct EmformerStackArgs {
   void* h2;     // [B, T, D]
   float* hin;   // [B, T, D] f32
   float* memrow;// [B, D] f32
-  // W8A8 scratch (only with quant != 0)
-  int8_t* aq;   // quantised rows, [max rows, max K]
-  float* a_scale; // their scales, [max rows]
-  float* q_in32;  // [B, Q, D] f32 copy of q_in (wq quantised)
-  float* ff_in32; // [B, T, D] f32 copy of ff_in (ffw1 quantised)
+  // W8A8 scratch (only with quant != 0): each quantised product's int8
+  // rows and their scales.  The row kernels write q's, kv's and ffn1's
+  // (in place of q_in, kv_in and ff_in); quantize_rows writes out's and
+  // ffn2's, one after the other, into aq.
+  int8_t* aq;     // [max rows, max K]
+  float* a_scale; // [max rows]
+  int8_t* q8; float* q8_s;   // [B, Q, D], [B, Q]
+  int8_t* kv8; float* kv8_s; // [B, M+T, D], [B, M+T]
+  int8_t* ff8; float* ff8_s; // [B, T, D], [B, T]
   // f32 products (dtype 0): the k-slice of each of q, kv, out, ffn1,
   // ffn2 (ops/emformer_stack.py::gemm_f32_config; 0: the tiled kernel), the
   // split-K workspace of partial sums and one counter per N tile (zeroed
@@ -1501,6 +1625,14 @@ constexpr int kErrTensorMap = -4;
 constexpr size_t kDefaultSmem = 48 * 1024;
 
 enum QuantBits { kQWq = 1, kQWkv = 2, kQWout = 4, kQW1 = 8, kQW2 = 16 };
+
+// the kernels whose launches the library counts on the host as each is
+// queued (asr_launch_counts): a profile may drop kernel records, these do
+// not.  The row kernels by RowKind, then the W8A8 quantiser and the two
+// wgmma GEMMs.
+enum RowKind { kRowsFirst = 0, kRowsResidual = 1, kRowsBoundary = 2, kRowsLast = 3 };
+enum Counted { kCountQuantise = 4, kCountGemmInt8 = 5, kCountGemmBf16 = 6, kCounted = 7 };
+std::atomic<long long> g_launches[kCounted];
 
 #define CHECK_LAUNCH()                          \
   do {                                          \
@@ -1737,11 +1869,14 @@ int launch_gemm(const GemmSetup& s, const GemmProduct* p, int count, int L, int 
   }
   const int grid = end < s.sms ? end : s.sms;
   constexpr size_t smem = gemm90::smem_bytes<WM, BN, ST>();
-  if constexpr (std::is_same<In, bf16>::value)
+  constexpr bool kBf16 = std::is_same<In, bf16>::value;
+  if constexpr (kBf16)
     gemm90::gemm_bf16_wgmma_kernel<WM, BN, ST><<<grid, gemm90::kGemmThreads, smem, st>>>(g);
   else
     gemm90::gemm_int8_wgmma_kernel<WM, BN, ST, T><<<grid, gemm90::kGemmThreads, smem, st>>>(g);
-  return (int)cudaGetLastError();
+  const int rc = (int)cudaGetLastError();
+  if (rc == 0) ++g_launches[kBf16 ? kCountGemmBf16 : kCountGemmInt8];
+  return rc;
 }
 
 template <typename In, typename T>
@@ -1819,47 +1954,78 @@ int gemm<float>(const float* A, const float* W, int L, int layer, const float* b
   return gemm_f32(A, W + (size_t)layer * K * N, bias, C, M, N, K, act, sp, st);
 }
 
-// W8A8 product: quantise the rows of A [M, K] (f32 or compute type) into
-// aq / as, then the int8 wgmma GEMM with the dequant epilogue on Wt [L,
-// N, K] (layer `layer`; ws is that layer's scales), on tile configuration
-// cfg (-1: gemm_config's choice).  Needs K % 16 == 0 (16-byte TMA
-// strides) and N % 8 == 0 (whole 16-byte output vectors).
-template <typename T, typename Tin>
-int qgemm(int cfg, const Tin* A, int8_t* aq, float* as, const int8_t* wt, int L, int layer,
-          const float* ws, const T* bias, T* C, int M, int N, int K, int act,
-          cudaStream_t st) {
-  if (K % 16 != 0 || N % 8 != 0 || M <= 0 || N <= 0 || K <= 0 || cfg < -1 ||
-      cfg >= kGemmCfgs || aq == nullptr || as == nullptr || wt == nullptr || ws == nullptr ||
+// the int8 GEMM's limits: K % 16 == 0 (16-byte TMA strides), N % 8 == 0
+// (whole 16-byte output vectors), one or two products, every operand given
+int int8_shape(int cfg, const GemmProduct* p, int count, int K, int act) {
+  if (K % 16 != 0 || K <= 0 || count < 1 || count > 2 || cfg < -1 || cfg >= kGemmCfgs ||
       act < gemm90::kActSkip || act > ACT_SILU)
     return kErrShape;
+  for (int i = 0; i < count; ++i)
+    if (p[i].N % 8 != 0 || p[i].M <= 0 || p[i].N <= 0 || p[i].A == nullptr ||
+        p[i].as == nullptr || p[i].Wt == nullptr || p[i].ws == nullptr)
+      return kErrShape;
+  return 0;
+}
+
+// The int8 wgmma GEMM with the dequant epilogue over `count` products of
+// quantised rows (A int8 [M, K] and its scales as [M]) and Wt [L, N, K]
+// (layer `layer`; ws is that layer's scales), on tile configuration cfg
+// (-1: gemm_config's choice).
+template <typename T>
+int gemm_int8(int cfg, const GemmProduct* p, int count, int L, int layer, int K, int act,
+              cudaStream_t st) {
+  CHECK_RC(int8_shape(cfg, p, count, K, act));
   const GemmSetup& s = gemm_setup();
   CHECK_RC(s.status);
-  const GemmProduct p{aq, wt, bias, as, ws, C, M, N};
-  if (cfg < 0) cfg = gemm_config(s, &p, 1);
-  quantize_rows_kernel<Tin><<<M, 256, 0, st>>>(A, aq, as, K);
-  CHECK_LAUNCH();
-  return launch_gemm_cfg<int8_t, T>(s, cfg, &p, 1, L, layer, K, act, st);
+  if (cfg < 0) cfg = gemm_config(s, p, count);
+  return launch_gemm_cfg<int8_t, T>(s, cfg, p, count, L, layer, K, act, st);
 }
 
-// ------------------------------------------------------ row kernels, host
-
-enum RowKind { kRowsFirst = 0, kRowsResidual = 1, kRowsBoundary = 2, kRowsLast = 3 };
-
-// each row kernel's launches, counted on the host as each is queued
-// (asr_row_launch_counts): a profile may drop kernel records, these do not
-std::atomic<long long> g_row_launches[4];
-
-// a lane's share N of a row of D (D <= 32 N)
-int lanes_for(int D) {
-  return D <= 64 ? 2 : D <= 128 ? 4 : D <= 256 ? 8 : D <= 512 ? 16 : kMaxPerLane;
-}
-
-// the roll's 16-byte vectors may be read and written at these addresses
-// (check_rows_args holds D, so row offsets keep the alignment)
+// the roll's 16-byte vectors (and quantize_rows') may be read and written
+// at these addresses
 bool aligned16(std::initializer_list<const void*> ptrs) {
   for (const void* q : ptrs)
     if (((uintptr_t)q & 15) != 0) return false;
   return true;
+}
+
+// quantize_rows_kernel over x [M, K] (f32 or the compute type) into xq
+// [M, K] and xs [M]: a lane's share of a row in registers where the row
+// splits into whole 16-byte chunks that fit them, else the scalar fallback
+template <typename Tin>
+int quantize_rows(const Tin* x, int8_t* xq, float* xs, int M, int K, cudaStream_t st) {
+  if (M <= 0 || K <= 0 || x == nullptr || xq == nullptr || xs == nullptr) return kErrShape;
+  const int chunks = K / kQuantChunk, grid = (M + kQuantRows - 1) / kQuantRows;
+  const int per_lane = (chunks + 31) / 32;
+  const bool vec = K % kQuantChunk == 0 && per_lane <= kQuantMaxChunks && aligned16({x, xq});
+  constexpr int threads = 32 * kQuantRows;
+  if (!vec) quantize_rows_kernel<Tin, 0><<<grid, threads, 0, st>>>(x, xq, xs, M, K);
+  else if (per_lane == 1) quantize_rows_kernel<Tin, 1><<<grid, threads, 0, st>>>(x, xq, xs, M, K);
+  else if (per_lane == 2) quantize_rows_kernel<Tin, 2><<<grid, threads, 0, st>>>(x, xq, xs, M, K);
+  else quantize_rows_kernel<Tin, 4><<<grid, threads, 0, st>>>(x, xq, xs, M, K);
+  const int rc = (int)cudaGetLastError();
+  if (rc == 0) ++g_launches[kCountQuantise];
+  return rc;
+}
+
+// W8A8 product of rows A [M, K] (f32 or the compute type): quantize_rows
+// into aq / as, then gemm_int8 on Wt [L, N, K] (layer `layer`, ws its
+// scales).  The shapes are checked before anything is launched.
+template <typename T, typename Tin>
+int qgemm(int cfg, const Tin* A, int8_t* aq, float* as, const int8_t* wt, int L, int layer,
+          const float* ws, const T* bias, T* C, int M, int N, int K, int act,
+          cudaStream_t st) {
+  const GemmProduct p{aq, wt, bias, as, ws, C, M, N};
+  CHECK_RC(int8_shape(cfg, &p, 1, K, act));
+  CHECK_RC(quantize_rows<Tin>(A, aq, as, M, K, st));
+  return gemm_int8<T>(cfg, &p, 1, L, layer, K, act, st);
+}
+
+// ------------------------------------------------------ row kernels, host
+
+// a lane's share N of a row of D (D <= 32 N)
+int lanes_for(int D) {
+  return D <= 64 ? 2 : D <= 128 ? 4 : D <= 256 ? 8 : D <= 512 ? 16 : kMaxPerLane;
 }
 
 template <typename T, int N>
@@ -1881,7 +2047,7 @@ int launch_rows_n(int kind, RowArgs<T> p, cudaStream_t st) {
     rows_last_kernel<T, N><<<(p.B * Tr + warps - 1) / warps, kRowThreads, 0, st>>>(p);
   }
   const int rc = (int)cudaGetLastError();
-  if (rc == 0) ++g_row_launches[kind];
+  if (rc == 0) ++g_launches[kind];
   return rc;
 }
 
@@ -1907,8 +2073,9 @@ int row_kernel(const EmformerStackArgs& a, int kind, int l, int l_in, int init_m
   p.lck_out = (T*)a.lck_out + sLc; p.lcv_out = (T*)a.lcv_out + sLc;
   p.hin = a.hin; p.memrow = a.memrow;
   p.q_in = (T*)a.q_in; p.kv_in = (T*)a.kv_in; p.ff_in = (T*)a.ff_in; p.y = a.y;
-  p.q_in32 = (a.quant & kQWq) ? a.q_in32 : nullptr;
-  p.ff_in32 = (a.quant & kQW1) ? a.ff_in32 : nullptr;
+  if (a.quant & kQWq) { p.q8 = a.q8; p.q8_s = a.q8_s; }
+  if (a.quant & kQWkv) { p.kv8 = a.kv8; p.kv8_s = a.kv8_s; }
+  if (a.quant & kQW1) { p.ff8 = a.ff8; p.ff8_s = a.ff8_s; }
   if (!(ffn ? aligned16({p.kv, p.lck_in, p.lcv_in, p.lck_out, p.lcv_out})
             : aligned16({p.mem_in, p.kv_in, p.mem_out})))
     return kErrShape;
@@ -1949,7 +2116,8 @@ int attention(const EmformerStackArgs& a, const T* q, const T* kv, const T* lck,
   return kErrShape;
 }
 
-// One layer of the step: the chain of nine kernels (more in W8A8 mode),
+// One layer of the step: the chain of nine kernels (W8A8: the same nine,
+// less ffn1's quantiser or q's and kv's, plus out's and ffn2's),
 // from the layer's input rows (q_in, kv_in, hin and its memory rows, left
 // by rows_first or the previous layer's boundary): the q and kv products,
 // the attention, the out product, rows_residual, ffn1, ffn2, then the
@@ -1977,27 +2145,25 @@ int run_layer(const EmformerStackArgs& a, int l, bool last) {
   const T* lck_in = (const T*)a.lck_in + sLc;
   const T* lcv_in = (const T*)a.lcv_in + sLc;
 
-  if (std::is_same<T, bf16>::value && !(qz & (kQWq | kQWkv))) {
+  if (qz & kQWq) {
+    // W8A8 (q and kv together: check_args): both from the int8 rows the
+    // row kernel wrote, in one launch
+    const GemmProduct qkv[2] = {
+        {a.q8, a.wq8, bq + (size_t)l * D, a.q8_s, a.wq_s + (size_t)l * D, q, B * Q, D},
+        {a.kv8, a.wkv8, bkv + (size_t)l * 2 * D, a.kv8_s, a.wkv_s + (size_t)l * 2 * D, kv,
+         B * NKV, 2 * D}};
+    CHECK_RC(gemm_int8<T>(-1, qkv, 2, a.L, l, D, ACT_NONE, st));
+  } else if (std::is_same<T, bf16>::value) {
     // the bf16 q and kv products in one launch
     const GemmProduct qkv[2] = {
         {q_in, wq, bq + (size_t)l * D, nullptr, nullptr, q, B * Q, D},
         {kv_in, wkv, bkv + (size_t)l * 2 * D, nullptr, nullptr, kv, B * NKV, 2 * D}};
     CHECK_RC(gemm_bf16_cfg(-1, qkv, 2, a.L, l, D, ACT_NONE, st));
   } else {
-    if (qz & kQWq)
-      CHECK_RC((qgemm<T, float>(-1, a.q_in32, a.aq, a.a_scale, a.wq8, a.L, l,
-                               a.wq_s + (size_t)l * D, bq + (size_t)l * D, q, B * Q, D, D,
-                               ACT_NONE, st)));
-    else
-      CHECK_RC(gemm<T>(q_in, wq, a.L, l, bq + (size_t)l * D, q, B * Q, D, D, ACT_NONE, sp(0),
-                       st));
-    if (qz & kQWkv)
-      CHECK_RC((qgemm<T, T>(-1, kv_in, a.aq, a.a_scale, a.wkv8, a.L, l,
-                           a.wkv_s + (size_t)l * 2 * D, bkv + (size_t)l * 2 * D, kv, B * NKV,
-                           2 * D, D, ACT_NONE, st)));
-    else
-      CHECK_RC(gemm<T>(kv_in, wkv, a.L, l, bkv + (size_t)l * 2 * D, kv, B * NKV, 2 * D, D,
-                       ACT_NONE, sp(1), st));
+    CHECK_RC(gemm<T>(q_in, wq, a.L, l, bq + (size_t)l * D, q, B * Q, D, D, ACT_NONE, sp(0),
+                     st));
+    CHECK_RC(gemm<T>(kv_in, wkv, a.L, l, bkv + (size_t)l * 2 * D, kv, B * NKV, 2 * D, D,
+                     ACT_NONE, sp(1), st));
   }
   CHECK_RC(attention<T>(a, q, kv, lck_in, lcv_in, attn, st));
   if (qz & kQWout)
@@ -2009,11 +2175,11 @@ int run_layer(const EmformerStackArgs& a, int l, bool last) {
                      sp(2), st));
   // with the left-context roll, which reads this layer's kv
   CHECK_RC(row_kernel<T>(a, kRowsResidual, l, l, 0, st));
-  if (qz & kQW1)
-    CHECK_RC((qgemm<T, float>(-1, a.ff_in32, a.aq, a.a_scale, a.w18, a.L, l,
-                             a.w1_s + (size_t)l * F, b1 + (size_t)l * F, h1, B * Tr, F, D,
-                             a.activation, st)));
-  else
+  if (qz & kQW1) {
+    const GemmProduct p1{a.ff8, a.w18, b1 + (size_t)l * F, a.ff8_s, a.w1_s + (size_t)l * F,
+                         h1, B * Tr, F};
+    CHECK_RC(gemm_int8<T>(-1, &p1, 1, a.L, l, D, a.activation, st));
+  } else
     CHECK_RC(gemm<T>(ff_in, w1, a.L, l, b1 + (size_t)l * F, h1, B * Tr, F, D, a.activation,
                      sp(3), st));
   if (qz & kQW2)
@@ -2040,22 +2206,30 @@ int run_one_layer(const EmformerStackArgs& a) {
   return run_layer<T>(a, 0, true);
 }
 
-// what every entry of the chain needs: memory exactly when M > 0, and D a
-// whole number of the roll's 16-byte vectors (8 bf16 or 4 f32)
+// what every entry of the chain needs: memory exactly when M > 0, D a
+// whole number of the roll's 16-byte vectors (8 bf16 or 4 f32), and the
+// int8 rows and scales of each product the row kernels quantise
 int check_rows_args(const EmformerStackArgs* a) {
   if (a == nullptr || a->struct_size != (int64_t)sizeof(EmformerStackArgs))
     return kErrStructSize;
   if (a->D <= 0 || a->D > 32 * kMaxPerLane || a->B <= 0 || a->L <= 0 || a->U <= 0 ||
       a->R < 0 || a->M < 0 || a->Lc < 0 || (a->use_mem != 0) != (a->M > 0) ||
-      (a->dtype != 0 && a->dtype != 1) || a->D % (a->dtype == 1 ? 8 : 4) != 0)
+      (a->dtype != 0 && a->dtype != 1) || a->D % (a->dtype == 1 ? 8 : 4) != 0 ||
+      ((a->quant & kQWq) && (a->q8 == nullptr || a->q8_s == nullptr)) ||
+      ((a->quant & kQWkv) && (a->kv8 == nullptr || a->kv8_s == nullptr)) ||
+      ((a->quant & kQW1) && (a->ff8 == nullptr || a->ff8_s == nullptr)))
     return kErrShape;
   return 0;
 }
 
+// the chain's: q and kv quantised together (one int8 launch), and the
+// quantiser's buffer where out or ffn2 is quantised
 int check_args(const EmformerStackArgs* a) {
   CHECK_RC(check_rows_args(a));
   if (a->H <= 0 || a->D % a->H != 0 || a->y == nullptr ||
-      (a->quant != 0 && (a->D % 16 != 0 || a->F % 16 != 0)))
+      (a->quant != 0 && (a->D % 16 != 0 || a->F % 16 != 0)) ||
+      !(a->quant & kQWq) != !(a->quant & kQWkv) ||
+      ((a->quant & (kQWout | kQW2)) && (a->aq == nullptr || a->a_scale == nullptr)))
     return kErrShape;
   const int Q = a->R + a->U + a->use_mem, K = a->M + a->R + a->Lc + a->U, Dh = a->D / a->H;
   if (!(a->dtype == 1 ? attn_core::supports<bf16>(Q, K, Dh) && attn_core::supports_mma(Q, K, Dh)
@@ -2096,14 +2270,27 @@ extern "C" int asr_emformer_rows(const EmformerStackArgs* a, int kind) {
                        : row_kernel<float>(*a, kind, 0, 0, init_memrow, st);
 }
 
-// Each row kernel's launches since the library was loaded, out[kind]
-// (kRowsFirst .. kRowsLast), as queued without a launch error.
-extern "C" void asr_row_launch_counts(long long* out) {
-  for (int k = 0; k < 4; ++k) out[k] = g_row_launches[k].load();
+// The counted kernels' launches since the library was loaded, as queued
+// without a launch error: out[0..3] the row kernels (kRowsFirst ..
+// kRowsLast), out[4] quantize_rows, out[5] and out[6] the int8 and the
+// bf16 wgmma GEMM.  Returns how many it wrote (kCounted).
+extern "C" int asr_launch_counts(long long* out) {
+  for (int k = 0; k < kCounted; ++k) out[k] = g_launches[k].load();
+  return kCounted;
 }
 
-// The W8A8 product alone (quantise the rows of x, int8 GEMM, dequant +
-// bias + activation), as run_layer runs each, for tests and timing.
+// The W8A8 row quantiser alone, as run_layer runs it on out's and ffn2's
+// rows, for tests and timing: x [M, K] (x_is_f32: f32, else bf16) into
+// xq [M, K] int8 and xs [M] f32.
+extern "C" int asr_quantize_rows(int x_is_f32, const void* x, int8_t* xq, float* xs, int M,
+                                 int K, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  return x_is_f32 ? quantize_rows<float>((const float*)x, xq, xs, M, K, st)
+                  : quantize_rows<bf16>((const bf16*)x, xq, xs, M, K, st);
+}
+
+// The W8A8 product alone (quantize_rows on x, int8 GEMM, dequant + bias
+// + activation), as run_layer runs out's and ffn2's, for tests and timing.
 // x_is_f32: x is f32 (else the compute type); dtype as in
 // EmformerStackArgs; wt [N, K] int8; cfg the tile configuration as in
 // asr_gemm_bf16 (-1: the one run_layer picks); act as there.

@@ -132,8 +132,11 @@ def lib() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         handle.asr_emformer_rows.argtypes = [ptr, i32]
         handle.asr_emformer_rows.restype = i32
-        handle.asr_row_launch_counts.argtypes = [ptr]
-        handle.asr_row_launch_counts.restype = None
+        handle.asr_launch_counts.argtypes = [ptr]
+        handle.asr_launch_counts.restype = i32
+        handle.asr_quantize_rows.argtypes = [i32] + [ptr] * 3 + [i32] * 2 + [
+            ptr]
+        handle.asr_quantize_rows.restype = i32
         handle.asr_w8a8_linear.argtypes = [i32, i32] + [ptr] * 7 + [i32] * 5 \
             + [ptr]
         handle.asr_w8a8_linear.restype = i32

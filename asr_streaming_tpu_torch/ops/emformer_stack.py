@@ -86,15 +86,33 @@ def _int_product(xq: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     return acc.to(torch.float32)
 
 
+def quantize_rows_plain(x: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """_qdot's per-row dynamic symmetric activation quant
+    (pallas_emformer.py:58-60) of x [..., K], read as f32: (xq int8
+    [..., K], s f32 [...]) with s = max(amax, 1e-8) * (1/127) and
+    xq = round(x * (1/s)), the reciprocal taken and then multiplied."""
+    x = x.to(torch.float32)
+    amax = x.abs().amax(-1, keepdim=True)
+    s = torch.clamp(amax, min=1e-8) * (1.0 / 127.0)
+    xq = torch.round(x * torch.reciprocal(s)).to(torch.int8)
+    return xq, s.squeeze(-1)
+
+
+def qdot_rows(xq: torch.Tensor, s: torch.Tensor, w8: torch.Tensor,
+              wscale: torch.Tensor) -> torch.Tensor:
+    """The rest of _qdot on rows quantised already: xq [rows, K] int8 with
+    scales s [rows] . w8 [K, N] int8 (exact), dequantised with wscale
+    [1, N] -> [rows, N] f32."""
+    return _int_product(xq, w8) * s.unsqueeze(-1) * wscale
+
+
 def _qdot(x2d: torch.Tensor, w8: torch.Tensor, wscale: torch.Tensor
           ) -> torch.Tensor:
     """W8A8 product (pallas_emformer.py::_qdot): per-row dynamic symmetric
     activation quant, an exact int8 product, f32 dequant.  x2d [rows, K]
     f32, w8 [K, N] int8, wscale [1, N] f32 -> [rows, N] f32."""
-    amax = x2d.abs().amax(-1, keepdim=True)
-    s = torch.clamp(amax, min=1e-8) * (1.0 / 127.0)
-    xq = torch.round(x2d * torch.reciprocal(s)).to(torch.int8)
-    return _int_product(xq, w8) * s * wscale
+    return qdot_rows(*quantize_rows_plain(x2d), w8, wscale)
 
 
 # values derived from weight tensors, by (id of the tensor, tag):
@@ -317,7 +335,8 @@ class _Args(ctypes.Structure):
                     "y", "mem_out", "lck_out", "lcv_out",
                     "q_in", "kv_in", "q", "kv", "attn", "out", "ff_in",
                     "h1", "h2", "hin", "memrow",
-                    "aq", "a_scale", "q_in32", "ff_in32")]
+                    "aq", "a_scale", "q8", "q8_s", "kv8", "kv8_s", "ff8",
+                    "ff8_s")]
                 + [("f32_kslice", ctypes.c_int32 * 5)]
                 + [(n, ctypes.c_void_p) for n in (
                     "f32_ws", "f32_tiles", "stream")])
@@ -327,6 +346,10 @@ class _Args(ctypes.Structure):
 _QFIELDS = {"w_q": ("wq8", "wq_s"), "w_kv": ("wkv8", "wkv_s"),
             "w_out": ("wout8", "wout_s"), "ff_w1": ("w18", "w1_s"),
             "ff_w2": ("w28", "w2_s")}
+# the products whose int8 rows the row kernels write (in place of the
+# compute-type rows): {name: (int8 rows, scales, compute-type rows)}
+_ROW_QUANT = {"w_q": ("q8", "q8_s", "q_in"), "w_kv": ("kv8", "kv8_s", "kv_in"),
+              "ff_w1": ("ff8", "ff8_s", "ff_in")}
 _WFIELDS = {"w_q": "wq", "b_q": "bq", "w_kv": "wkv", "b_kv": "bkv",
             "w_out": "wout", "b_out": "bout", "ln_in_scale": "lnin_s",
             "ln_in_bias": "lnin_b", "ff_ln_scale": "ffln_s",
@@ -446,19 +469,25 @@ def run_chain(entry: str, w: dict, qw: dict, x, length, reset, advance, mem,
     def scratch(*shape, dtype=cdt):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    s = {"q_in": scratch(B, Q, D), "kv_in": scratch(B, NKV, D),
-         "q": scratch(B, Q, D), "kv": scratch(B, NKV, 2 * D),
+    s = {"q": scratch(B, Q, D), "kv": scratch(B, NKV, 2 * D),
          "attn": scratch(B, Q, D), "out": scratch(B, Q, D),
-         "ff_in": scratch(B, T, D), "h1": scratch(B, T, Fd),
-         "h2": scratch(B, T, D),
+         "h1": scratch(B, T, Fd), "h2": scratch(B, T, D),
          "hin": scratch(B, T, D, dtype=torch.float32)}
+    # a product's input rows: in the compute type, or in W8A8 int8 rows
+    # and their scales, which the row kernels write (q, kv, ffn1) or the
+    # quantiser, into one buffer that out and ffn2 take in turn
     q = {}
+    for name, rows in (("w_q", Q), ("w_kv", NKV), ("ff_w1", T)):
+        f8, fs, fin = _ROW_QUANT[name]
+        if name in qw:
+            q[f8] = scratch(B * rows * D, dtype=torch.int8)
+            q[fs] = scratch(B * rows, dtype=torch.float32)
+        else:
+            s[fin] = scratch(B, rows, D)
     if qw:
-        rows = B * max(Q, NKV, T)
-        q = {"aq": scratch(rows * max(D, Fd), dtype=torch.int8),
-             "a_scale": scratch(rows, dtype=torch.float32),
-             "q_in32": scratch(B, Q, D, dtype=torch.float32),
-             "ff_in32": scratch(B, T, D, dtype=torch.float32)}
+        rows = B * max(Q, T)
+        q.update(aq=scratch(rows * max(D, Fd), dtype=torch.int8),
+                 a_scale=scratch(rows, dtype=torch.float32))
         for name, (w8, scale, w8t) in qw.items():
             if w8t is None or w8t.device != dev:
                 raise ValueError(f"{name}: W8A8 weights not on {dev}")
@@ -510,8 +539,9 @@ def w8a8_linear(x2d: torch.Tensor, q: tuple, bias: torch.Tensor,
     """One W8A8 product with the kernel's epilogue,
     act(_qdot(x2d, w8, scale).to(cdt) + bias.to(cdt)), for tests and
     timing.  x2d [rows, K] f32 or cdt; q = (w8, scale, w8t) from
-    ``quantized_weights``.  CUDA tensor -> the row quantiser and the int8
-    wgmma GEMM of csrc/emformer_stack.cu on the tile ``run_layer`` picks,
+    ``quantized_weights``.  CUDA tensor -> the row quantiser
+    (``quantize_rows``' kernel) and the int8 wgmma GEMM of
+    csrc/emformer_stack.cu on the tile ``run_layer`` picks,
     or on ``GEMM_TILES[config]``; CPU tensor -> plain version.
     ``main_loop_only`` (timing on the card) runs the GEMM without its
     epilogue: the output is left unwritten."""
@@ -546,6 +576,34 @@ def w8a8_linear(x2d: torch.Tensor, q: tuple, bias: torch.Tensor,
         -1 if config is None else config,
         torch.cuda.current_stream(x2d.device).cuda_stream)
     return y
+
+
+def quantize_rows(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The W8A8 row quantiser alone, as ``run_layer`` runs it on out's and
+    ffn2's rows, for tests and timing: x2d [M, K] f32 or bf16 -> (xq int8
+    [M, K], s f32 [M]), ``quantize_rows_plain``'s values.  CUDA tensor ->
+    quantize_rows_kernel of csrc/emformer_stack.cu (entry
+    asr_quantize_rows: a warp a row held in registers, 16-byte loads and
+    stores; a row that does not split into 16-byte chunks of its lanes'
+    registers, or a misaligned one, takes the kernel's scalar path); CPU
+    tensor -> ``quantize_rows_plain``."""
+    if x2d.device.type == "cpu":
+        return quantize_rows_plain(x2d)
+    if x2d.device.type != "cuda":
+        raise ValueError(f"quantize_rows: unsupported device {x2d.device}")
+    _cuda.refuse_grad("quantize_rows", x2d)
+    if x2d.dim() != 2 or x2d.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"quantize_rows: x {tuple(x2d.shape)} {x2d.dtype} "
+                         f"(2-d, f32 or bf16)")
+    M, K = x2d.shape
+    x2d = x2d.contiguous()
+    xq = torch.empty((M, K), dtype=torch.int8, device=x2d.device)
+    xs = torch.empty(M, dtype=torch.float32, device=x2d.device)
+    _cuda.launch(x2d.device, "asr_quantize_rows", "quantize_rows",
+                 int(x2d.dtype == torch.float32), x2d.data_ptr(),
+                 xq.data_ptr(), xs.data_ptr(), M, K,
+                 torch.cuda.current_stream(x2d.device).cuda_stream)
+    return xq, xs
 
 
 def gemm_bf16_plain(x2d: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -910,18 +968,32 @@ def emformer_stack(params: dict, x: torch.Tensor, mem: torch.Tensor,
 # its roll), ``rows_last`` (the last layer's output LN).  The plain
 # versions compute what ``_layer_plain`` computes, split as the kernels
 # split it.  CUDA tensors launch the kernel, CPU tensors run the plain
-# version.
+# version.  In W8A8 (``quant``, as ``emformer_stack`` takes it) a row
+# kernel writes the q, kv and ffn1 products' operands as int8 rows with
+# their scales, ``quantize_rows_plain``'s values, in place of the
+# compute-type rows: its output ``q8`` is {product: (int8 rows [B, rows,
+# D], scales [B, rows])} and the compute-type output of a quantised
+# product is None.
 
 _ROW_KINDS = {"first": 0, "residual": 1, "boundary": 2, "last": 3}
+# the library's launch counters (asr_launch_counts), in its order
+_COUNTED = tuple(f"rows_{k}" for k in _ROW_KINDS) + (
+    "quantize_rows", "gemm_int8", "gemm_bf16")
 _RELAUNCH = None      # rows_relaunch's list while it runs a wrapper
 
 
+def _row_quant(quant, names) -> tuple:
+    """The products among ``names`` that ``quant`` runs W8A8."""
+    return tuple(n for n in names if n in _kernel_quant_names(quant))
+
+
 def _rows_in(utt, rc, mem, memrow, reset, advance, scale, bias, *, use_mem,
-             cdt, f32_copy):
+             cdt, quant):
     """A layer's input LN of its rows utt [B, U, D] and rc [B, R, D] (f32):
-    (q_in [B, Q, D] and kv_in [B, M+T, D] in ``cdt``, q_in in f32 with
-    ``f32_copy`` else None, the memory half of the layer's roll [B, M, D]
-    from ``mem`` and the layer's input memory row ``memrow`` [B, D])."""
+    (q_in [B, Q, D] and kv_in [B, M+T, D] in ``cdt``, each None where it
+    is quantised; q8, the quantised ones' int8 rows and scales; the memory
+    half of the layer's roll [B, M, D] from ``mem`` and the layer's input
+    memory row ``memrow`` [B, D])."""
     B = utt.shape[0]
     ln_rc = _ln(rc, scale, bias)
     ln_utt = _ln(utt, scale, bias)
@@ -938,26 +1010,30 @@ def _rows_in(utt, rc, mem, memrow, reset, advance, scale, bias, *, use_mem,
         rolled = torch.cat([mem_state[:, 1:],
                             memrow.view(B, 1, -1).to(mem.dtype)], 1)
         mem_out = torch.where(adv3, rolled, mem_state)
-    return q_in32.to(cdt), kv_in, q_in32 if f32_copy else None, mem_out
+    names = _row_quant(quant, ("w_q", "w_kv"))
+    rows = {"w_q": q_in32, "w_kv": kv_in}
+    q8 = {n: quantize_rows_plain(rows[n]) for n in names}
+    return (None if "w_q" in names else q_in32.to(cdt),
+            None if "w_kv" in names else kv_in, q8, mem_out)
 
 
 def rows_first_plain(x, mem, reset, advance, scale, bias, memrow=None, *, U,
-                     R, use_mem, cdt, f32_copy=False):
+                     R, use_mem, cdt, quant="none"):
     """The plain version of ``rows_first``."""
     xf = x.to(torch.float32)
     utt, rc = xf[:, :U], xf[:, U:U + R]
     if use_mem and memrow is None:
         memrow = utt.mean(1)
-    q_in, kv_in, q_in32, mem_out = _rows_in(
+    q_in, kv_in, q8, mem_out = _rows_in(
         utt, rc, mem, memrow, reset.bool(), advance.bool(), scale, bias,
-        use_mem=use_mem, cdt=cdt, f32_copy=f32_copy)
-    return (torch.cat([rc, utt], 1), q_in, kv_in, q_in32,
+        use_mem=use_mem, cdt=cdt, quant=quant)
+    return (torch.cat([rc, utt], 1), q_in, kv_in, q8,
             memrow if use_mem else None, mem_out)
 
 
 def rows_residual_plain(out, hin, kv, lc_k, lc_v, reset, advance, scale,
                         bias, *, U, R, M, Lc, use_mem, tanh_on_mem,
-                        f32_copy=False):
+                        quant="none"):
     """The plain version of ``rows_residual``."""
     B, T, D = hin.shape
     cdt = out.dtype
@@ -974,7 +1050,9 @@ def rows_residual_plain(out, hin, kv, lc_k, lc_v, reset, advance, scale,
         shifted = torch.cat([lc0[:, Lc - keep:], new[:, U - (Lc - keep):]],
                             1).to(lc.dtype)
         rolled.append(torch.where(adv3, shifted, lc0.to(lc.dtype)))
-    return (ff.to(cdt), ff if f32_copy else None, memrow, *rolled)
+    if _row_quant(quant, ("ff_w1",)):
+        return (None, {"ff_w1": quantize_rows_plain(ff)}, memrow, *rolled)
+    return (ff.to(cdt), {}, memrow, *rolled)
 
 
 def _output_ln(out, hin, h2, scale, bias):
@@ -985,13 +1063,13 @@ def _output_ln(out, hin, h2, scale, bias):
 
 def rows_boundary_plain(out, hin, h2, mem, memrow, reset, advance, out_scale,
                         out_bias, in_scale, in_bias, *, U, R, use_mem,
-                        f32_copy=False):
+                        quant="none"):
     """The plain version of ``rows_boundary``."""
     hin = _output_ln(out, hin, h2, out_scale, out_bias)
-    q_in, kv_in, q_in32, mem_out = _rows_in(
+    q_in, kv_in, q8, mem_out = _rows_in(
         hin[:, R:], hin[:, :R], mem, memrow, reset.bool(), advance.bool(),
-        in_scale, in_bias, use_mem=use_mem, cdt=h2.dtype, f32_copy=f32_copy)
-    return hin, q_in, kv_in, q_in32, mem_out
+        in_scale, in_bias, use_mem=use_mem, cdt=h2.dtype, quant=quant)
+    return hin, q_in, kv_in, q8, mem_out
 
 
 def rows_last_plain(out, hin, h2, scale, bias, *, U, R):
@@ -1011,10 +1089,22 @@ def _check_rows(what, dev, **tensors):
                              f"{dtype} on {dev}")
 
 
+def _int8_rows(names, dev, **rows):
+    """{product: (int8 rows [B, n, D], scales [B, n])} on ``dev`` for the
+    ``names`` among ``rows`` ({product: (B, n, D)})."""
+    return {n: (torch.empty(rows[n], dtype=torch.int8, device=dev),
+                torch.empty(rows[n][:2], dtype=torch.float32, device=dev))
+            for n in names}
+
+
 def _launch_rows(kind, dev, cdt, *, B, D, U, R, M=0, Lc=0, tanh_on_mem=False,
-                 init_memrow=False, f32_copy=False, **tensors):
+                 init_memrow=False, q8=None, **tensors):
     """Launch one row kernel (entry asr_emformer_rows) on the tensors named
-    by their ``_Args`` fields."""
+    by their ``_Args`` fields, with the int8 rows and scales of the
+    products in ``q8``."""
+    for name, (rows, scales) in (q8 or {}).items():
+        f8, fs, _ = _ROW_QUANT[name]
+        tensors[f8], tensors[fs] = rows, scales
     if cdt not in (torch.bfloat16, torch.float32) or D > 1024:
         raise ValueError(f"rows_{kind}: {cdt}, D={D} (bf16 or f32, D <= "
                          f"1024)")
@@ -1025,7 +1115,7 @@ def _launch_rows(kind, dev, cdt, *, B, D, U, R, M=0, Lc=0, tanh_on_mem=False,
         struct_size=ctypes.sizeof(_Args),
         dtype=1 if cdt == torch.bfloat16 else 0, B=B, L=1, D=D, H=1, U=U,
         R=R, M=M, Lc=Lc, use_mem=int(M > 0), tanh_on_mem=int(tanh_on_mem),
-        quant=_QBITS["w_q"] | _QBITS["ff_w1"] if f32_copy else 0,
+        quant=sum(_QBITS[n] for n in q8 or {}),
         init_memrow=int(init_memrow),
         **{k: _ptr(t) for k, t in tensors.items()},
         stream=torch.cuda.current_stream(dev).cuda_stream)
@@ -1039,14 +1129,19 @@ def _launch_rows(kind, dev, cdt, *, B, D, U, R, M=0, Lc=0, tanh_on_mem=False,
         _RELAUNCH.append(launch)
 
 
-def row_launch_counts() -> dict:
-    """Each row kernel's launches in this process ({"rows_first": n, ...}),
-    counted by the library on the host as each launch is queued, so that a
-    profile that drops kernel records cannot hide one; needs the CUDA
-    library."""
-    counts = (ctypes.c_longlong * len(_ROW_KINDS))()
-    _cuda.lib().asr_row_launch_counts(counts)
-    return {f"rows_{kind}": counts[i] for kind, i in _ROW_KINDS.items()}
+def kernel_launch_counts() -> dict:
+    """The launches in this process of the row kernels ("rows_first", ...),
+    the W8A8 row quantiser ("quantize_rows") and the int8 and bf16 wgmma
+    GEMMs ("gemm_int8", "gemm_bf16"), counted by the library on the host
+    as each launch is queued, so that a profile that drops kernel records
+    cannot hide one; needs the CUDA library."""
+    counts = (ctypes.c_longlong * len(_COUNTED))()
+    n = _cuda.lib().asr_launch_counts(counts)
+    if n != len(_COUNTED):
+        raise RuntimeError(f"asr_launch_counts: {n} counters, expected "
+                           f"{len(_COUNTED)}")
+    return dict(zip(_COUNTED, counts))
+
 
 
 def rows_relaunch(wrapper, *args, **kw):
@@ -1077,19 +1172,32 @@ def _device(t, what):
     return t.device.type == "cuda"
 
 
+def _input_rows(quant, dev, cdt, B, Q, NKV, D):
+    """A layer's input rows as rows_first and rows_boundary write them:
+    (q_in [B, Q, D], kv_in [B, NKV, D], each None where ``quant`` runs its
+    product W8A8; q8, the int8 rows and scales of those)."""
+    names = _row_quant(quant, ("w_q", "w_kv"))
+    q8 = _int8_rows(names, dev, w_q=(B, Q, D), w_kv=(B, NKV, D))
+    return (None if "w_q" in names else
+            torch.empty((B, Q, D), dtype=cdt, device=dev),
+            None if "w_kv" in names else
+            torch.empty((B, NKV, D), dtype=cdt, device=dev), q8)
+
+
 def rows_first(x, mem, reset, advance, scale, bias, memrow=None, *, U, R,
-               use_mem, cdt, f32_copy=False):
+               use_mem, cdt, quant="none"):
     """The first layer's input rows: x [B, U+R, D] f32 (utterance then
     right context), its memory state mem [B, M, D] in ``cdt``, the masks
     [B], its input LN (scale, bias [D] f32) and its input memory row
     memrow [B, D] f32 (None: the mean of the raw utterance, as the stack
     computes it).  Returns (hin [B, T, D] f32 rows [rc; utt], q_in
-    [B, Q, D], kv_in [B, M+T, D], q_in f32 with ``f32_copy`` else None,
-    the memory row (None without memory), the rolled memory [B, M, D])."""
+    [B, Q, D], kv_in [B, M+T, D], q8 (W8A8: q's and kv's int8 rows, in
+    place of q_in and kv_in), the memory row (None without memory), the
+    rolled memory [B, M, D])."""
     if not _device(x, "rows_first"):
         return rows_first_plain(x, mem, reset, advance, scale, bias, memrow,
                                 U=U, R=R, use_mem=use_mem, cdt=cdt,
-                                f32_copy=f32_copy)
+                                quant=quant)
     _cuda.refuse_grad("rows_first", x, mem, scale, bias, memrow)
     dev, (B, T, D), M = x.device, x.shape, mem.shape[1]
     if T != U + R or use_mem != (M > 0):
@@ -1110,33 +1218,30 @@ def rows_first(x, mem, reset, advance, scale, bias, memrow=None, *, U, R,
                    if use_mem else {}))
     reset, advance = _flags(reset, advance, dev)
     hin = torch.empty((B, T, D), dtype=torch.float32, device=dev)
-    q_in = torch.empty((B, Q, D), dtype=cdt, device=dev)
-    kv_in = torch.empty((B, M + T, D), dtype=cdt, device=dev)
-    q_in32 = torch.empty((B, Q, D), dtype=torch.float32, device=dev) \
-        if f32_copy else None
+    q_in, kv_in, q8 = _input_rows(quant, dev, cdt, B, Q, M + T, D)
     mem_out = torch.empty_like(mem)
     _launch_rows("first", dev, cdt, B=B, D=D, U=U, R=R, M=M,
-                 init_memrow=init, f32_copy=f32_copy,
+                 init_memrow=init, q8=q8,
                  x=x.to(torch.float32).contiguous(), reset=reset,
                  advance=advance, mem_in=mem.contiguous(), mem_out=mem_out,
                  lnin_s=scale, lnin_b=bias, hin=hin, q_in=q_in, kv_in=kv_in,
-                 q_in32=q_in32, memrow=memrow)
-    return hin, q_in, kv_in, q_in32, memrow, mem_out
+                 memrow=memrow)
+    return hin, q_in, kv_in, q8, memrow, mem_out
 
 
 def rows_residual(out, hin, kv, lc_k, lc_v, reset, advance, scale, bias, *,
-                  U, R, M, Lc, use_mem, tanh_on_mem, f32_copy=False):
+                  U, R, M, Lc, use_mem, tanh_on_mem, quant="none"):
     """After the out product: out [B, Q, D] and kv [B, M+T, 2D] in the
     compute type, hin [B, T, D] f32 (the layer's input rows [rc; utt]),
     the layer's left context lc_k / lc_v [B, Lc, D], the masks and the FFN
     LN (scale, bias).  Returns (ff_in [B, T, D], the FFN LN of out + hin;
-    ff_in f32 with ``f32_copy`` else None; the next memory row [B, D] f32
-    (None without memory); the rolled lc_k and lc_v)."""
+    q8 (W8A8: ffn1's int8 rows, in place of ff_in); the next memory row
+    [B, D] f32 (None without memory); the rolled lc_k and lc_v)."""
     if not _device(out, "rows_residual"):
         return rows_residual_plain(out, hin, kv, lc_k, lc_v, reset, advance,
                                    scale, bias, U=U, R=R, M=M, Lc=Lc,
                                    use_mem=use_mem, tanh_on_mem=tanh_on_mem,
-                                   f32_copy=f32_copy)
+                                   quant=quant)
     _cuda.refuse_grad("rows_residual", out, hin, kv, lc_k, lc_v, scale, bias)
     dev, cdt, (B, T, D) = out.device, out.dtype, hin.shape
     Q = T + int(use_mem)
@@ -1150,37 +1255,35 @@ def rows_residual(out, hin, kv, lc_k, lc_v, reset, advance, scale, bias, *,
                 scale=(scale, (D,), torch.float32),
                 bias=(bias, (D,), torch.float32))
     reset, advance = _flags(reset, advance, dev)
-    ff_in = torch.empty((B, T, D), dtype=cdt, device=dev)
-    ff_in32 = torch.empty((B, T, D), dtype=torch.float32, device=dev) \
-        if f32_copy else None
+    names = _row_quant(quant, ("ff_w1",))
+    q8 = _int8_rows(names, dev, ff_w1=(B, T, D))
+    ff_in = None if names else torch.empty((B, T, D), dtype=cdt, device=dev)
     memrow = torch.empty((B, D), dtype=torch.float32, device=dev) \
         if use_mem else None
     lck_out, lcv_out = torch.empty_like(lc_k), torch.empty_like(lc_v)
     _launch_rows("residual", dev, cdt, B=B, D=D, U=U, R=R, M=M, Lc=Lc,
-                 tanh_on_mem=tanh_on_mem, f32_copy=f32_copy, out=out,
+                 tanh_on_mem=tanh_on_mem, q8=q8, out=out,
                  hin=hin, kv=kv, lck_in=lc_k, lcv_in=lc_v, reset=reset,
                  advance=advance, ffln_s=scale, ffln_b=bias, ff_in=ff_in,
-                 ff_in32=ff_in32, memrow=memrow, lck_out=lck_out,
-                 lcv_out=lcv_out)
-    return ff_in, ff_in32, memrow, lck_out, lcv_out
+                 memrow=memrow, lck_out=lck_out, lcv_out=lcv_out)
+    return ff_in, q8, memrow, lck_out, lcv_out
 
 
 def rows_boundary(out, hin, h2, mem, memrow, reset, advance, out_scale,
                   out_bias, in_scale, in_bias, *, U, R, use_mem,
-                  f32_copy=False):
+                  quant="none"):
     """After ffn2, between two layers: the residual out [B, Q, D] (the out
     product, compute type) + hin [B, T, D] f32 (the layer's input rows)
     and h2 [B, T, D] give this layer's output LN (out_scale, out_bias),
     and its rows the next layer's input LN (in_scale, in_bias) with that
     layer's memory state mem [B, M, D] and input memory row memrow [B, D]
-    f32.  Returns (the new hin [B, T, D] f32, q_in, kv_in, q_in f32 with
-    ``f32_copy`` else None, the next layer's rolled memory); the kernel
-    writes hin where it reads it, so the wrapper hands it a copy."""
+    f32.  Returns (the new hin [B, T, D] f32, q_in, kv_in, q8 as
+    ``rows_first``'s, the next layer's rolled memory); the kernel writes
+    hin where it reads it, so the wrapper hands it a copy."""
     if not _device(h2, "rows_boundary"):
         return rows_boundary_plain(out, hin, h2, mem, memrow, reset, advance,
                                    out_scale, out_bias, in_scale, in_bias,
-                                   U=U, R=R, use_mem=use_mem,
-                                   f32_copy=f32_copy)
+                                   U=U, R=R, use_mem=use_mem, quant=quant)
     _cuda.refuse_grad("rows_boundary", out, hin, h2, mem, memrow, out_scale,
                       out_bias, in_scale, in_bias)
     dev, cdt, (B, T, D), M = h2.device, h2.dtype, h2.shape, mem.shape[1]
@@ -1198,18 +1301,15 @@ def rows_boundary(out, hin, h2, mem, memrow, reset, advance, out_scale,
                    if use_mem else {}))
     reset, advance = _flags(reset, advance, dev)
     hin = hin.clone(memory_format=torch.contiguous_format)
-    q_in = torch.empty((B, Q, D), dtype=cdt, device=dev)
-    kv_in = torch.empty((B, M + T, D), dtype=cdt, device=dev)
-    q_in32 = torch.empty((B, Q, D), dtype=torch.float32, device=dev) \
-        if f32_copy else None
+    q_in, kv_in, q8 = _input_rows(quant, dev, cdt, B, Q, M + T, D)
     mem_out = torch.empty_like(mem)
-    _launch_rows("boundary", dev, cdt, B=B, D=D, U=U, R=R, M=M,
-                 f32_copy=f32_copy, out=out, h2=h2, mem_in=mem,
+    _launch_rows("boundary", dev, cdt, B=B, D=D, U=U, R=R, M=M, q8=q8,
+                 out=out, h2=h2, mem_in=mem,
                  mem_out=mem_out, memrow=memrow if use_mem else None,
                  reset=reset, advance=advance, lnout_s=out_scale,
                  lnout_b=out_bias, lnin_s=in_scale, lnin_b=in_bias, hin=hin,
-                 q_in=q_in, kv_in=kv_in, q_in32=q_in32)
-    return hin, q_in, kv_in, q_in32, mem_out
+                 q_in=q_in, kv_in=kv_in)
+    return hin, q_in, kv_in, q8, mem_out
 
 
 def rows_last(out, hin, h2, scale, bias, *, U, R):

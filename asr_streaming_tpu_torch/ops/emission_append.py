@@ -4,8 +4,9 @@ Counterpart of asr_streaming_tpu/ops/pallas_append.py::emission_append.
 For every slot with ``decode[b]``: ``buf[b, pos[b]:pos[b]+U] = rows[b]``
 (rounded to the buffer's float16), other rows untouched, in place.  The
 buffer is native ``torch.float16 [B, MAX_T, V]`` (the JAX package's f32
-bit-pair packing exists only for Mosaic).  ``pos`` must lie in
-``[0, MAX_T - U]``; the serving step clips it.
+bit-pair packing exists only for Mosaic).  ``pos`` should lie in
+``[0, MAX_T - U]`` (the serving step clips it); a slot whose pos does not
+is left as it is, by the kernel and the plain version alike.
 
 On a CUDA tensor it launches ``csrc/emission_append.cu``; on a CPU tensor
 it runs ``emission_append_plain``.
@@ -25,15 +26,17 @@ def emission_append_plain(buf: torch.Tensor, rows: torch.Tensor,
                           pos: torch.Tensor,
                           decode: torch.Tensor) -> torch.Tensor:
     """Gather each slot's U rows at pos, select the new rows where decode,
-    scatter back (the JAX package's emission_append_xla) — in place."""
+    scatter back (the JAX package's emission_append_xla) — in place.  A
+    slot whose pos lies outside [0, MAX_T - U] keeps its rows."""
     B, max_t, V = buf.shape
     U = rows.shape[1]
-    t_idx = pos.to(torch.int64).view(B, 1) + torch.arange(
+    pos = pos.to(torch.int64).view(B, 1)
+    write = decode.view(B).bool() & (pos[:, 0] >= 0) & (pos[:, 0] <= max_t - U)
+    t_idx = pos.clamp(0, max_t - U) + torch.arange(
         U, device=buf.device).view(1, U)                       # [B, U]
     b_idx = torch.arange(B, device=buf.device).view(B, 1).expand(B, U)
     existing = buf[b_idx, t_idx]                               # [B, U, V]
-    new_rows = torch.where(decode.view(B, 1, 1).bool(), rows.to(buf.dtype),
-                           existing)
+    new_rows = torch.where(write.view(B, 1, 1), rows.to(buf.dtype), existing)
     buf[b_idx, t_idx] = new_rows
     return buf
 

@@ -2,6 +2,9 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
     python3 chip_smoke.py            # all phases, one card
+    python3 chip_smoke.py --compare checkouts/parent . . checkouts/parent
+                                     # kernel A's and B's times, a parent's
+                                     # package against this one
 
 Phases (any failure exits non-zero; nothing is caught):
   1. device: the card's name and power limit, torch and CUDA versions;
@@ -20,8 +23,11 @@ Phases (any failure exits non-zero; nothing is caught):
      launches and bytes bound, the rest) from the profile at VI and EN;
      each of A's row kernels alone (rows_first, rows_residual,
      rows_boundary, rows_last) against its plain version (check_rows: the
-     roll's rows bit for bit, LN outputs within f32 rounding), beside
-     F.layer_norm and Tensor.copy_; and D in bf16 in/out (bit for bit the
+     roll's rows bit for bit, LN outputs within f32 rounding; in W8A8 the
+     int8 rows and scales they write for q, kv and ffn1 bit for bit the
+     quantisation of their own rows), beside F.layer_norm and
+     Tensor.copy_; B at any position (odd offsets, both ends, out of
+     range); and D in bf16 in/out (bit for bit the
      f32 kernel on the widened inputs, then cast) beside SDPA on the same
      tensors;
   3b. A's bf16 product alone (the wgmma GEMM, entry asr_gemm_bf16) at the
@@ -41,7 +47,10 @@ Phases (any failure exits non-zero; nothing is caught):
      tiny test geometry, on the picked tile and each tile forced, equal
      bit for bit to _qdot + bias, the GEMM and the quantiser timed apart,
      beside torch._int_mm on the same int8 operands, a bf16 torch.matmul
-     and the bound at the int8 peak (``--only int8``: this phase alone);
+     and the bound at the int8 peak; the quantiser alone (entry
+     asr_quantize_rows) bit for bit quantize_rows_plain, beside its bytes
+     bound, its plain version and torch's amax and round
+     (``--only int8``: this phase alone);
   4. the Vietnamese CTC serving tick at full width (512 slots, 20 layers,
      bf16, random weights from --seed): 10 ticks of the default route
      (stack), then a few of each other route: stack+int8,
@@ -289,29 +298,33 @@ def device_times(fn, iters: int = 1, need=""):
 
 
 def stack_parts(fn, label: str, geo, need=None, itemsize=2, reset=None,
-                advance=None, f32_copies=False):
+                advance=None, quant="none", F=2048):
     """Device time of one call of kernel A by part, from the profile: its
-    bf16 or f32 GEMMs, its int8 GEMMs and row quantiser (W8A8 mode), its
-    attention (beside its bytes bound, ``attention_bytes``), its row
-    kernels (``ROW_KERNELS``: their launches, and beside them their bytes
-    bound, ``row_bytes``, and the design's extra writes,
-    ``row_duplicate_bytes``) and the rest (anything else the call
-    launches).  ``geo`` is (B, L, D, U, R, M, Lc); ``itemsize``, the masks
-    and ``f32_copies`` as ``row_bytes``'.  ``need`` as device_times'
-    (None: ``A_KERNELS``).  The row kernels' launches in one call come
-    from the library's own counters (``es.row_launch_counts``), and the
-    run fails unless they are ``row_launches(L)``; a row kernel's time is
-    its mean time per profiled launch times those launches.  Returns
-    {part: {"ms": ms}}, the attention's and the rows' with their
-    "bound_ms", the rows' with their "launches" and "duplicate_ms"."""
+    bf16 or f32 GEMMs, its int8 GEMMs and row quantiser (W8A8 mode, beside
+    the quantiser's bytes bound, ``quantise_bytes``), its attention
+    (beside its bytes bound, ``attention_bytes``), its row kernels
+    (``ROW_KERNELS``: their launches, and beside them their bytes bound,
+    ``row_bytes``, and the design's extra writes, ``row_duplicate_bytes``)
+    and the rest (anything else the call launches).  ``geo`` is (B, L, D,
+    U, R, M, Lc), F the FFN width; ``itemsize``, the masks and ``quant``
+    as ``row_bytes``'.  ``need`` as device_times' (None: ``A_KERNELS``).
+    The row kernels' launches in one call come from the library's own
+    counters (``es.kernel_launch_counts``), and the run fails unless they
+    are ``row_launches(L)``; a row kernel's time is its mean time per
+    profiled launch times those launches.  The quantiser's and the int8
+    GEMMs' launches come from those counters too.  Returns {part: {"ms": ms}}, the attention's, the rows' and
+    the quantiser's with their "bound_ms", the rows', the quantiser's and
+    the int8 GEMMs' with their "launches", the rows' with their
+    "duplicate_ms"."""
     import torch
     from asr_streaming_tpu_torch.ops import emformer_stack as es
     torch.cuda.synchronize()
-    before = es.row_launch_counts()
+    before = es.kernel_launch_counts()
     fn()
     torch.cuda.synchronize()
-    by_kernel = {k: n - before[k] for k, n in es.row_launch_counts().items()}
-    if by_kernel != row_launches(geo[1]):
+    by_kernel = {k: n - before[k]
+                 for k, n in es.kernel_launch_counts().items()}
+    if {k: by_kernel[k] for k in ROW_KERNELS} != row_launches(geo[1]):
         fail(f"{label}: row kernel launches {by_kernel}, expected "
              f"{row_launches(geo[1])}")
     total, rows = device_times(fn, 3, need=A_KERNELS if need is None else need)
@@ -331,14 +344,19 @@ def stack_parts(fn, label: str, geo, need=None, itemsize=2, reset=None,
             recorded += c
         if key:
             parts[key] += t
-    row_launches_step = sum(by_kernel.values())
+    row_launches_step = sum(by_kernel[k] for k in ROW_KERNELS)
+    launches = {"quantise": by_kernel["quantize_rows"],
+                "gemm_int8": by_kernel["gemm_int8"]}
     parts["rest"] = total - sum(parts.values())
     bound = attention_bytes(*geo, itemsize=itemsize) / PEAK_BYTES * 1e3
-    int8 = (f"int8 GEMMs {parts['gemm_int8']:.3f} ms, row quantiser "
-            f"{parts['quantise']:.3f} ms, " if parts["gemm_int8"] else "")
+    q_bound = quantise_bytes(*geo, F, itemsize, quant) / PEAK_BYTES * 1e3
+    int8 = (f"int8 GEMMs {parts['gemm_int8']:.3f} ms in "
+            f"{launches['gemm_int8']} launches, row quantiser "
+            f"{parts['quantise']:.3f} ms in {launches['quantise']} launches "
+            f"(bytes bound {q_bound:.3f} ms), " if parts["gemm_int8"] else "")
     rows_bound = row_bytes(*geo, itemsize, reset, advance,
-                           f32_copies) / PEAK_BYTES * 1e3
-    dup = row_duplicate_bytes(*geo, itemsize) / PEAK_BYTES * 1e3
+                           quant) / PEAK_BYTES * 1e3
+    dup = row_duplicate_bytes(*geo, itemsize, quant) / PEAK_BYTES * 1e3
     log(f"[profile] {label} by part: GEMMs {parts['gemm']:.3f} ms, {int8}"
         f"attention {parts['attention']:.3f} ms (bytes bound {bound:.3f} "
         f"ms), row kernels {parts['rows']:.3f} ms in {row_launches_step} "
@@ -349,6 +367,8 @@ def stack_parts(fn, label: str, geo, need=None, itemsize=2, reset=None,
     out["attention"]["bound_ms"] = bound
     out["rows"].update(launches=row_launches_step, bound_ms=rows_bound,
                        duplicate_ms=dup)
+    out["quantise"].update(launches=launches["quantise"], bound_ms=q_bound)
+    out["gemm_int8"]["launches"] = launches["gemm_int8"]
     return out
 
 
@@ -361,8 +381,23 @@ def attention_bytes(B, L, D, U, R, M, Lc, itemsize=2) -> float:
     return float(L * itemsize * B * D * (2 * Q + 2 * (M + T) + 2 * Lc))
 
 
+def quantise_bytes(B, L, D, U, R, M, Lc, F, itemsize=2,
+                   quant="none") -> float:
+    """Bytes the W8A8 row quantiser kernel must move in one step of L
+    layers: the rows the row kernels do not quantise, out's [B, Q, D] (the
+    attention's) and ffn2's [B, T, F] (ffn1's), each read once in the
+    compute type and written once as int8 rows with an f32 scale a row."""
+    from asr_streaming_tpu_torch.ops.emformer_stack import _kernel_quant_names
+    T = U + R
+    Q = T + (1 if M else 0)
+    names = _kernel_quant_names(quant)
+    per_layer = sum(rows * (K * itemsize + K + 4) for name, rows, K in (
+        ("w_out", B * Q, D), ("ff_w2", B * T, F)) if name in names)
+    return float(L * per_layer)
+
+
 def row_bytes(B, L, D, U, R, M, Lc, itemsize=2, reset=None, advance=None,
-              f32_copies=False) -> float:
+              quant="none") -> float:
     """Bytes A's row kernels must move in one step of L layers, each tensor
     they read or write counted once (f32 rows 4 bytes a value, the compute
     type ``itemsize``).  Each layer: the residual (out and hin in; the
@@ -375,9 +410,12 @@ def row_bytes(B, L, D, U, R, M, Lc, itemsize=2, reset=None, advance=None,
     in, hin, LN rows, summary and memory row out; the last layer's out
     rows, hin and h2 in, hin and y out.  The LN rows count once: the
     kernels write them twice, into q_in and kv_in, as the q and kv
-    products read them (``row_duplicate_bytes``).
-    ``f32_copies``: the W8A8 f32 copies of q_in and the FFN input too.
-    Masks None: no slot reset, every slot advancing."""
+    products read them (``row_duplicate_bytes``).  In W8A8 (``quant``)
+    the rows of a quantised product are written as int8 with an f32 scale
+    a row: q's (the LN rows and the summary, from the f32 values) and
+    kv's (the memory and LN rows, rounded to the compute type first: other
+    values, so both count), ffn1's.  Masks None: no slot reset, every
+    slot advancing."""
     import torch
     T, c = U + R, itemsize
     Q = T + (1 if M else 0)
@@ -390,24 +428,35 @@ def row_bytes(B, L, D, U, R, M, Lc, itemsize=2, reset=None, advance=None,
     lc_read = 2 * D * c * (int((adv & ~rs).sum()) * keep
                            + n_adv * (Lc - keep)
                            + int((~adv & ~rs).sum()) * Lc)
-    residual = B * Q * D * c + B * T * D * (4 + c) + (B * D * 4 if M else 0)
+    from asr_streaming_tpu_torch.ops.emformer_stack import _kernel_quant_names
+    names, q8 = _kernel_quant_names(quant), D + 4   # an int8 row, its scale
+    if "w_q" in names:                          # with w_kv
+        ln_rows, mem_rows = B * (Q + T) * q8, B * M * q8
+    else:
+        ln_rows = B * T * D * c + (B * D * c if M else 0)
+        mem_rows = B * M * D * c
+    ff_rows = B * T * (q8 if "ff_w1" in names else D * c)
+    residual = B * Q * D * c + B * T * D * 4 + ff_rows + (B * D * 4 if M else 0)
     roll = (lc_read + 2 * B * Lc * D * c + live * M * D * c
-            + 2 * B * M * D * c + (n_adv * D * 4 if M else 0))
-    into_layer = B * T * D * 4 + B * T * D * c + (B * D * c if M else 0)
+            + B * M * D * c + mem_rows + (n_adv * D * 4 if M else 0))
+    into_layer = B * T * D * 4 + ln_rows
     output_ln = B * T * D * (c + 4 + c)         # out's rows, hin, h2
     boundary = output_ln + into_layer
     first = B * T * D * 4 + into_layer + (B * D * 4 if M else 0)
     last = output_ln + B * T * D * 4 + B * U * D * 4
-    copies = L * (B * Q * D * 4 + B * T * D * 4) if f32_copies else 0
-    return float(L * (residual + roll) + (L - 1) * boundary + first + last
-                 + copies)
+    return float(L * (residual + roll) + (L - 1) * boundary + first + last)
 
 
-def row_duplicate_bytes(B, L, D, U, R, M, Lc, itemsize=2) -> float:
+def row_duplicate_bytes(B, L, D, U, R, M, Lc, itemsize=2,
+                        quant="none") -> float:
     """Bytes A's row kernels write beyond ``row_bytes`` in one step: each
     layer's input LN rows a second time (q_in [rc; utt; summary] and kv_in
     [mem; rc; utt] hold the same rows).  One buffer [mem; rc; utt;
-    summary] read by both products would save them."""
+    summary] read by both products would save them.  None in W8A8, whose
+    q and kv rows differ."""
+    from asr_streaming_tpu_torch.ops.emformer_stack import _kernel_quant_names
+    if "w_q" in _kernel_quant_names(quant):
+        return 0.0
     return float(L * B * (U + R) * D * itemsize)
 
 
@@ -437,13 +486,18 @@ def check_rows(label, B, D, U, R, M, Lc, cdt, gen, device,
                tanh_on_mem=True) -> dict:
     """Each of A's row kernels alone (``emformer_stack.rows_*``, as the
     chain launches them) against its plain version on the same inputs on
-    the card, with the W8A8 f32 copies: the roll's rows (the rolled state,
-    kv_in's memory rows) and the chunk's copy bit for bit; the LN outputs,
-    the summary and memory rows within f32 rounding (f32 1e-4; the compute
-    type one of its ulps, rtol 2^-7, atol 1e-4).  Each timed alone
+    the card: the roll's rows (the rolled state, kv_in's memory rows) and
+    the chunk's copy bit for bit; the LN outputs, the summary and memory
+    rows within f32 rounding (f32 1e-4; the compute type one of its ulps,
+    rtol 2^-7, atol 1e-4).  Then in W8A8 (``quant="int8"``): the int8 rows
+    and scales of q, kv and ffn1 bit for bit ``quantize_rows_plain`` of
+    the rows the same kernel makes unquantised (q's and ffn1's f32 rows
+    from the same call in f32 on the widened inputs, kv's compute-type
+    rows), within one int8 step of the plain version's.  Each timed alone
     (``event_ms`` of ``es.rows_relaunch``'s launch: the kernel without the
-    wrapper's copies) beside its plain version (``cuda_ms``).  Returns
-    {kind: {ms, plain_ms, max_abs_err}}."""
+    wrapper's copies), unquantised and in W8A8, beside its plain version
+    (``cuda_ms``).  Returns {kind: {ms, int8_ms, plain_ms,
+    max_abs_err}}."""
     import torch
     from asr_streaming_tpu_torch.ops import emformer_stack as es
     T = U + R
@@ -466,34 +520,33 @@ def check_rows(label, B, D, U, R, M, Lc, cdt, gen, device,
     calls = {
         "first": (es.rows_first, es.rows_first_plain,
                   (x, mem, reset, advance, *ln[0]), dict(g, cdt=cdt),
-                  ("hin", "q_in", "kv_in", "q_in32", "memrow", "mem"),
+                  ("hin", "q_in", "kv_in", "q8", "memrow", "mem"),
                   ("hin", "mem")),
         "residual": (es.rows_residual, es.rows_residual_plain,
                      (out, hin, kv, lck, lcv, reset, advance, *ln[1]),
                      dict(U=U, R=R, M=M, Lc=Lc, use_mem=use_mem,
                           tanh_on_mem=tanh_on_mem),
-                     ("ff_in", "ff_in32", "memrow", "lc_k", "lc_v"),
+                     ("ff_in", "q8", "memrow", "lc_k", "lc_v"),
                      ("lc_k", "lc_v")),
         "boundary": (es.rows_boundary, es.rows_boundary_plain,
                      (out, hin, h2, mem, memrow, reset, advance, *ln[2],
                       *ln[0]),
-                     g, ("hin", "q_in", "kv_in", "q_in32", "mem"), ("mem",)),
+                     g, ("hin", "q_in", "kv_in", "q8", "mem"), ("mem",)),
         "last": (es.rows_last, es.rows_last_plain, (out, hin, h2, *ln[2]),
                  dict(U=U, R=R), ("hin", "y"), ()),
     }
     result = {}
     for kind, (kernel, plain, args, kw, names, exact) in calls.items():
-        copies = {} if kind == "last" else {"f32_copy": True}
-        got = kernel(*args, **kw, **copies)
+        got = kernel(*args, **kw)
         torch.cuda.synchronize()
-        want = plain(*args, **kw, **copies)
+        want = plain(*args, **kw)
         if kind == "first" and use_mem:
             # the rolled memory's last row is the memory row the kernel
             # computed (held to the plain one within f32 rounding)
             want = (*want[:5], plain(*args, got[4], **kw)[5])
         worst = 0.0
         for name, a, b in zip(names, got, want):
-            if a is None and b is None:
+            if (a is None and b is None) or name == "q8":
                 continue
             if a.shape != b.shape or a.dtype != b.dtype:
                 fail(f"{label} rows_{kind} {name}: {tuple(a.shape)} "
@@ -515,15 +568,59 @@ def check_rows(label, B, D, U, R, M, Lc, cdt, gen, device,
                     a.float(), b.float(), rtol=rtol, atol=1e-4):
                 fail(f"{label} rows_{kind} {name}: max |err| {err:.3e} "
                      f"beyond rtol={rtol:.2e}, atol=1e-4")
+        int8_ms = None
+        if kind != "last":
+            check_rows_int8(f"{label} rows_{kind}", kernel, plain, args, kw,
+                            names, got)
+            int8_ms = event_ms(es.rows_relaunch(kernel, *args, **kw,
+                                                quant="int8")[1])
         # the kernel alone (the wrappers of the boundary and the last
         # layer copy hin first), as the bf16 and f32 chains launch it
         ms = event_ms(es.rows_relaunch(kernel, *args, **kw)[1])
         plain_ms = cuda_ms(lambda: plain(*args, **kw), 3)
-        result[kind] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": worst}
-        log(f"[kernels] {label} rows_{kind}: device time {_us(ms)} (plain "
-            f"{_us(plain_ms)}), the roll's rows bit for bit, LN outputs max "
-            f"|err| {worst:.3e}")
+        result[kind] = {"ms": ms, "int8_ms": int8_ms, "plain_ms": plain_ms,
+                        "max_abs_err": worst}
+        log(f"[kernels] {label} rows_{kind}: device time {_us(ms)}"
+            + (f", W8A8 {_us(int8_ms)}" if int8_ms else "")
+            + f" (plain {_us(plain_ms)}), the roll's rows bit for bit, LN "
+            f"outputs max |err| {worst:.3e}"
+            + (", int8 rows exact" if int8_ms else ""))
     return result
+
+
+def check_rows_int8(label, kernel, plain, args, kw, names, own):
+    """A row kernel in W8A8 (``quant="int8"``) against ``check_rows``'
+    rule; ``own`` is the same call's unquantised outputs."""
+    import torch
+    from asr_streaming_tpu_torch.ops import emformer_stack as es
+    got = kernel(*args, **kw, quant="int8")
+    wide_args = [a.float() if isinstance(a, torch.Tensor)
+                 and a.is_floating_point() else a for a in args]
+    wide = kernel(*wide_args, **(dict(kw, cdt=torch.float32) if "cdt" in kw
+                                 else kw))
+    torch.cuda.synchronize()
+    want = plain(*args, **kw, quant="int8")
+    slot = names.index("q8")
+    sources = ({"ff_w1": wide[0]} if "ff_in" in names
+               else {"w_q": wide[1], "w_kv": own[2]})
+    if set(got[slot]) != set(sources) or set(want[slot]) != set(sources):
+        fail(f"{label}: int8 rows of {sorted(got[slot])}, expected "
+             f"{sorted(sources)}")
+    for name, (xq, sc) in got[slot].items():
+        ref_q, ref_s = es.quantize_rows_plain(sources[name])
+        if not (torch.equal(xq, ref_q) and torch.equal(sc, ref_s)):
+            fail(f"{label} {name}: int8 rows or scales not bit for bit "
+                 f"quantize_rows_plain of the kernel's own rows")
+        step = (xq.int() - want[slot][name][0].int()).abs().max().item()
+        if step > 1:
+            fail(f"{label} {name}: int8 rows {step} steps from the plain "
+                 f"version's")
+    for name, g, o in zip(names, got, own):
+        if name in ("q_in", "kv_in", "ff_in") and g is not None:
+            fail(f"{label}: {name} written in W8A8")
+        if name not in ("q_in", "kv_in", "ff_in", "q8") and o is not None \
+                and not torch.equal(g, o):
+            fail(f"{label}: {name} differs between W8A8 and unquantised")
 
 
 def profile_top(fn, label: str, n: int = 8, also=()):
@@ -623,14 +720,14 @@ def _stack_kw(cfg, quant="none"):
                 activation=cfg.activation, cdt=cfg.compute_dtype, quant=quant)
 
 
-def stack_digest(cfg, B, seed, device, label, parts=False):
-    """One step of kernel A (bf16, ``cfg``'s geometry) on weights, state
-    and inputs made from ``seed`` alone: the sha256 of its outputs' bytes
-    and its device ms (and with ``parts`` the step's device time by part,
-    ``stack_parts``).  A commit whose kernel computes the same bits gives
-    the same digest: the fingerprint by which two commits' A are held
-    equal (run this function with either checkout's package first on
-    sys.path)."""
+def stack_digest(cfg, B, seed, device, label, parts=False, quant="none"):
+    """One step of kernel A (bf16, ``cfg``'s geometry; W8A8 with
+    ``quant``) on weights, state and inputs made from ``seed`` alone: the
+    sha256 of its outputs' bytes and its device ms (and with ``parts`` the
+    step's device time by part, ``stack_parts``).  A commit whose kernel
+    computes the same bits gives the same digest: the fingerprint by which
+    two commits' A are held equal (run this function with either
+    checkout's package first on sys.path)."""
     import hashlib
     import torch
     from asr_streaming_tpu_torch.models.emformer import init_emformer_params
@@ -643,7 +740,8 @@ def stack_digest(cfg, B, seed, device, label, parts=False):
     reset = (torch.rand(B, generator=gen) < 0.15).to(device)
     advance = (torch.rand(B, generator=gen) < 0.8).to(device)
     eff = torch.where(reset, torch.zeros_like(length), length)
-    kw = _stack_kw(cfg)
+    kw = _stack_kw(cfg, quant)
+    need = A_KERNELS if quant == "none" else A_INT8_KERNELS
 
     def kernel_a():
         return es.emformer_stack(params, x, mem, lck, lcv, eff, reset,
@@ -652,7 +750,7 @@ def stack_digest(cfg, B, seed, device, label, parts=False):
     h = hashlib.sha256()
     for t in kernel_a():
         h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
-    ms = device_times(kernel_a, 5, need=A_KERNELS)[0]
+    ms = device_times(kernel_a, 5, need=need)[0]
     log(f"[kernels] {label}, one step from seed {seed}: outputs' sha256 "
         f"{h.hexdigest()[:16]}, {ms:.3f} ms device time")
     if not parts:
@@ -660,8 +758,9 @@ def stack_digest(cfg, B, seed, device, label, parts=False):
     geo = (B, cfg.num_layers, cfg.d_model, cfg.segment_length,
            cfg.right_context_length, cfg.max_memory_size,
            cfg.left_context_length)
-    return h.hexdigest(), ms, stack_parts(kernel_a, label, geo, reset=reset,
-                                          advance=advance)
+    return h.hexdigest(), ms, stack_parts(kernel_a, label, geo, need=need,
+                                          reset=reset, advance=advance,
+                                          quant=quant, F=cfg.ffn_dim)
 
 
 def _mm_split_k(x2d, w, cdt):
@@ -1252,7 +1351,10 @@ def check_int8(label, M, K, N, act, x_f32, gen, device):
     of torch's (other f32 operation orders).  Times the GEMM and the
     quantiser by kernel beside torch._int_mm on the same int8 operands
     (no dequant: the yardstick), a bf16 torch.matmul of the same shape and
-    the bound at the int8 peak."""
+    the bound at the int8 peak; the quantiser alone (``quantize_rows``)
+    bit for bit ``quantize_rows_plain``, beside its bytes bound, its plain
+    version and torch's amax and round of the rows in one call (the
+    yardstick: no single call quantises rows)."""
     import torch
     from asr_streaming_tpu_torch.ops import emformer_stack as es
     x, w, q, bias = _int8_operands(M, K, N, x_f32, gen, device)
@@ -1301,6 +1403,18 @@ def check_int8(label, M, K, N, act, x_f32, gen, device):
     t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
     q_bytes = M * K * (4 if x_f32 else 2) + M * K + 4 * M
     q_bound = q_bytes / PEAK_BYTES * 1e3
+    xq, xs = es.quantize_rows(x)
+    torch.cuda.synchronize()
+    ref_q, ref_s = es.quantize_rows_plain(x)
+    if not (torch.equal(xq, ref_q) and torch.equal(xs, ref_s)):
+        fail(f"int8 {label}: quantize_rows differs from quantize_rows_plain")
+    q_plain = device_times(lambda: es.quantize_rows_plain(x), 5)[0]
+
+    def amax_round():
+        xf = x.float()
+        return torch.round(xf * (127.0 / xf.abs().amax(-1, keepdim=True)))
+
+    q_lib = device_times(amax_round, 5)[0]
     log(f"[int8] {label} {M}x{K}x{N}{' +' + act if act else ''}: "
         f"{ms * 1e3:.1f} us on {tile} ({ops / ms / 1e9:.0f} TOP/s; "
         + ", ".join(f"{t} {v * 1e3:.1f}" for t, v in tile_ms.items())
@@ -1311,15 +1425,61 @@ def check_int8(label, M, K, N, act, x_f32, gen, device):
         f"{bf16_ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
         f"{max(t_ops, t_bytes) * 1e3:.1f} us; row quantiser "
         f"({'f32' if x_f32 else 'bf16'} rows) {quant * 1e3:.1f} us, bound "
-        f"{q_bound * 1e3:.1f} us; exact on every tile")
+        f"{q_bound * 1e3:.1f} us, plain {q_plain * 1e3:.1f} us, torch amax "
+        f"+ round {q_lib * 1e3:.1f} us; exact on every tile")
     return {"product": label, "m": M, "k": K, "n": N, "tile": tile, "ms": ms,
             "tiles_ms": tile_ms, "no_act_ms": no_act_ms,
             "main_loop_ms": main_ms,
-            "quantise": {"ms": quant, "bound_ms": q_bound},
+            "quantise": {"ms": quant, "bound_ms": q_bound,
+                         "plain_ms": q_plain, "library_ms": q_lib},
             "plain_ms": plain_ms,
             "library_ms": lib_ms, "bf16_matmul_ms": bf16_ms,
             "bound_ms": max(t_ops, t_bytes), "tops": ops / ms / 1e9,
             "max_abs_err": 0.0}
+
+
+def quantiser_step(gen, device, layers=20):
+    """The row quantiser's work in one A-int8 VI step at 512 slots, timed
+    as a step: out's rows [B·Q, D] and ffn2's [B·T, F] in bf16, a tensor
+    each for each of ``layers`` layers, quantised in layer order (40
+    calls) by the kernel, by its plain version and by torch's amax and
+    round of the same rows (the yardstick: no one call quantises rows).
+    Each loop is timed between CUDA events behind a spin kernel
+    (``event_ms``; the best of three), so the host's launches do not
+    count.  The rows, 1.06 GB in all, come from HBM; in the step ffn2's
+    are left in L2 by ffn1's epilogue, so the kernel's ms in the kernels
+    line stays the step's profiled part (``stack_parts``) and its loop
+    time here is logged and kept beside it (``loop_ms``).  Returns
+    {"plain_ms", "library_ms", "loop_ms"}."""
+    import torch
+    from asr_streaming_tpu_torch.models.emformer import EmformerConfig
+    from asr_streaming_tpu_torch.ops import emformer_stack as es
+    c = EmformerConfig()
+    T = c.segment_length + c.right_context_length
+    Q = T + (1 if c.max_memory_size else 0)
+    dev_gen = torch.Generator(device=device).manual_seed(gen.initial_seed())
+    xs = [torch.randn((B_SLOTS * rows, K), generator=dev_gen, device=device,
+                      dtype=torch.bfloat16)
+          for _ in range(layers) for rows, K in ((Q, c.d_model),
+                                                 (T, c.ffn_dim))]
+
+    def amax_round(x):
+        xf = x.float()
+        return torch.round(xf * (127.0 / xf.abs().amax(-1, keepdim=True)))
+
+    step = {key: min(event_ms(lambda: [f(x) for x in xs], 1)
+                     for _ in range(3))
+            for key, f in (("loop_ms", es.quantize_rows),
+                           ("plain_ms", es.quantize_rows_plain),
+                           ("library_ms", amax_round))}
+    log(f"[kernels] A-int8's row quantiser, a VI step's {len(xs)} calls "
+        f"(out's and ffn2's rows of {layers} layers at {B_SLOTS} slots, "
+        f"from HBM): the kernel {step['loop_ms']:.3f} ms, plain "
+        f"{step['plain_ms']:.3f} ms, torch amax + round "
+        f"{step['library_ms']:.3f} ms")
+    del xs
+    torch.cuda.empty_cache()
+    return step
 
 
 def phase_int8(gen, device):
@@ -1342,31 +1502,62 @@ def phase_int8(gen, device):
     return out
 
 
-def check_append(B, max_t, U, V, gen, device, label):
-    """Kernel B against its plain version (exact) at one serving shape,
-    with its device time beside the plain version's and index_put_'s.
-    Returns the kernel's line entry."""
+def append_traffic(B, max_t, U, V, gen, device):
+    """Kernel B's serving traffic at one shape: the buffer [B, max_t, V]
+    f16 (drawn on the card, up to 1 GB of it), the rows [B, U, V] f32, the
+    positions as the ticks clip them (whole segments, the last one at
+    max_t - max_t % U - U) and 80% of the slots decoding, from ``gen``.
+    Returns (buf, rows, pos, decode)."""
     import torch
-    from asr_streaming_tpu_torch.ops import emission_append as ea
-    # the buffer's old content is drawn on the card (up to 1 GB of it)
     dev_gen = torch.Generator(device=device).manual_seed(gen.initial_seed())
-    buf0 = torch.randn((B, max_t, V), generator=dev_gen, device=device,
-                       dtype=torch.float16)
+    buf = torch.randn((B, max_t, V), generator=dev_gen, device=device,
+                      dtype=torch.float16)
     rows = torch.randn((B, U, V), generator=gen).to(device)
-    # positions as the ticks clip them: whole segments, the last one at
-    # max_t - max_t % U - U
     pos = (torch.randint(0, max_t // U, (B,), generator=gen) * U).to(
         device=device, dtype=torch.int32)
     decode = (torch.rand(B, generator=gen) < 0.8).to(device)
-    got = ea.emission_append(buf0.clone(), rows, pos, decode)
-    want = ea.emission_append_plain(buf0.clone(), rows, pos, decode)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        fail(f"{label}: kernel differs from the plain version")
-    del got, want
+    return buf, rows, pos, decode
+
+
+def append_times(buf, rows, pos, decode):
+    """Kernel B's device time per launch on ``append_traffic``'s tensors
+    (100 launches profiled) and its bytes bound: each decoding slot's U
+    rows read as f32 and written as f16, every slot's pos and decode flag
+    read once.  Returns (ms, bound ms)."""
+    from asr_streaming_tpu_torch.ops import emission_append as ea
+    B, U, V = rows.shape
+    ms = device_times(lambda: ea.emission_append(buf, rows, pos, decode),
+                      100, need="emission_append")[0]
+    nbytes = int(decode.sum()) * U * V * (4 + 2) + B * (4 + 1)
+    return ms, nbytes / PEAK_BYTES * 1e3
+
+
+def check_append(B, max_t, U, V, gen, device, label):
+    """Kernel B against its plain version (exact) at one serving shape,
+    at the positions the ticks give and at any position (pos not a
+    multiple of U: the runs start off every 16-byte boundary where V is
+    odd), at both ends and out of range (no write), with its device time
+    beside the plain version's, index_put_'s and its bytes bound, and the
+    kernel's time with no slot decoding (every block reads its flags and
+    stops: the launch's floor).  Returns the kernel's line entry."""
+    import torch
+    from asr_streaming_tpu_torch.ops import emission_append as ea
+    buf0, rows, pos, decode = append_traffic(B, max_t, U, V, gen, device)
+    anywhere = torch.randint(0, max_t - U + 1, (B,), generator=gen)
+    anywhere[:4] = torch.tensor([0, max_t - U, -1, max_t - U + 1])
+    anywhere = anywhere.to(device=device, dtype=torch.int32)
+    for where, p in (("the ticks' positions", pos), ("any position", anywhere)):
+        got = ea.emission_append(buf0.clone(), rows, p, decode)
+        want = ea.emission_append_plain(buf0.clone(), rows, p, decode)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"{label}: kernel differs from the plain version at {where}")
+        del got, want
     buf = buf0
-    ms_b = device_times(lambda: ea.emission_append(buf, rows, pos, decode),
-                        100, need="emission_append")[0]
+    ms_b, bound = append_times(buf, rows, pos, decode)
+    idle = torch.zeros_like(decode)
+    floor_b = device_times(lambda: ea.emission_append(buf, rows, pos, idle),
+                           100, need="emission_append")[0]
     plain_b = device_times(lambda: ea.emission_append_plain(buf, rows, pos,
                                                             decode), 20)[0]
     dec_b = decode.nonzero()[:, 0]
@@ -1381,12 +1572,11 @@ def check_append(B, max_t, U, V, gen, device, label):
 
     lib_b = device_times(library, 100)[0]
     nd = int(dec_b.numel())
-    bytes_b = nd * U * V * (4 + 2) + B * (4 + 1)
-    bound = bytes_b / PEAK_BYTES * 1e3
-    log(f"[kernels] {label}: exact at buf [{B}, {max_t}, {V}], rows U={U}; "
-        f"{ms_b * 1e3:.1f} us (plain {plain_b * 1e3:.1f} us, index_put "
-        f"{lib_b * 1e3:.1f} us, bound {bound * 1e3:.1f} us), {nd} of {B} "
-        f"slots decode")
+    log(f"[kernels] {label}: exact at buf [{B}, {max_t}, {V}], rows U={U}, "
+        f"and at any position; {ms_b * 1e3:.2f} us (plain "
+        f"{plain_b * 1e3:.1f} us, index_put {lib_b * 1e3:.1f} us, bound "
+        f"{bound * 1e3:.2f} us; no slot decoding {floor_b * 1e3:.2f} us), "
+        f"{nd} of {B} slots decode")
     del buf0, buf
     torch.cuda.empty_cache()
     return {"name": "emission_append", "route": "cuda",
@@ -1394,7 +1584,7 @@ def check_append(B, max_t, U, V, gen, device, label):
             "replaces": "asr_streaming_tpu/ops/pallas_append.py:109",
             "launches": 0, "max_abs_err": 0.0, "ms": ms_b,
             "plain_ms": plain_b, "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": lib_b}
+            "library_ms": lib_b, "floor_ms": floor_b}
 
 
 def phase_kernels(gen, device):
@@ -1514,7 +1704,7 @@ def phase_kernels(gen, device):
     profile_top(kernel_a, "A emformer_stack int8, one VI step at 512 slots")
     parts_q = stack_parts(kernel_a, "A-int8, one VI step", geo,
                           need=A_INT8_KERNELS, reset=reset, advance=advance,
-                          f32_copies=True)
+                          quant="int8", F=Fd)
     # the yardstick of the int8 GEMMs: the step's 100 products on
     # torch._int_mm, timed together (no single call computes the step)
     parts_q["gemm_int8"]["library_ms"] = int_mm_step(params, vi, B, gen,
@@ -4880,8 +5070,11 @@ def phase_dist(seed, device, card):
 def kernel_a_times():
     """Kernel A's times on the card for the package first on sys.path:
     one f32 step at 512 slots (the tiled f32 kernel), the bf16 VI and EN
-    steps (``stack_digest``, with their products' share), one f32 step at
-    B=1 and ``ASRModel.emissions`` on 10 s of audio.  Logs one
+    steps (``stack_digest``, with their products' share), the A-int8 and
+    A-int8_ffn VI steps (``stack_digest`` with ``quant``: their digests,
+    and by part the row quantiser, the int8 GEMMs, the row kernels and the
+    attention, with their launches from the library's counters), one f32
+    step at B=1 and ``ASRModel.emissions`` on 10 s of audio.  Logs one
     ``[compare]`` line.  To compare two commits, call it from a small
     driver with either checkout's package first on sys.path (parent,
     change, change, parent, a process each)."""
@@ -4918,11 +5111,9 @@ def kernel_a_times():
                             compute_dtype=torch.bfloat16), B_SLOTS, 0, dev,
         "A en bf16 L=20", parts=True)
     vi = EmformerConfig(compute_dtype=torch.bfloat16)
-    int8_parts = stack_parts(step(vi, B_SLOTS, 0, "int8"), "A-int8 vi",
-                             (B_SLOTS, vi.num_layers, vi.d_model,
-                              vi.segment_length, vi.right_context_length,
-                              vi.max_memory_size, vi.left_context_length),
-                             need=A_INT8_KERNELS, f32_copies=True)
+    int8 = {q: stack_digest(vi, B_SLOTS, 0, dev, f"A-{q} vi bf16 L=20",
+                            parts=True, quant=q)
+            for q in ("int8", "int8_ffn")}
     torch.cuda.empty_cache()
     emf = ASRConfig.vietnamese().encoder.emformer
     b1 = step(emf, 1, 2)
@@ -4946,17 +5137,72 @@ def kernel_a_times():
     def rows(p):
         return f"row part {p['rows']['ms']:.3f} in {p['rows']['launches']}"
 
+    def quantised(q):
+        digest_q, ms_q, p = int8[q]
+        return (f"A-{q} vi {ms_q:.3f} ms device, sha256 {digest_q[:16]}, "
+                f"quantiser {p['quantise']['ms']:.3f} in "
+                f"{p['quantise']['launches']} (bound "
+                f"{p['quantise']['bound_ms']:.3f}), int8 products "
+                f"{p['gemm_int8']['ms']:.3f} in {p['gemm_int8']['launches']}, "
+                f"bf16 products {p['gemm']['ms']:.3f}, {rows(p)} (bound "
+                f"{p['rows']['bound_ms']:.3f}), attention "
+                f"{p['attention']['ms']:.3f}")
+
     log(f"[compare] {pkg}: A vi f32 L=20 at 512 slots {ms_512:.3f} ms device; A vi bf16 "
         f"{ms_bf16:.3f} ms device, its products "
         f"{vi_parts['gemm']['ms']:.3f}, {rows(vi_parts)}, sha256 "
         f"{digest[:16]}; A en bf16 "
         f"{ms_en:.3f} ms device, its products {en_parts['gemm']['ms']:.3f},"
-        f" {rows(en_parts)}, sha256 {en_digest[:16]}; A-int8 vi's int8 "
-        f"products {int8_parts['gemm_int8']['ms']:.3f} ms device, "
-        f"{rows(int8_parts)}; A f32 B=1 "
+        f" {rows(en_parts)}, sha256 {en_digest[:16]}; {quantised('int8')}; "
+        f"{quantised('int8_ffn')}; A f32 B=1 "
         f"{dev_b1:.3f} ms device, {rows(b1_parts)}; "
         f"ASRModel {sorted(runs)[2] * 100:.3f} ms per second of audio "
         f"(median of 5)")
+
+
+def kernel_b_times():
+    """Kernel B's device time on the card for the package first on
+    sys.path, at the VI and EN serving shapes (512 slots, MAX_T 1024,
+    U=16 V=803 and U=4 V=1024, the ticks' positions, 80% of the slots
+    decoding, ``append_traffic`` from seed 7), beside its bytes bound
+    (``append_times``).  Logs a ``[kernels] B`` line each."""
+    import torch
+    dev = torch.device("cuda", 0)
+    for U, V in ((16, 803), (4, 1024)):
+        buf, rows, pos, decode = append_traffic(
+            B_SLOTS, 1024, U, V, torch.Generator().manual_seed(7), dev)
+        ms, bound = append_times(buf, rows, pos, decode)
+        log(f"[kernels] B U={U} V={V}: {ms * 1e3:.2f} us, bound "
+            f"{bound * 1e3:.2f} us")
+        del buf
+        torch.cuda.empty_cache()
+
+
+def compare(roots) -> None:
+    """``kernel_a_times`` and ``kernel_b_times`` for
+    the package of each checkout root in turn (a directory that holds
+    ``asr_streaming_tpu_torch/``, e.g. an unpacked ``git archive`` of a
+    parent), a process each with that package first on sys.path and the
+    functions of this script: give them as parent, change, change,
+    parent to compare two commits in one call.  Fails if a run fails."""
+    here = os.path.join(HERE, "chip_smoke.py")
+    for root in roots:
+        root = os.path.abspath(root)
+        code = (f"import importlib.util, sys\nsys.path.insert(0, {root!r})\n"
+                f"spec = importlib.util.spec_from_file_location('cs', {here!r})"
+                "\ncs = importlib.util.module_from_spec(spec)\n"
+                "spec.loader.exec_module(cs)\n"
+                "from asr_streaming_tpu_torch.ops import _cuda\n_cuda.build()\n"
+                "cs.kernel_a_times()\ncs.kernel_b_times()\n")
+        r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                           text=True, cwd=root)
+        log(f"[compare] == {root} rc={r.returncode}")
+        for line in (r.stdout + r.stderr).splitlines():
+            if line.startswith(("[compare]", "[profile]", "[kernels]")) or \
+                    r.returncode:
+                log(line)
+        if r.returncode:
+            fail(f"the comparison run of {root} failed")
 
 
 def main() -> None:
@@ -4975,6 +5221,11 @@ def main() -> None:
                          "and tensor-parallel training phase alone (a "
                          "partial run: the result line says so and the exit "
                          "code is 4)")
+    ap.add_argument("--compare", nargs="+", metavar="ROOT",
+                    help="time kernel A's steps (kernel_a_times) and B "
+                         "(kernel_b_times) for the package under each "
+                         "checkout root, a process each (a partial run, "
+                         "exit code 4)")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "asr_streaming_tpu_torch")):
         fail("asr_streaming_tpu_torch/ is not beside this script")
@@ -4983,6 +5234,9 @@ def main() -> None:
 
     t_start = time.perf_counter()
     card = phase_device()
+    if args.compare:
+        compare(args.compare)
+        sys.exit(4)
     device = torch.device("cuda", 0)
     import asr_streaming_tpu_torch  # noqa: F401  (sets the TF32 switches)
     from asr_streaming_tpu_torch.ops import _cuda
@@ -5034,6 +5288,7 @@ def main() -> None:
                 k["gemm_f32"] = gemm_f32
             if k["name"] == "emformer_stack_int8":
                 k["int8"] = int8
+                k["parts"]["quantise"].update(quantiser_step(gen, device))
 
     if vi:
         params, cfg = path(phase_serving, gen, device)

@@ -12,6 +12,13 @@ plain functions, and the chain is held against ``emformer_stack_plain``
 (exact in f32 and bf16, every rolled state row equal) and against the
 JAX package's ``fused_emformer_stack`` in interpret mode at
 tests/test_pallas_emformer.py's tolerances (2e-5 in f32, 3e-2 in bf16).
+In W8A8 mode the row functions hand back the q, kv and ffn1 products'
+int8 rows and scales, as the kernels write them; the chain built from
+those and the plain int8 product is held against the stack's plain
+version exactly, and against the JAX package's quantised stack at the
+bf16 tolerance (3e-2: an int8 value flips wherever the frameworks' f32
+LN rows differ in the last bit at a rounding boundary;
+tests/test_torch_w8a8.py).
 Inputs come from a numpy seed; the geometries are ``ASRConfig.tiny``'s
 Emformer, ``RNNTConfig.tiny``'s (no memory) and one with Lc < U (no
 left-context row kept).
@@ -93,49 +100,66 @@ def _torch_inputs(arrays, reset, advance, length, cdt):
 
 
 def _chain(params, x, mem, lc_k, lc_v, length, reset, advance, *, U, R, M,
-           Lc, H, use_mem, tanh_on_mem, neg_inf, activation, cdt):
+           Lc, H, use_mem, tanh_on_mem, neg_inf, activation, cdt,
+           quant="none"):
     """One step of L layers in the CUDA chain's order, on the row kernels'
     plain versions: rows_first; per layer the q and kv products, the
     attention, the out product, rows_residual (with the left-context
     roll), ffn1, ffn2; rows_boundary between layers, rows_last after the
-    last.  Returns (y, new_mem, new_lc_k, new_lc_v) as the stack does."""
+    last.  A W8A8 product takes the int8 rows its row function handed
+    back (q, kv, ffn1) or quantises its rows (out, ffn2), then runs the
+    plain int8 product.  Returns (y, new_mem, new_lc_k, new_lc_v) as the
+    stack does."""
     L, Bs, D = params["w_q"].shape[0], x.shape[0], x.shape[2]
     T = U + R
     Q, NKV = T + int(use_mem), M + T
-    product = es.gemm_bf16_plain if cdt == torch.bfloat16 else \
+    plain = es.gemm_bf16_plain if cdt == torch.bfloat16 else \
         es.gemm_f32_plain
+    names = es._kernel_quant_names(quant)
+    qall = es.quantized_weights(params, names)
+
+    def product(name, rows, q8, w, l, activation=None):
+        bias = w[name.replace("w_", "b_").replace("_w", "_b")]
+        if name not in names:
+            return plain(rows.reshape(-1, rows.shape[-1]), w[name], bias,
+                         activation)
+        xq, s = q8[name] if name in q8 else es.quantize_rows(rows)
+        y = es.qdot_rows(xq.reshape(-1, xq.shape[-1]), s.reshape(-1),
+                         qall[name][0][l], qall[name][1][l]).to(cdt) \
+            + bias.to(cdt)
+        return es._act(activation)(y) if activation else y
+
     reset3 = reset.view(Bs, 1, 1)
-    hin, q_in, kv_in, _, memrow, mem0 = es.rows_first(
+    hin, q_in, kv_in, q8, memrow, mem0 = es.rows_first(
         x, mem[0], reset, advance, params["ln_in_scale"][0],
-        params["ln_in_bias"][0], U=U, R=R, use_mem=use_mem, cdt=cdt)
+        params["ln_in_bias"][0], U=U, R=R, use_mem=use_mem, cdt=cdt,
+        quant=quant)
     mems, lcks, lcvs = [mem0], [], []
     for l in range(L):
         w = {k: v[l] for k, v in params.items()}
-        q = product(q_in.reshape(Bs * Q, D), w["w_q"], w["b_q"])
-        kv = product(kv_in.reshape(Bs * NKV, D), w["w_kv"], w["b_kv"])
-        kv = kv.reshape(Bs, NKV, 2 * D)
+        q = product("w_q", q_in, q8, w, l)
+        kv = product("w_kv", kv_in, q8, w, l).reshape(Bs, NKV, 2 * D)
         lc0 = [torch.where(reset3, torch.zeros_like(t[l]), t[l]).to(cdt)
                for t in (lc_k, lc_v)]
         attn = es._attention_plain(q.reshape(Bs, Q, D), kv, *lc0, length,
                                    U=U, R=R, M=M, Lc=Lc, H=H,
                                    use_mem=use_mem, neg_inf=neg_inf, cdt=cdt)
-        out = product(attn.reshape(Bs * Q, D), w["w_out"], w["b_out"])
+        out = product("w_out", attn.reshape(Bs * Q, D), {}, w, l)
         out = out.reshape(Bs, Q, D)
-        ff_in, _, memrow, nk, nv = es.rows_residual(
+        ff_in, q8, memrow, nk, nv = es.rows_residual(
             out, hin, kv, lc_k[l], lc_v[l], reset, advance,
             w["ff_ln_scale"], w["ff_ln_bias"], U=U, R=R, M=M, Lc=Lc,
-            use_mem=use_mem, tanh_on_mem=tanh_on_mem)
+            use_mem=use_mem, tanh_on_mem=tanh_on_mem, quant=quant)
         lcks.append(nk)
         lcvs.append(nv)
-        h1 = product(ff_in.reshape(Bs * T, D), w["ff_w1"], w["ff_b1"],
-                     activation)
-        h2 = product(h1, w["ff_w2"], w["ff_b2"]).reshape(Bs, T, D)
+        h1 = product("ff_w1", ff_in, q8, w, l, activation)
+        h2 = product("ff_w2", h1, {}, w, l).reshape(Bs, T, D)
         if l + 1 < L:
-            hin, q_in, kv_in, _, m = es.rows_boundary(
+            hin, q_in, kv_in, q8, m = es.rows_boundary(
                 out, hin, h2, mem[l + 1], memrow, reset, advance,
                 w["ln_out_scale"], w["ln_out_bias"],
                 params["ln_in_scale"][l + 1], params["ln_in_bias"][l + 1],
-                U=U, R=R, use_mem=use_mem)
+                U=U, R=R, use_mem=use_mem, quant=quant)
             mems.append(m)
         else:
             hin, y = es.rows_last(out, hin, h2, w["ln_out_scale"],
@@ -155,6 +179,99 @@ def test_row_chain_equals_stack_plain(geo, dtype, masks):
     for name, g, w in zip(("y", "mem", "lc_k", "lc_v"), got, want):
         assert g.dtype == w.dtype and g.shape == w.shape, name
         assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("quant", ["int8", "int8_ffn"])
+@pytest.mark.parametrize("masks", ["mix", "all_reset", "none_advance"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("geo", list(GEOMETRIES))
+def test_w8a8_row_chain_equals_stack_plain(geo, dtype, masks, quant):
+    """The row functions' int8 rows and scales (q, kv, ffn1) with the plain
+    int8 product give the quantised stack's plain version bit for bit."""
+    params, arrays, reset, advance, length, kw = _case(GEOMETRIES[geo], dtype,
+                                                       masks, seed=11)
+    args = _torch_inputs(arrays, reset, advance, length, kw["cdt"])
+    got = _chain(params, *args, **kw, quant=quant)
+    want = es.emformer_stack_plain(params, *args, **kw, quant=quant)
+    for name, g, w in zip(("y", "mem", "lc_k", "lc_v"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("kind", ["first", "residual", "boundary"])
+def test_w8a8_rows_stand_in_for_the_compute_type_rows(kind):
+    """In W8A8 a row function makes no compute-type rows for a quantised
+    product (None) and hands back its int8 rows [B, rows, D] and scales
+    [B, rows]: ``quantize_rows_plain`` of the rows it makes unquantised
+    (q's and ffn1's f32 rows, from the same call in f32 on the widened
+    inputs; kv's compute-type rows)."""
+    params, arrays, reset, advance, length, kw = _case(
+        GEOMETRIES["asr_tiny"], "bf16", "mix", seed=4)
+    x, mem, lc_k, lc_v, _, reset, advance = _torch_inputs(
+        arrays, reset, advance, length, torch.bfloat16)
+    U, R, M, Lc = kw["U"], kw["R"], kw["M"], kw["Lc"]
+    Bs, T, D = x.shape
+    ln = (params["ln_in_scale"][0], params["ln_in_bias"][0])
+    g = torch.Generator().manual_seed(4)
+    out = torch.randn((Bs, T + 1, D), generator=g).to(torch.bfloat16)
+    h2 = torch.randn((Bs, T, D), generator=g).to(torch.bfloat16)
+    kv = torch.randn((Bs, M + T, 2 * D), generator=g).to(torch.bfloat16)
+    hin, memrow = torch.randn((Bs, T, D), generator=g), \
+        torch.randn((Bs, D), generator=g)
+
+    def call(quant, wide=False):
+        f = (lambda t: t.float()) if wide else (lambda t: t)
+        if kind == "first":
+            return es.rows_first(x, f(mem[0]), reset, advance, *ln, U=U, R=R,
+                                 use_mem=True, quant=quant,
+                                 cdt=torch.float32 if wide else torch.bfloat16)
+        if kind == "residual":
+            return es.rows_residual(f(out), hin, f(kv), f(lc_k[0]),
+                                    f(lc_v[0]), reset, advance, *ln, U=U,
+                                    R=R, M=M, Lc=Lc, use_mem=True,
+                                    tanh_on_mem=True, quant=quant)
+        return es.rows_boundary(f(out), hin, f(h2), f(mem[0]), memrow, reset,
+                                advance, *ln, *ln, U=U, R=R, use_mem=True,
+                                quant=quant)
+
+    got, own, wide = call("int8"), call("none"), call("none", wide=True)
+    slot, rows = ((1, {"ff_w1": (0, T)}) if kind == "residual" else
+                  (3, {"w_q": (1, T + 1), "w_kv": (2, M + T)}))
+    assert set(got[slot]) == set(rows)
+    for name, (i, n) in rows.items():
+        assert got[i] is None, name
+        xq, s = got[slot][name]
+        assert xq.dtype == torch.int8 and xq.shape == (Bs, n, D), name
+        assert s.dtype == torch.float32 and s.shape == (Bs, n), name
+        want = es.quantize_rows_plain((own if name == "w_kv" else wide)[i])
+        assert torch.equal(xq, want[0]) and torch.equal(s, want[1]), name
+
+
+@pytest.mark.parametrize("quant", ["int8", "int8_ffn"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("geo", list(GEOMETRIES))
+def test_w8a8_row_chain_matches_jax_stack_interpret(geo, dtype, quant):
+    """The W8A8 chain against the JAX package's quantised stack in
+    interpret mode, at the bf16 tolerance (see the module doc)."""
+    params, arrays, reset, advance, length, kw = _case(GEOMETRIES[geo], dtype,
+                                                       "mix", seed=13)
+    cdt, cdt_name, _ = DTYPES[dtype]
+    got = _chain(params, *_torch_inputs(arrays, reset, advance, length, cdt),
+                 **kw, quant=quant)
+    jkw = {k: v for k, v in kw.items() if k != "cdt"}
+    jdt = jnp.dtype(cdt_name)
+    want = fused_emformer_stack(
+        {k: jnp.asarray(v.numpy()) for k, v in params.items()},
+        jnp.asarray(arrays["x"]),
+        *(jnp.asarray(arrays[k]).astype(jdt) for k in ("mem", "lc_k",
+                                                       "lc_v")),
+        jnp.asarray(length), jnp.asarray(reset), jnp.asarray(advance),
+        cdt_name=cdt_name, tile=2, interpret=True, quant=quant, **jkw)
+    for name, g, w in zip(("y", "mem", "lc_k", "lc_v"), got, want):
+        w = np.asarray(w, np.float32)
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=3e-2,
+                                   atol=3e-2, err_msg=name)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

@@ -71,3 +71,27 @@ def test_f16_fetch_equals_jax_packed_storage_unpacked():
         want = _unpack_f16_rows(np.asarray(jbuf)[b], V)
         got = tbuf[b].float().numpy()
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("V", [803, 1024], ids=["vi_misaligned", "en_aligned"])
+def test_plain_at_both_ends_and_out_of_range(V):
+    """pos at 0 and at MAX_T - U: the same inputs through the JAX package's
+    append, compared on those slots.  A pos outside [0, MAX_T - U] is left
+    undefined by the JAX append (its slice clamps there); the port writes
+    nothing, as its kernel does, so those slots are held to the untouched
+    buffer and not to the JAX output."""
+    B, max_t, U = 6, 40, 5
+    buf, rows, _, _ = _case(B, max_t, U, V, seed=V)
+    pos = np.array([0, max_t - U, 0, max_t - U, -1, max_t - U + 1], np.int32)
+    decode = np.array([True, True, False, True, True, True])
+    got = ea.emission_append(torch.from_numpy(buf.copy()),
+                             torch.from_numpy(rows), torch.from_numpy(pos),
+                             torch.from_numpy(decode)).numpy()
+    want = np.asarray(emission_append_xla(
+        jnp.asarray(buf), jnp.asarray(rows), jnp.asarray(pos),
+        jnp.asarray(decode)))
+    np.testing.assert_array_equal(got[:4], want[:4])
+    np.testing.assert_array_equal(got[1, max_t - U:],
+                                  rows[1].astype(np.float16))
+    # out of range: the buffer unchanged
+    np.testing.assert_array_equal(got[4:], buf[4:])

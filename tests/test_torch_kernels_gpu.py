@@ -94,6 +94,32 @@ def test_emission_append_kernel_matches_plain_exactly(U, V):
     assert torch.equal(got, want)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("U,V", [(16, 803), (4, 1024), (3, 803), (5, 7),
+                                 (1, 1)],
+                         ids=["vi", "en", "misaligned", "narrow", "one"])
+def test_emission_append_kernel_exact_at_any_offset(U, V):
+    """Each slot's run starts at any offset (pos not a multiple of U, odd
+    U * V: the source and the buffer 16-byte aligned at other values, or
+    never), pos at 0 and at MAX_T - U, and out of range (no write)."""
+    dev = _cuda()
+    rng = np.random.default_rng(U * V)
+    B, max_t = 24, 64
+    buf = torch.from_numpy(rng.standard_normal((B, max_t, V)).astype(
+        np.float16)).to(dev)
+    rows = torch.from_numpy(rng.standard_normal((B, U, V)).astype(
+        np.float32)).to(dev)
+    pos = rng.integers(0, max_t - U + 1, B)
+    pos[:4] = [0, max_t - U, -1, max_t - U + 1]
+    pos = torch.from_numpy(pos.astype(np.int32)).to(dev)
+    decode = torch.from_numpy(rng.random(B) < 0.8).to(dev)
+    decode[:4] = True
+    got = ea.emission_append(buf.clone(), rows, pos, decode)
+    want = ea.emission_append_plain(buf.clone(), rows, pos, decode)
+    assert torch.equal(got, want)
+    assert torch.equal(got[2:4], buf[2:4])
+
+
 def _routes(geo, dtype, dev, quant="none"):
     """The stack and layer routes of one config on the card, and the
     params they share."""
@@ -926,7 +952,7 @@ def _row_calls(shape, dev, seed=31):
         "first": (es.rows_first, es.rows_first_plain,
                   (normal(B, T, D), mem, reset, advance, *ln[0], memrow),
                   dict(g, cdt=cdt),
-                  ("hin", "q_in", "kv_in", "q_in32", "memrow", "mem"),
+                  ("hin", "q_in", "kv_in", "q8", "memrow", "mem"),
                   ("hin", "memrow", "mem")),
         "residual": (es.rows_residual, es.rows_residual_plain,
                      (out, hin, normal(B, M + T, 2 * D, dtype=cdt),
@@ -934,12 +960,12 @@ def _row_calls(shape, dev, seed=31):
                       reset, advance, *ln[1]),
                      dict(U=U, R=R, M=M, Lc=Lc, use_mem=use_mem,
                           tanh_on_mem=True),
-                     ("ff_in", "ff_in32", "memrow", "lc_k", "lc_v"),
+                     ("ff_in", "q8", "memrow", "lc_k", "lc_v"),
                      ("lc_k", "lc_v")),
         "boundary": (es.rows_boundary, es.rows_boundary_plain,
                      (out, hin, h2, mem, memrow, reset, advance, *ln[2],
                       *ln[0]), g,
-                     ("hin", "q_in", "kv_in", "q_in32", "mem"), ("mem",)),
+                     ("hin", "q_in", "kv_in", "q8", "mem"), ("mem",)),
         "last": (es.rows_last, es.rows_last_plain,
                  (out, hin, h2, *ln[2]), dict(U=U, R=R), ("hin", "y"), ()),
     }, M
@@ -952,20 +978,19 @@ def test_row_kernel_matches_plain(shape, kind):
     """The roll's rows (the rolled state, kv_in's memory rows) and the
     chunk's copy bit for bit; LN outputs, the summary and the memory row
     within f32 rounding (f32 1e-4; the compute type one of its ulps, rtol
-    2^-7), with the W8A8 f32 copies; the inputs are left as they were."""
+    2^-7); the inputs are left as they were."""
     dev = _cuda()
     calls, M = _row_calls(ROW_SHAPES[shape], dev)
     kernel, plain, args, kw, names, exact = calls[kind]
-    copies = {} if kind == "last" else {"f32_copy": True}
     before = [a.clone() for a in args if isinstance(a, torch.Tensor)]
-    got = kernel(*args, **kw, **copies)
+    got = kernel(*args, **kw)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(
         [a for a in args if isinstance(a, torch.Tensor)], before))
-    want = plain(*args, **kw, **copies)
+    want = plain(*args, **kw)
     for name, g, w in zip(names, got, want):
-        if w is None:
-            assert g is None, name
+        if w is None or name == "q8":
+            assert g == w, name
             continue
         assert g.shape == w.shape and g.dtype == w.dtype, name
         if name in exact:
@@ -976,6 +1001,97 @@ def test_row_kernel_matches_plain(shape, kind):
         rtol = 1e-4 if g.dtype == torch.float32 else 2.0 ** -7
         torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=1e-4,
                                    msg=name)
+
+
+def _widened(args, kw):
+    """The same row kernel call in f32: floating inputs widened, so that
+    its f32 rows hold the values the compute-type call rounds (its LN
+    reads the inputs as f32 either way)."""
+    wide = [a.float() if isinstance(a, torch.Tensor) and a.is_floating_point()
+            else a for a in args]
+    return wide, dict(kw, cdt=torch.float32) if "cdt" in kw else kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["first", "residual", "boundary"])
+@pytest.mark.parametrize("shape", list(ROW_SHAPES))
+def test_row_kernel_int8_rows_are_its_rows_quantised(shape, kind):
+    """In W8A8 a row kernel writes q's, kv's and ffn1's int8 rows and
+    scales in place of their compute-type rows: bit for bit
+    ``quantize_rows_plain`` (_qdot's quantisation) of the rows the same
+    kernel makes unquantised (q and ffn1: its f32 rows, from the same call
+    in f32; kv: its compute-type rows), every other output bit for bit the
+    unquantised call's; against the plain version's int8 rows (whose f32
+    LN differs in the last bits) within one step, the scales within the
+    tolerance of the rows they come from (f32 1e-4, the compute type
+    2^-7)."""
+    dev = _cuda()
+    calls, _ = _row_calls(ROW_SHAPES[shape], dev)
+    kernel, plain, args, kw, names, _ = calls[kind]
+    got = kernel(*args, **kw, quant="int8")
+    own = kernel(*args, **kw)
+    wide_args, wide_kw = _widened(args, kw)
+    wide = kernel(*wide_args, **wide_kw)
+    torch.cuda.synchronize()
+    want = plain(*args, **kw, quant="int8")
+    slot = names.index("q8")
+    q8, q8_plain = got[slot], want[slot]
+    sources = ({"ff_w1": wide[0]} if kind == "residual"
+               else {"w_q": wide[1], "w_kv": own[2]})
+    assert set(q8) == set(q8_plain) == set(sources)
+    for name, (xq, s) in q8.items():
+        want_q, want_s = es.quantize_rows_plain(sources[name])
+        assert torch.equal(xq, want_q) and torch.equal(s, want_s), name
+        pq, ps = q8_plain[name]
+        assert (xq.int() - pq.int()).abs().max() <= 1, name
+        rtol = 2.0 ** -7 if name == "w_kv" and \
+            own[2].dtype == torch.bfloat16 else 1e-4
+        torch.testing.assert_close(s, ps, rtol=rtol, atol=0, msg=name)
+    for name, g, o in zip(names, got, own):
+        if name in ("q_in", "kv_in", "ff_in"):
+            assert g is None, name
+        elif name != "q8" and o is not None:
+            assert torch.equal(g, o), name
+
+
+# out's and ffn2's rows at the serving shapes (bf16, the compute type),
+# f32 rows, a ragged K (no multiple of 32 chunks), K past a warp's
+# registers (the scalar path), and a row that starts 2 bytes off 16
+QUANT_SHAPES = {
+    "vi_out": (10752, 512, torch.bfloat16, 0),
+    "vi_ffn2": (10240, 2048, torch.bfloat16, 0),
+    "en_out": (2560, 512, torch.bfloat16, 0),
+    "en_ffn2": (2560, 2048, torch.bfloat16, 0),
+    "f32_512": (333, 512, torch.float32, 0),
+    "f32_2048": (77, 2048, torch.float32, 0),
+    "ragged": (300, 208, torch.bfloat16, 0),
+    "wide": (40, 4096, torch.bfloat16, 0),
+    "misaligned": (50, 512, torch.bfloat16, 1),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(QUANT_SHAPES))
+def test_quantize_rows_kernel_equals_plain(name):
+    """The W8A8 row quantiser (``quantize_rows``) gives
+    ``quantize_rows_plain``'s int8 rows and scales (_qdot's, which the CPU
+    tests hold to the JAX package's) bit for bit, with an all-zero row
+    and a row whose amax is negative."""
+    dev = _cuda()
+    M, K, dtype, offset = QUANT_SHAPES[name]
+    rng = np.random.default_rng(M + K)
+    x = torch.from_numpy((rng.standard_normal((M, K)) * 3).astype(
+        np.float32)).to(dtype)
+    x[1] = 0
+    x[2, K // 3] = -50
+    x = torch.cat([torch.zeros(offset, dtype=dtype), x.reshape(-1)]).to(
+        dev)[offset:].view(M, K)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    xq, s = es.quantize_rows(x)
+    torch.cuda.synchronize()
+    want_q, want_s = es.quantize_rows_plain(x)
+    assert torch.equal(xq, want_q) and torch.equal(s, want_s)
+    assert not xq[1].any() and xq[2, K // 3] == -127
 
 
 @pytest.mark.gpu
@@ -1020,12 +1136,15 @@ def test_row_kernel_first_computes_the_memory_row():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name,want", [("vi", "3b1285556ac07a17"),
-                                       ("en", "08d7d419dc924606")])
-def test_emformer_stack_digest_is_unchanged(name, want):
+@pytest.mark.parametrize("name,quant,want", [
+    ("vi", "none", "3b1285556ac07a17"), ("en", "none", "08d7d419dc924606"),
+    ("vi", "int8", "b1f053aeb1741496"), ("vi", "int8_ffn", "80ef570bd39bb1f1")])
+def test_emformer_stack_digest_is_unchanged(name, quant, want):
     """One full-width bf16 step of kernel A (512 slots, 20 layers, seed 0,
     chip_smoke.stack_digest) gives the same bits as the chain whose row
-    kernels ran in four launches a layer (the digests it gave on an H100)."""
+    kernels ran in four launches a layer, and in W8A8 as the chain whose
+    quantiser read every product's rows back from memory (the digests
+    they gave on an H100)."""
     import dataclasses
     import chip_smoke
     from asr_streaming_tpu_torch.models.rnnt import RNNTConfig
@@ -1033,7 +1152,8 @@ def test_emformer_stack_digest_is_unchanged(name, want):
     cfg = (te.EmformerConfig(compute_dtype=torch.bfloat16) if name == "vi"
            else dataclasses.replace(RNNTConfig().emformer,
                                     compute_dtype=torch.bfloat16))
-    digest, _ = chip_smoke.stack_digest(cfg, chip_smoke.B_SLOTS, 0, dev, name)
+    digest, _ = chip_smoke.stack_digest(cfg, chip_smoke.B_SLOTS, 0, dev, name,
+                                        quant=quant)
     assert digest[:16] == want
 
 
@@ -1041,12 +1161,18 @@ def test_emformer_stack_digest_is_unchanged(name, want):
 @pytest.mark.parametrize("geo", [VI, EN], ids=["vi_mem", "en_nomem"])
 @pytest.mark.parametrize("dtype,quant", [(torch.bfloat16, "none"),
                                          (torch.float32, "none"),
-                                         (torch.bfloat16, "int8")],
-                         ids=["bf16", "f32", "int8"])
+                                         (torch.bfloat16, "int8"),
+                                         (torch.bfloat16, "int8_ffn"),
+                                         (torch.float32, "int8")],
+                         ids=["bf16", "f32", "int8", "int8_ffn", "f32_int8"])
 def test_a_step_launches_two_row_kernels_a_layer(geo, dtype, quant):
     """A step of L layers launches 2 L + 1 row kernels: rows_first once,
     rows_residual L times, rows_boundary L - 1 times, rows_last once (the
-    library's counters), and the profile holds no other row kernel."""
+    library's counters), and the profile holds no other row kernel.  Its
+    GEMM launches a layer: the q and kv products in one, then out, ffn1
+    and ffn2 (bf16, or int8 where quantised; f32 runs neither); the row
+    quantiser only for out and ffn2 (W8A8 q, kv and ffn1 rows are
+    quantised in the row kernels)."""
     from torch.profiler import ProfilerActivity, profile
     dev = _cuda()
     cfg = te.EmformerConfig(**geo, compute_dtype=dtype, quant=quant)
@@ -1062,15 +1188,20 @@ def test_a_step_launches_two_row_kernels_a_layer(geo, dtype, quant):
               activation=cfg.activation, cdt=dtype, quant=quant)
     es.emformer_stack(params, x, st.mem, st.lc_k, st.lc_v, st.length, **kw)
     torch.cuda.synchronize()
-    before = es.row_launch_counts()
+    before = es.kernel_launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         es.emformer_stack(params, x, st.mem, st.lc_k, st.lc_v, st.length,
                           **kw)
         torch.cuda.synchronize()
-    counts = {k: n - before[k] for k, n in es.row_launch_counts().items()}
+    counts = {k: n - before[k] for k, n in es.kernel_launch_counts().items()}
     L = cfg.num_layers
+    names = es._kernel_quant_names(quant)
+    int8 = {"none": 0, "int8": 4, "int8_ffn": 2}[quant]
+    bf16 = 4 - int8 if dtype == torch.bfloat16 else 0
     assert counts == {"rows_first": 1, "rows_residual": L,
-                      "rows_boundary": L - 1, "rows_last": 1}
+                      "rows_boundary": L - 1, "rows_last": 1,
+                      "quantize_rows": L * len({"w_out", "ff_w2"} & set(names)),
+                      "gemm_int8": L * int8, "gemm_bf16": L * bf16}
     names = {e.key for e in prof.key_averages()}
     assert not [n for n in names
                 if any(k in n for k in ("state_roll", "ln_in", "out_ln",

@@ -56,6 +56,32 @@ def test_qdot_equals_jax(K):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("K", [64, 208, 2048])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_row_quantiser_equals_jax_qdot(dtype, K):
+    """_qdot(x, I_K, ones) returns xq * s in f32: the port's row quantiser
+    (``quantize_rows_plain``, what the kernels' quantisation is held to)
+    gives the same xq and s, bit for bit, for f32 rows and for bf16 rows
+    read as f32 (as _qdot(x.astype(f32)) reads them), with an all-zero
+    row and rows that hold +-amax."""
+    rng = np.random.default_rng(K + len(dtype))
+    x = (rng.standard_normal((23, K)) * 3).astype(np.float32)
+    x[2] = 0.0                          # the 1e-8 floor
+    x[5, 7], x[5, 11] = 9.5, -9.5       # both signs of the amax
+    x[6, 3] = -2 * np.abs(x[6]).max()   # a negative amax
+    xt = torch.from_numpy(x)
+    if dtype == "bf16":
+        xt = xt.to(torch.bfloat16)
+    xq, s = es.quantize_rows(xt)
+    assert xq.dtype == torch.int8 and s.dtype == torch.float32
+    assert xq.shape == (23, K) and s.shape == (23,)
+    want = np.asarray(jpe._qdot(jnp.asarray(xt.float().numpy()),
+                                jnp.eye(K, dtype=jnp.int8),
+                                jnp.ones((1, K), jnp.float32)))
+    np.testing.assert_array_equal((xq.float() * s[:, None]).numpy(), want)
+    assert not xq[2].any()
+
+
 def test_quant_names_match_jax():
     jname = {"wq": "w_q", "wkv": "w_kv", "wout": "w_out", "ffw1": "ff_w1",
              "ffw2": "ff_w2"}
