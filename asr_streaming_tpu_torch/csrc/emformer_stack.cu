@@ -1110,60 +1110,62 @@ quantize_rows_kernel(const Tin* __restrict__ x, int8_t* __restrict__ xq,
   }
 }
 
-// Masked attention on the core shared with kernel D
-// (emformer_attention_core.cuh), with the stack kernel's rounding points,
-// one block per (slot, head) item.  Keys/values are
-// [mem, rc, left context, new utterance], read from the interleaved kv
-// [B, M+R+U, 2D] and from lc_k/lc_v, the left context zero where `reset`
-// is set; validity from the reset-effective length: m_m = min(M, len // U)
-// memory rows, m_kv = min(Lc, len) left-context rows (filled from the
-// end); the summary query row never sees memory.
+// Masked attention (A's attention launch, 20 a VI step) on the core shared
+// with kernel D (emformer_attention_core.cuh), with the stack kernel's
+// rounding points.  Replaces the attention of ops/pallas_emformer.py:162-185
+// (_layer_math).  Keys/values are [mem, rc, left context, new utterance],
+// read from the interleaved kv [B, M+R+U, 2, D] (the memory and right-
+// context rows, and the utterance rows, each one TMA box of k and v
+// together) and from lc_k/lc_v [B, Lc, D] (a box each; none where `reset`
+// is set, whose rows read as zeros); validity from the reset-effective
+// length: m_m = min(M, len // U) memory rows, m_kv = min(Lc, len) left-
+// context rows (filled from the end); the summary query row never sees
+// memory.  What bounds it on this card: bytes at 512 slots (q, the kv
+// rows, the left context and the output once: 81 MB a VI launch, 24 us at
+// 3.35 TB/s), latency at B = 1; in practice the warps' instruction
+// latency.  The design: the core's persistent blocks of up to 16 warps,
+// each group of warps a unit on a ring of TMA stages; on the tensor cores
+// in bf16 a warp a 16-row tile of one head (VI: 4 heads x 2 tiles a unit,
+// 2 units a block; EN: 4 x 1, 4 a block), its output tile one TMA store;
+// in f32 the FMA path, whose rows spread over more blocks at small B (the
+// offline API's B = 1).
+template <typename T, int KN, int RW, int DH, bool kMma>
+__global__ void __launch_bounds__(attn_core::kMaxWarps * 32, 1)
+attention_kernel(const __grid_constant__ attn_core::Args a) {
+  attn_core::run<T, KN, RW, DH, true, kMma>(a);
+}
+
+// the kernel of a plan: bf16 on the tensor cores by 16-key tiles, f32 on
+// the FMA path by 32-key chunks and rows a warp (1 at small B, else up to
+// 6); the serving head width (64) fixed at compile time
+template <typename T, int DH>
+auto attention_kernel_dh(const attn_core::Geo& g) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    switch ((g.K + 15) / 16) {
+      case 1: return attention_kernel<T, 1, 1, DH, true>;
+      case 2: return attention_kernel<T, 2, 1, DH, true>;
+      case 3: return attention_kernel<T, 3, 1, DH, true>;
+      case 4: return attention_kernel<T, 4, 1, DH, true>;
+      case 5: return attention_kernel<T, 5, 1, DH, true>;
+      case 6: return attention_kernel<T, 6, 1, DH, true>;
+      case 7: return attention_kernel<T, 7, 1, DH, true>;
+    }
+    return attention_kernel<T, 8, 1, DH, true>;
+  } else {
+    constexpr int R = attn_core::kMaxRowsPerWarp;
+    const bool one = g.rpw == 1;
+    switch (attn_core::key_chunks(g.K)) {
+      case 1: return one ? attention_kernel<T, 1, 1, DH, false> : attention_kernel<T, 1, R, DH, false>;
+      case 2: return one ? attention_kernel<T, 2, 1, DH, false> : attention_kernel<T, 2, R, DH, false>;
+      case 3: return one ? attention_kernel<T, 3, 1, DH, false> : attention_kernel<T, 3, R, DH, false>;
+    }
+    return one ? attention_kernel<T, 4, 1, DH, false> : attention_kernel<T, 4, R, DH, false>;
+  }
+}
+
 template <typename T>
-struct AttnItems {
-  const T* q; const T* kv; const T* lc_k; const T* lc_v;
-  const int32_t* length; const uint8_t* reset;
-  T* out;
-  int Q, stride, H, Dh, U, R, M, Lc;      // stride = D
-
-  __device__ const T* any() const { return kv; }
-  __device__ const T* qrow(int i) const {
-    return q + (size_t)(i / H) * Q * stride + (i % H) * Dh;
-  }
-  __device__ auto rows(int i) const {
-    const int b = i / H, h = i % H, D = stride, MR = M + R, lc = Lc;
-    const T* kvb = kv + (size_t)b * (MR + U) * 2 * D + h * Dh;
-    const bool rs = reset[b] != 0;
-    const T* lkb = lc_k + (size_t)b * Lc * D + h * Dh;
-    const T* lvb = lc_v + (size_t)b * Lc * D + h * Dh;
-    return [=](int c, const T*& kr, const T*& vr) {
-      if (c < MR || c >= MR + lc) {
-        // kv row c, or MR + (c - MR - Lc) for the new utterance
-        kr = kvb + (size_t)(c < MR ? c : c - lc) * 2 * D;
-        vr = kr + D;
-      } else if (!rs) {
-        kr = lkb + (size_t)(c - MR) * D;
-        vr = lvb + (size_t)(c - MR) * D;
-      }
-    };
-  }
-  __device__ int mm(int i) const { return min(M, length[i / H] / max(U, 1)); }
-  __device__ int mkv(int i) const { return min(Lc, length[i / H]); }
-  __device__ T* outrow(int i) const {
-    return out + (size_t)(i / H) * Q * stride + (i % H) * Dh;
-  }
-};
-
-// kMma: both products on the tensor cores (bf16; attn_core::attend_mma)
-template <typename T, int KJ, bool kMma>
-__global__ void __launch_bounds__(attn_core::kThreads)
-attention_kernel(AttnItems<T> it, int use_mem, float neg_inf) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const attn_core::Layout L =
-      attn_core::make_layout<T>(it.Q, it.M + it.R + it.Lc + it.U, it.Dh, kMma);
-  // q * (1/sqrt(Dh)) is taken in the compute type, as in the Pallas kernel
-  const float scaling = rnd<T>((float)(1.0 / sqrt((double)it.Dh)));
-  attn_core::run<T, T, KJ, true, kMma>(L, smem, it, blockIdx.x, scaling, it.M, it.R, it.Lc,
-                                       use_mem, neg_inf);
+auto attention_kernel_for(const attn_core::Geo& g) {
+  return g.Dh == 64 ? attention_kernel_dh<T, 64>(g) : attention_kernel_dh<T, 0>(g);
 }
 
 // ------------------------------------------------- per-layer row kernels
@@ -1619,19 +1621,25 @@ struct EmformerStackArgs {
 namespace {
 
 constexpr int kErrStructSize = -1;
-constexpr int kErrShape = -2;
-constexpr int kErrDriver = -3;
-constexpr int kErrTensorMap = -4;
+using attn_core::kErrDriver;
+using attn_core::kErrShape;
+using attn_core::kErrTensorMap;
 constexpr size_t kDefaultSmem = 48 * 1024;
 
 enum QuantBits { kQWq = 1, kQWkv = 2, kQWout = 4, kQW1 = 8, kQW2 = 16 };
 
 // the kernels whose launches the library counts on the host as each is
 // queued (asr_launch_counts): a profile may drop kernel records, these do
-// not.  The row kernels by RowKind, then the W8A8 quantiser and the two
-// wgmma GEMMs.
+// not.  The row kernels by RowKind, then the W8A8 quantiser, the two
+// wgmma GEMMs and the attention.
 enum RowKind { kRowsFirst = 0, kRowsResidual = 1, kRowsBoundary = 2, kRowsLast = 3 };
-enum Counted { kCountQuantise = 4, kCountGemmInt8 = 5, kCountGemmBf16 = 6, kCounted = 7 };
+enum Counted {
+  kCountQuantise = 4,
+  kCountGemmInt8 = 5,
+  kCountGemmBf16 = 6,
+  kCountAttention = 7,
+  kCounted = 8
+};
 std::atomic<long long> g_launches[kCounted];
 
 #define CHECK_LAUNCH()                          \
@@ -1655,80 +1663,29 @@ int allow_smem(K kernel, size_t bytes) {
 
 // ------------------------------------------------------ bf16 GEMM, host
 
-// cuTensorMapEncodeTiled from the driver, found through the runtime (the
-// library links no libcuda)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  void* fn = nullptr;
-  cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-  cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
-                                                   cudaEnableDefault, &found);
-#else
-  cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
-                                          &found);
-#endif
-  return e == cudaSuccess && found == cudaDriverEntryPointSuccess ? (EncodeTiledFn)fn
-                                                                  : nullptr;
-}
-
-// Tensor maps by (pointer, shape, box): a step uses about ten (the five
-// activation operands and the five stacked weights, whose map covers all
-// layers), so they are encoded once and then found here.
-struct MapEntry {
-  CUtensorMap map;
-  const void* ptr;
-  uint64_t inner, rows, layers;
-  uint32_t box_rows, elem_bytes;
-};
-constexpr int kMapCache = 256;
-std::mutex g_map_mu;
-MapEntry g_maps[kMapCache];
-int g_map_count = 0, g_map_next = 0;
-
 // The map of a bf16 (elem_bytes 2) or int8 (1) tensor [layers, rows,
 // inner] (inner contiguous) read in boxes of 128 bytes x box_rows x 1,
-// 128-byte swizzled, zero past the edges.
+// 128-byte swizzled, zero past the edges (attn_core::encode, whose cache
+// holds a step's maps: the five activation operands and the five stacked
+// weights, whose map covers all layers).
 int tensor_map(CUtensorMap* out, const void* ptr, uint64_t inner, uint64_t rows,
                uint64_t layers, uint32_t box_rows, uint32_t elem_bytes) {
-  std::lock_guard<std::mutex> lock(g_map_mu);
-  for (int i = 0; i < g_map_count; ++i) {
-    const MapEntry& m = g_maps[i];
-    if (m.ptr == ptr && m.inner == inner && m.rows == rows && m.layers == layers &&
-        m.box_rows == box_rows && m.elem_bytes == elem_bytes) {
-      *out = m.map;
-      return 0;
-    }
-  }
-  static EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return kErrDriver;
-  const cuuint64_t dims[3] = {inner, rows, layers};
-  const cuuint64_t strides[2] = {inner * elem_bytes, inner * rows * elem_bytes};
-  const cuuint32_t box[3] = {(cuuint32_t)(gemm90::kBK * 2 / elem_bytes), box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  MapEntry e;
-  if (encode(&e.map,
-             elem_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-             3, const_cast<void*>(ptr), dims,
-             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
-      CUDA_SUCCESS)
-    return kErrTensorMap;
-  e.ptr = ptr;
-  e.inner = inner;
-  e.rows = rows;
-  e.layers = layers;
-  e.box_rows = box_rows;
-  e.elem_bytes = elem_bytes;
-  const int slot = g_map_count < kMapCache ? g_map_count++ : (g_map_next++ % kMapCache);
-  g_maps[slot] = e;
-  *out = e.map;
-  return 0;
+  attn_core::MapKey k;
+  memset(&k, 0, sizeof(k));
+  k.ptr = ptr;
+  k.rank = 3;
+  k.elem = elem_bytes;
+  k.line = gemm90::kBK * 2;
+  k.l2 = 256;
+  k.dims[0] = inner;
+  k.dims[1] = rows;
+  k.dims[2] = layers;
+  k.strides[0] = inner * elem_bytes;
+  k.strides[1] = inner * rows * elem_bytes;
+  k.box[0] = k.line / elem_bytes;
+  k.box[1] = box_rows;
+  k.box[2] = 1;
+  return attn_core::encode(out, k);
 }
 
 // The tile shapes: each consumer warpgroup's tile, WM rows by BN columns
@@ -1756,8 +1713,8 @@ int gemm_setup_one() {
                         (const void*)gemm90::gemm_bf16_wgmma_kernel<WM, BN, ST>})
     if (e == 0) e = (int)cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == 0)
-    e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, gemm90::gemm_bf16_wgmma_kernel<WM, BN, ST>, gemm90::kGemmThreads, smem);
+    blocks = attn_core::resident(gemm90::gemm_bf16_wgmma_kernel<WM, BN, ST>,
+                                 gemm90::kGemmThreads, smem);
   return e == 0 && blocks < 1 ? kErrShape : e;
 }
 
@@ -1794,7 +1751,8 @@ const GemmSetup& gemm_setup() {
   }
   std::call_once(once[dev], [dev] {
     GemmSetup& s = table[dev];
-    s.status = (int)cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount, dev);
+    s.sms = attn_core::sm_count();
+    s.status = s.sms > 0 ? 0 : kErrShape;
     if (s.status == 0) s.status = gemm_setup_one<128, 128, 4>();
     if (s.status == 0) s.status = gemm_setup_one<64, 128, 7>();
     if (s.status == 0) s.status = gemm_act_tables();
@@ -2088,32 +2046,50 @@ int row_kernel(const EmformerStackArgs& a, int kind, int l, int l_in, int init_m
   return launch_rows_n<T, kMaxPerLane>(kind, p, st);
 }
 
-template <typename T, int KJ, bool kMma>
-int launch_attention(const EmformerStackArgs& a, const T* q, const T* kv, const T* lck,
-                     const T* lcv, T* attn, cudaStream_t st) {
-  const int Q = a.R + a.U + a.use_mem, K = a.M + a.R + a.Lc + a.U;
-  const int smem = attn_core::make_layout<T>(Q, K, a.D / a.H, kMma).bytes;
-  auto kernel = attention_kernel<T, KJ, kMma>;
-  CHECK_RC(allow_smem(kernel, smem));
-  const AttnItems<T> it{q, kv, lck, lcv, a.length, a.reset, attn, Q, a.D, a.H, a.D / a.H,
-                        a.U, a.R, a.M, a.Lc};
-  kernel<<<a.B * a.H, attn_core::kThreads, smem, st>>>(it, a.use_mem, a.neg_inf);
-  return (int)cudaGetLastError();
+// The arguments of A's attention launch: its plan (tensor cores in bf16,
+// check_args holds the head width to them; FMA in f32) and the TMA maps of
+// q, the kv rows, this layer's left context and the output
+template <typename T>
+int attention_args(attn_core::Args* x, const EmformerStackArgs& a, const T* q, const T* kv,
+                   const T* lck, const T* lcv, T* attn) {
+  constexpr bool kMma = std::is_same<T, bf16>::value;
+  constexpr int elem = (int)sizeof(T);
+  attn_core::Geo& g = x->g;
+  if (!attn_core::stack_geo(g, kMma, elem, a.B, a.H, a.D, a.U, a.R, a.M, a.Lc, a.use_mem))
+    return kErrShape;
+  const int Q = g.Q, D = a.D, MR = a.M + a.R, NKV = MR + a.U, hpu = g.hpu;
+  CHECK_RC(attn_core::rows_maps(x->q_map, g, q, elem, Q, D, (long)Q * D, g.qb, hpu));
+  if (MR > 0)
+    CHECK_RC(attn_core::rows_maps(x->k_map[0], g, kv, elem, NKV, 2 * D, (long)NKV * 2 * D, MR,
+                                  hpu, D));
+  if (a.Lc > 0) {
+    CHECK_RC(attn_core::rows_maps(x->k_map[1], g, lck, elem, a.Lc, D, (long)a.Lc * D, a.Lc,
+                                  hpu));
+    CHECK_RC(attn_core::rows_maps(x->v_map, g, lcv, elem, a.Lc, D, (long)a.Lc * D, a.Lc, hpu));
+  }
+  CHECK_RC(attn_core::rows_maps(x->k_map[2], g, kv, elem, NKV, 2 * D, (long)NKV * 2 * D, a.U,
+                                hpu, D));
+  if (kMma) CHECK_RC(attn_core::rows_maps(x->out_map, g, attn, elem, Q, D, (long)Q * D, 16, 1));
+  x->out = attn;
+  x->out_bf16 = 0;
+  x->length = a.length;
+  x->reset = a.reset;
+  x->m_m = x->m_kv = nullptr;
+  // q * (1/sqrt(Dh)) is taken in the compute type, as in the Pallas kernel
+  const float scaling = (float)(1.0 / sqrt((double)g.Dh));
+  x->scaling = kMma ? __bfloat162float(__float2bfloat16_rn(scaling)) : scaling;
+  x->neg_inf = a.neg_inf;
+  return 0;
 }
 
-// bf16 runs the tensor-core products (check_args holds the head width to
-// them), f32 the FMA ones
 template <typename T>
 int attention(const EmformerStackArgs& a, const T* q, const T* kv, const T* lck,
               const T* lcv, T* attn, cudaStream_t st) {
-  constexpr bool kMma = std::is_same<T, bf16>::value;
-  switch (attn_core::key_chunks(a.M + a.R + a.Lc + a.U)) {
-    case 1: return launch_attention<T, 1, kMma>(a, q, kv, lck, lcv, attn, st);
-    case 2: return launch_attention<T, 2, kMma>(a, q, kv, lck, lcv, attn, st);
-    case 3: return launch_attention<T, 3, kMma>(a, q, kv, lck, lcv, attn, st);
-    case 4: return launch_attention<T, 4, kMma>(a, q, kv, lck, lcv, attn, st);
-  }
-  return kErrShape;
+  attn_core::Args x;
+  CHECK_RC(attention_args<T>(&x, a, q, kv, lck, lcv, attn));
+  const int rc = attn_core::launch(attention_kernel_for<T>(x.g), x, st);
+  if (rc == 0) ++g_launches[kCountAttention];
+  return rc;
 }
 
 // One layer of the step: the chain of nine kernels (W8A8: the same nine,
@@ -2270,10 +2246,25 @@ extern "C" int asr_emformer_rows(const EmformerStackArgs* a, int kind) {
                        : row_kernel<float>(*a, kind, 0, 0, init_memrow, st);
 }
 
+// What A's attention launch uses at a geometry (dtype 1 bf16, 0 f32):
+// out[0..14] as attn_core::report gives them (its plan, registers a
+// thread, blocks resident an SM); needs the card.
+extern "C" int asr_stack_attention_plan(int B, int H, int D, int U, int R, int M, int Lc,
+                                        int use_mem, int dtype, int* out) {
+  attn_core::Geo g;
+  const bool mma = dtype == 1;
+  if (B <= 0 || H <= 0 || D % H != 0 ||
+      !attn_core::stack_geo(g, mma, mma ? 2 : 4, B, H, D, U, R, M, Lc, use_mem))
+    return kErrShape;
+  return mma ? attn_core::report(attention_kernel_for<bf16>(g), g, out)
+             : attn_core::report(attention_kernel_for<float>(g), g, out);
+}
+
 // The counted kernels' launches since the library was loaded, as queued
 // without a launch error: out[0..3] the row kernels (kRowsFirst ..
 // kRowsLast), out[4] quantize_rows, out[5] and out[6] the int8 and the
-// bf16 wgmma GEMM.  Returns how many it wrote (kCounted).
+// bf16 wgmma GEMM, out[7] the attention.  Returns how many it wrote
+// (kCounted).
 extern "C" int asr_launch_counts(long long* out) {
   for (int k = 0; k < kCounted; ++k) out[k] = g_launches[k].load();
   return kCounted;

@@ -143,6 +143,10 @@ def lib() -> ctypes.CDLL:
         handle.asr_emformer_attention.argtypes = [ptr] * 6 + [i32] * 9 + [
             ctypes.c_float, i32, i32, ptr]
         handle.asr_emformer_attention.restype = i32
+        handle.asr_emformer_attention_plan.argtypes = [i32] * 11 + [ptr]
+        handle.asr_emformer_attention_plan.restype = i32
+        handle.asr_stack_attention_plan.argtypes = [i32] * 9 + [ptr]
+        handle.asr_stack_attention_plan.restype = i32
         handle.asr_gemm_bf16.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
         handle.asr_gemm_bf16.restype = i32
         handle.asr_gemm_bf16_pair.argtypes = [ptr] * 4 + [i32] * 2 + \

@@ -978,7 +978,7 @@ def emformer_stack(params: dict, x: torch.Tensor, mem: torch.Tensor,
 _ROW_KINDS = {"first": 0, "residual": 1, "boundary": 2, "last": 3}
 # the library's launch counters (asr_launch_counts), in its order
 _COUNTED = tuple(f"rows_{k}" for k in _ROW_KINDS) + (
-    "quantize_rows", "gemm_int8", "gemm_bf16")
+    "quantize_rows", "gemm_int8", "gemm_bf16", "attention")
 _RELAUNCH = None      # rows_relaunch's list while it runs a wrapper
 
 
@@ -1131,10 +1131,11 @@ def _launch_rows(kind, dev, cdt, *, B, D, U, R, M=0, Lc=0, tanh_on_mem=False,
 
 def kernel_launch_counts() -> dict:
     """The launches in this process of the row kernels ("rows_first", ...),
-    the W8A8 row quantiser ("quantize_rows") and the int8 and bf16 wgmma
-    GEMMs ("gemm_int8", "gemm_bf16"), counted by the library on the host
-    as each launch is queued, so that a profile that drops kernel records
-    cannot hide one; needs the CUDA library."""
+    the W8A8 row quantiser ("quantize_rows"), the int8 and bf16 wgmma
+    GEMMs ("gemm_int8", "gemm_bf16") and the attention ("attention"),
+    counted by the library on the host as each launch is queued, so that a
+    profile that drops kernel records cannot hide one; needs the CUDA
+    library."""
     counts = (ctypes.c_longlong * len(_COUNTED))()
     n = _cuda.lib().asr_launch_counts(counts)
     if n != len(_COUNTED):

@@ -9,7 +9,9 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: the CUDA kernels from csrc/ with nvcc (sm_90a), with the
-     ptxas register / shared-memory report;
+     ptxas register / shared-memory report, and A's attention and D at
+     the serving shapes: registers a thread, shared memory a block, blocks
+     resident an SM and the persistent core's plan (``[resources]``);
   3. kernels vs their plain PyTorch versions at the serving shapes (512
      slots, chained ticks with reset/advance churn): A (the Emformer
      stack) in f32/bf16 and in its W8A8 modes, B (emission append), C
@@ -19,8 +21,10 @@ Phases (any failure exits non-zero; nothing is caught):
      version's time, the card's bound and a library yardstick where one
      PyTorch call computes the same function, plus a device-time
      breakdown by kernel;
-     A's parts (its bf16 GEMMs, its attention, its row kernels with their
-     launches and bytes bound, the rest) from the profile at VI and EN;
+     A's parts (its bf16 GEMMs, its attention with its launches, bytes
+     bound and one scaled_dot_product_attention call a layer beside it,
+     its row kernels with their launches and bytes bound, the rest) from
+     the profile at VI and EN (and at B=1 in f32, phase 11);
      each of A's row kernels alone (rows_first, rows_residual,
      rows_boundary, rows_last) against its plain version (check_rows: the
      roll's rows bit for bit, LN outputs within f32 rounding; in W8A8 the
@@ -298,7 +302,7 @@ def device_times(fn, iters: int = 1, need=""):
 
 
 def stack_parts(fn, label: str, geo, need=None, itemsize=2, reset=None,
-                advance=None, quant="none", F=2048):
+                advance=None, quant="none", F=2048, H=8):
     """Device time of one call of kernel A by part, from the profile: its
     bf16 or f32 GEMMs, its int8 GEMMs and row quantiser (W8A8 mode, beside
     the quantiser's bytes bound, ``quantise_bytes``), its attention
@@ -312,10 +316,13 @@ def stack_parts(fn, label: str, geo, need=None, itemsize=2, reset=None,
     counters (``es.kernel_launch_counts``), and the run fails unless they
     are ``row_launches(L)``; a row kernel's time is its mean time per
     profiled launch times those launches.  The quantiser's and the int8
-    GEMMs' launches come from those counters too.  Returns {part: {"ms": ms}}, the attention's, the rows' and
-    the quantiser's with their "bound_ms", the rows', the quantiser's and
-    the int8 GEMMs' with their "launches", the rows' with their
-    "duplicate_ms"."""
+    GEMMs' launches come from those counters too, and the attention's (L a
+    step, or the run fails), beside one scaled_dot_product_attention call a
+    layer on the same shapes (``attention_sdpa_ms``, H heads).  Returns
+    {part: {"ms": ms}}, the attention's, the rows' and the quantiser's with
+    their "bound_ms", the attention's, the rows', the quantiser's and the
+    int8 GEMMs' with their "launches", the attention's with its
+    "library_ms", the rows' with their "duplicate_ms"."""
     import torch
     from asr_streaming_tpu_torch.ops import emformer_stack as es
     torch.cuda.synchronize()
@@ -327,6 +334,9 @@ def stack_parts(fn, label: str, geo, need=None, itemsize=2, reset=None,
     if {k: by_kernel[k] for k in ROW_KERNELS} != row_launches(geo[1]):
         fail(f"{label}: row kernel launches {by_kernel}, expected "
              f"{row_launches(geo[1])}")
+    if by_kernel["attention"] != geo[1]:
+        fail(f"{label}: {by_kernel['attention']} attention launches, "
+             f"expected {geo[1]}")
     total, rows = device_times(fn, 3, need=A_KERNELS if need is None else need)
     parts = {"gemm": 0.0, "gemm_int8": 0.0, "quantise": 0.0, "attention": 0.0,
              "rows": 0.0}
@@ -349,6 +359,8 @@ def stack_parts(fn, label: str, geo, need=None, itemsize=2, reset=None,
                 "gemm_int8": by_kernel["gemm_int8"]}
     parts["rest"] = total - sum(parts.values())
     bound = attention_bytes(*geo, itemsize=itemsize) / PEAK_BYTES * 1e3
+    sdpa_call, sdpa_step = attention_sdpa_ms(
+        *geo, H, torch.bfloat16 if itemsize == 2 else torch.float32)
     q_bound = quantise_bytes(*geo, F, itemsize, quant) / PEAK_BYTES * 1e3
     int8 = (f"int8 GEMMs {parts['gemm_int8']:.3f} ms in "
             f"{launches['gemm_int8']} launches, row quantiser "
@@ -358,13 +370,15 @@ def stack_parts(fn, label: str, geo, need=None, itemsize=2, reset=None,
                            quant) / PEAK_BYTES * 1e3
     dup = row_duplicate_bytes(*geo, itemsize, quant) / PEAK_BYTES * 1e3
     log(f"[profile] {label} by part: GEMMs {parts['gemm']:.3f} ms, {int8}"
-        f"attention {parts['attention']:.3f} ms (bytes bound {bound:.3f} "
-        f"ms), row kernels {parts['rows']:.3f} ms in {row_launches_step} "
+        f"attention {parts['attention']:.3f} ms in {by_kernel['attention']} "
+        f"launches (bytes bound {bound:.3f} ms; SDPA {sdpa_step:.3f} ms, "
+        f"{geo[1]} calls of {sdpa_call * 1e3:.1f} us), row kernels {parts['rows']:.3f} ms in {row_launches_step} "
         f"launches ({recorded} a call in the profile; bytes bound {rows_bound:.3f} ms, and {dup:.3f} ms of "
         f"the LN rows written twice, into q_in and kv_in), the rest "
         f"{parts['rest']:.3f} ms, of {total:.3f} ms")
     out = {k: {"ms": v} for k, v in parts.items()}
-    out["attention"]["bound_ms"] = bound
+    out["attention"].update(bound_ms=bound, launches=by_kernel["attention"],
+                            library_ms=sdpa_step, library_call_ms=sdpa_call)
     out["rows"].update(launches=row_launches_step, bound_ms=rows_bound,
                        duplicate_ms=dup)
     out["quantise"].update(launches=launches["quantise"], bound_ms=q_bound)
@@ -379,6 +393,91 @@ def attention_bytes(B, L, D, U, R, M, Lc, itemsize=2) -> float:
     T = U + R
     Q = T + (1 if M else 0)
     return float(L * itemsize * B * D * (2 * Q + 2 * (M + T) + 2 * Lc))
+
+
+def attention_sdpa_ms(B, L, D, U, R, M, Lc, H, dtype):
+    """The attention part's library yardstick: one
+    F.scaled_dot_product_attention call with the boolean mask on q [B, H,
+    Q, Dh] and k, v [B, H, K, Dh] of one layer of A's attention in
+    ``dtype`` (fill counts from seeded lengths), timed here and used nowhere
+    in the port.  Returns (ms a call, ms for L calls: a step)."""
+    import torch
+    import torch.nn.functional as F
+    from asr_streaming_tpu_torch.ops import emformer_attention as ek
+    dev = torch.device("cuda", 0)
+    Q, K = R + U + (1 if M else 0), M + R + Lc + U
+    gen = torch.Generator().manual_seed(11)
+    q, k, v = (torch.randn((B, H, n, D // H), generator=gen).to(dev, dtype)
+               for n in (Q, K, K))
+    length = (torch.randint(0, 8, (B,), generator=gen) * U).to(dev)
+    mask = ek.attention_mask(torch.clamp(length // U, max=M).int(),
+                             torch.clamp(length, max=Lc).int(), Q=Q, K=K,
+                             M=M, R=R, Lc=Lc, use_mem=M > 0)[:, None]
+    ms = sdpa_ms(q, k, v, mask, f"A's attention B={B} Q={Q} K={K}")
+    return ms, ms * L
+
+
+def sdpa_ms(q, k, v, mask, label) -> float:
+    """Device ms of one F.scaled_dot_product_attention call with the
+    boolean mask, on q [B, H, Q, Dh], k and v [B, H, K, Dh] as given and,
+    where K is not a multiple of 8, with the keys padded to one (zero k
+    and v rows the mask leaves out: the same function).  Logs the kernels
+    each ran (the backend PyTorch chose) and returns the faster."""
+    import torch
+    import torch.nn.functional as F
+    K = k.shape[2]
+    runs = {"as given": (q, k, v, mask)}
+    pad = -K % 8
+    if pad:
+        runs["keys padded to 8"] = (
+            q, F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad)),
+            F.pad(mask, (0, pad), value=False))
+    times = []
+    for name, (qq, kk, vv, mm) in runs.items():
+        ms, rows = device_times(lambda: F.scaled_dot_product_attention(
+            qq, kk, vv, attn_mask=mm), 20)
+        log(f"[sdpa] {label}, {name}: {ms * 1e3:.1f} us in "
+            + ", ".join(f"{n} x{c} {t * 1e3:.1f} us" for t, c, n in rows[:3]))
+        times.append(ms)
+    return min(times)
+
+
+# A's attention and D at the serving shapes: name -> (kernel, B, D, H, U,
+# R, M, Lc, dtype)
+ATTENTION_SHAPES = {
+    "A vi bf16": ("A", B_SLOTS, 512, 8, 16, 4, 4, 32, "bf16"),
+    "A en bf16": ("A", B_SLOTS, 512, 8, 4, 1, 0, 30, "bf16"),
+    "A vi f32 B=1": ("A", 1, 512, 8, 16, 4, 4, 32, "f32"),
+    "A vi f32": ("A", B_SLOTS, 512, 8, 16, 4, 4, 32, "f32"),
+    "D vi f32": ("D", B_SLOTS, 512, 8, 16, 4, 4, 32, "f32"),
+    "D vi bf16": ("D", B_SLOTS, 512, 8, 16, 4, 4, 32, "bf16"),
+}
+
+
+def attention_resources():
+    """Registers a thread, shared memory a block and blocks resident an SM
+    of A's attention and of D at ``ATTENTION_SHAPES``, with the plan, for
+    the package first on sys.path, from its library's own report
+    (``kernel_attention_plan``).  Logs a ``[resources]`` line each; returns
+    {name: report}."""
+    import torch
+    from asr_streaming_tpu_torch.ops import emformer_attention as ek
+    out = {}
+    for name, (kind, B, D, H, U, R, M, Lc, dt) in ATTENTION_SHAPES.items():
+        Q, K = R + U + (1 if M else 0), M + R + Lc + U
+        r = ek.kernel_attention_plan(
+            kind, B=B, Q=Q, K=K, D=D, H=H, M=M, R=R, Lc=Lc, use_mem=M > 0,
+            dtype=torch.bfloat16 if dt == "bf16" else torch.float32,
+            out_dtype=torch.bfloat16 if dt == "bf16" else torch.float32)
+        log(f"[resources] {name}: {r['registers']} registers a thread, "
+            f"{r['smem']} bytes of shared memory a block of {r['warps']} "
+            f"warps, {r['resident']} blocks resident an SM, grid "
+            f"{r['grid']}, {r['groups']} groups of "
+            f"{r['warps'] // r['groups']} warps, {r['hpu']} heads x "
+            f"{r['wph']} warps a unit, {r['stages']} stages of "
+            f"{r['stage_bytes']} bytes, {r['units']} units")
+        out[name] = r
+    return out
 
 
 def quantise_bytes(B, L, D, U, R, M, Lc, F, itemsize=2,
@@ -665,6 +764,7 @@ def phase_build():
         if "registers" in line or "bytes smem" in line or "spill" in line \
                 or "Compiling entry" in line or line.startswith("=="):
             log(f"[build]   {line.strip()}")
+    attention_resources()
 
 
 def emformer_flops(B, L, D, F, U, R, M, Lc):
@@ -957,14 +1057,11 @@ def check_layer_plain(cfg, params, B, n_ticks, tol, gen, device, label):
     return worst, args, kw
 
 
-def check_attention(cfg, B, gen, device):
-    """Kernel D against its plain version in f32 at rtol = atol = 1e-4,
-    at the VI serving shape; times beside SDPA with the boolean mask.  Then
-    with bf16 inputs and output, as the eager route calls it: bit for bit
-    the f32 kernel on the widened inputs, then cast; timed beside SDPA on
-    the same bf16 tensors."""
+def attention_inputs(cfg, B, gen, device):
+    """Kernel D's inputs at ``cfg``'s geometry with memory, B slots, f32:
+    q, k, v, the fill counts from seeded lengths, the wrapper's keywords
+    and the boolean mask [B, 1, Q, K] (SDPA's)."""
     import torch
-    import torch.nn.functional as F
     from asr_streaming_tpu_torch.ops import emformer_attention as ek
     U, R = cfg.segment_length, cfg.right_context_length
     M, Lc, D, H = (cfg.max_memory_size, cfg.left_context_length,
@@ -979,14 +1076,28 @@ def check_attention(cfg, B, gen, device):
     m_m = torch.clamp(length // U, max=M).int()
     kw = dict(num_heads=H, M=M, R=R, Lc=Lc, U=U, use_mem=True,
               neg_inf=cfg.negative_inf)
+    mask = ek.attention_mask(m_m, m_kv, Q=Q, K=K, M=M, R=R, Lc=Lc,
+                             use_mem=True)[:, None]
+    return q, k, v, m_m, m_kv, kw, mask
+
+
+def check_attention(cfg, B, gen, device):
+    """Kernel D against its plain version in f32 at rtol = atol = 1e-4,
+    at the VI serving shape; times beside SDPA with the boolean mask.  Then
+    with bf16 inputs and output, as the eager route calls it: bit for bit
+    the f32 kernel on the widened inputs, then cast; timed beside SDPA on
+    the same bf16 tensors."""
+    import torch
+    import torch.nn.functional as F
+    from asr_streaming_tpu_torch.ops import emformer_attention as ek
+    q, k, v, m_m, m_kv, kw, mask = attention_inputs(cfg, B, gen, device)
+    (B, Q, D), K, H = q.shape, k.shape[1], kw["num_heads"]
     got = ek.emformer_attention(q, k, v, m_m, m_kv, **kw)
     torch.cuda.synchronize()
     want = ek.emformer_attention_plain(q, k, v, m_m, m_kv, **kw)
     err = (got - want).abs().max().item()
     if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
         fail(f"D: max |kernel - plain| {err:.3e} beyond rtol=atol=1e-4")
-    mask = ek.attention_mask(m_m, m_kv, Q=Q, K=K, M=M, R=R, Lc=Lc,
-                             use_mem=True)[:, None]
     q4, k4, v4 = (t.view(B, -1, H, D // H).transpose(1, 2) for t in (q, k, v))
 
     def library():
@@ -998,7 +1109,7 @@ def check_attention(cfg, B, gen, device):
                       20, need="attention")[0]
     plain_ms = device_times(
         lambda: ek.emformer_attention_plain(q, k, v, m_m, m_kv, **kw), 5)[0]
-    lib_ms = device_times(library, 20)[0]
+    lib_ms = sdpa_ms(q4, k4, v4, mask, f"D B={B} Q={Q} K={K} f32")
     nbytes = 4 * (2 * B * Q * D + 2 * B * K * D) + 8 * B
     flops = 2 * 2 * B * Q * K * D
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
@@ -1021,8 +1132,7 @@ def check_attention(cfg, B, gen, device):
     ms_bf = device_times(lambda: ek.emformer_attention(
         qb, kb, vb, m_m, m_kv, out_dtype=torch.bfloat16, **kw), 20,
         need="attention")[0]
-    lib_bf = device_times(lambda: F.scaled_dot_product_attention(
-        q4b, k4b, v4b, attn_mask=mask), 20)[0]
+    lib_bf = sdpa_ms(q4b, k4b, v4b, mask, f"D B={B} Q={Q} K={K} bf16")
     bound_bf = (2 * (2 * B * Q * D + 2 * B * K * D) + 8 * B) / PEAK_BYTES * 1e3
     log(f"[kernels] D bf16 in/out: == the f32 kernel on the widened inputs "
         f"then cast, bit for bit; {ms_bf * 1e3:.1f} us (SDPA on the bf16 "
@@ -5074,7 +5184,9 @@ def kernel_a_times():
     A-int8_ffn VI steps (``stack_digest`` with ``quant``: their digests,
     and by part the row quantiser, the int8 GEMMs, the row kernels and the
     attention, with their launches from the library's counters), one f32
-    step at B=1 and ``ASRModel.emissions`` on 10 s of audio.  Logs one
+    step at B=1, each step's attention part beside its bytes bound and
+    scaled_dot_product_attention (``stack_parts``), and
+    ``ASRModel.emissions`` on 10 s of audio.  Logs one
     ``[compare]`` line.  To compare two commits, call it from a small
     driver with either checkout's package first on sys.path (parent,
     change, change, parent, a process each)."""
@@ -5135,7 +5247,11 @@ def kernel_a_times():
         runs.append(time.perf_counter() - t0)
     pkg = os.path.relpath(os.path.dirname(os.path.dirname(es.__file__)), HERE)
     def rows(p):
-        return f"row part {p['rows']['ms']:.3f} in {p['rows']['launches']}"
+        return (f"row part {p['rows']['ms']:.3f} in {p['rows']['launches']}"
+                f", attention {p['attention']['ms']:.3f} in "
+                f"{p['attention']['launches']} (bound "
+                f"{p['attention']['bound_ms']:.3f}, SDPA "
+                f"{p['attention']['library_ms']:.3f})")
 
     def quantised(q):
         digest_q, ms_q, p = int8[q]
@@ -5144,9 +5260,8 @@ def kernel_a_times():
                 f"{p['quantise']['launches']} (bound "
                 f"{p['quantise']['bound_ms']:.3f}), int8 products "
                 f"{p['gemm_int8']['ms']:.3f} in {p['gemm_int8']['launches']}, "
-                f"bf16 products {p['gemm']['ms']:.3f}, {rows(p)} (bound "
-                f"{p['rows']['bound_ms']:.3f}), attention "
-                f"{p['attention']['ms']:.3f}")
+                f"bf16 products {p['gemm']['ms']:.3f}, {rows(p)}; rows' "
+                f"bound {p['rows']['bound_ms']:.3f}")
 
     log(f"[compare] {pkg}: A vi f32 L=20 at 512 slots {ms_512:.3f} ms device; A vi bf16 "
         f"{ms_bf16:.3f} ms device, its products "
@@ -5178,11 +5293,41 @@ def kernel_b_times():
         torch.cuda.empty_cache()
 
 
+def kernel_d_times():
+    """Kernel D's device time on the card for the package first on
+    sys.path, at the VI serving shape (512 slots, inputs from seed 5), f32
+    in and out and bf16 in and out, each beside one
+    scaled_dot_product_attention call with the boolean mask on the same
+    tensors and the bytes bound.  Logs one ``[compare] D`` line."""
+    import torch
+    from asr_streaming_tpu_torch.models.emformer import EmformerConfig
+    from asr_streaming_tpu_torch.ops import emformer_attention as ek
+    dev = torch.device("cuda", 0)
+    q, k, v, m_m, m_kv, kw, mask = attention_inputs(
+        EmformerConfig(), B_SLOTS, torch.Generator().manual_seed(5), dev)
+    B, Q, D = q.shape
+    H, K = kw["num_heads"], k.shape[1]
+    parts = []
+    for dt, isz in ((torch.float32, 4), (torch.bfloat16, 2)):
+        qd, kd, vd = (t.to(dt) for t in (q, k, v))
+        ms = device_times(lambda: ek.emformer_attention(
+            qd, kd, vd, m_m, m_kv, out_dtype=dt, **kw), 20,
+            need="attention")[0]
+        q4, k4, v4 = (t.view(B, -1, H, D // H).transpose(1, 2)
+                      for t in (qd, kd, vd))
+        lib = sdpa_ms(q4, k4, v4, mask, f"D B={B} Q={Q} K={K} {dt}")
+        bound = (isz * (2 * B * Q * D + 2 * B * K * D) + 8 * B) / PEAK_BYTES
+        parts.append(f"{'f32' if isz == 4 else 'bf16'} {ms * 1e3:.1f} us "
+                     f"(SDPA {lib * 1e3:.1f}, bound {bound * 1e6:.1f})")
+    log(f"[compare] D vi at 512 slots: {'; '.join(parts)}")
+
+
 def compare(roots) -> None:
-    """``kernel_a_times`` and ``kernel_b_times`` for
-    the package of each checkout root in turn (a directory that holds
-    ``asr_streaming_tpu_torch/``, e.g. an unpacked ``git archive`` of a
-    parent), a process each with that package first on sys.path and the
+    """``attention_resources``, ``kernel_a_times``, ``kernel_b_times`` and
+    ``kernel_d_times`` for the package of each checkout root in turn (a
+    directory that holds ``asr_streaming_tpu_torch/``, e.g. an unpacked
+    ``git archive`` of a parent, whose library reports the attention's plan
+    and counts its launches), a process each with that package first on sys.path and the
     functions of this script: give them as parent, change, change,
     parent to compare two commits in one call.  Fails if a run fails."""
     here = os.path.join(HERE, "chip_smoke.py")
@@ -5192,13 +5337,14 @@ def compare(roots) -> None:
                 f"spec = importlib.util.spec_from_file_location('cs', {here!r})"
                 "\ncs = importlib.util.module_from_spec(spec)\n"
                 "spec.loader.exec_module(cs)\n"
-                "from asr_streaming_tpu_torch.ops import _cuda\n_cuda.build()\n"
-                "cs.kernel_a_times()\ncs.kernel_b_times()\n")
+                "cs.attention_resources()\ncs.kernel_a_times()\n"
+                "cs.kernel_b_times()\ncs.kernel_d_times()\n")
         r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                            text=True, cwd=root)
         log(f"[compare] == {root} rc={r.returncode}")
         for line in (r.stdout + r.stderr).splitlines():
-            if line.startswith(("[compare]", "[profile]", "[kernels]")) or \
+            if line.startswith(("[compare]", "[profile]", "[kernels]",
+                                "[resources]", "[sdpa]")) or \
                     r.returncode:
                 log(line)
         if r.returncode:

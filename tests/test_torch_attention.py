@@ -6,8 +6,12 @@ only the summation order differs), the same on bf16 inputs and outputs
 (bf16 in is widened exactly, a bf16 out is the f32 result rounded once:
 equal to the f32 path then cast), and the eager route with
 ``fused_attention`` against JAX's XLA route with ``use_pallas_attention``
-at the JAX package's tolerances, with reset/advance churn; and the
-geometry the CUDA core takes, refused with a clear error outside it.
+at the JAX package's tolerances, with reset/advance churn, also at one
+and three slots (the small-B launch plan's shapes); the geometry the CUDA
+core takes, refused with a clear error outside it; and the launch plan
+the CUDA core computes on the host (``attention_plan``): every (slot,
+head, query row) taken by exactly one warp, shared memory within a block's
+227 KB, and at the serving shapes no warp without rows.
 """
 
 import dataclasses
@@ -28,6 +32,32 @@ from asr_streaming_tpu_torch.ops.emformer_attention import (
 from tests.test_torch_emformer import (
     EN, VI, _compare, _inputs, _run_jax, _run_torch, _setup,
 )
+
+# (kind, B, H, D, U, R, M, Lc, itemsize): A's attention ("A": bf16 on the
+# tensor cores, f32 on the FMA path) or D's ("D"), at the serving shapes
+# (VI and EN at 512 slots, the offline API's one and three slots), around
+# the SMs (131, 133 slots) and at the core's edges (K = 128, Q = 32, a
+# 16-wide head, no memory)
+PLAN_SHAPES = {
+    "vi_bf16_512": ("A", 512, 8, 512, 16, 4, 4, 32, 2),
+    "en_bf16_512": ("A", 512, 8, 512, 4, 1, 0, 30, 2),
+    "vi_f32_b1": ("A", 1, 8, 512, 16, 4, 4, 32, 4),
+    "vi_f32_b3": ("A", 3, 8, 512, 16, 4, 4, 32, 4),
+    "vi_f32_512": ("A", 512, 8, 512, 16, 4, 4, 32, 4),
+    "vi_bf16_131": ("A", 131, 8, 512, 16, 4, 4, 32, 2),
+    "vi_bf16_133": ("A", 133, 8, 512, 16, 4, 4, 32, 2),
+    "k128_bf16": ("A", 7, 8, 512, 16, 4, 4, 104, 2),
+    "k128_f32": ("A", 133, 8, 512, 16, 4, 4, 104, 4),
+    "q32_bf16": ("A", 2, 8, 512, 16, 15, 4, 32, 2),
+    "tiny_bf16": ("A", 6, 4, 64, 8, 2, 4, 16, 2),
+    "tiny_f32_nomem": ("A", 6, 4, 64, 4, 1, 0, 10, 4),
+    "d_f32_512": ("D", 512, 8, 512, 16, 4, 4, 32, 4),
+    "d_bf16_512": ("D", 512, 8, 512, 16, 4, 4, 32, 2),
+    "d_f32_b1": ("D", 1, 8, 512, 16, 4, 4, 32, 4),
+    "d_bf16_131": ("D", 131, 8, 512, 16, 4, 4, 32, 2),
+}
+SERVING = ("vi_bf16_512", "en_bf16_512", "vi_f32_b1", "vi_f32_b3",
+           "vi_f32_512", "d_f32_512", "d_bf16_512")
 
 
 @pytest.mark.parametrize("geo", [VI, EN], ids=["vi_mem", "en_nomem"])
@@ -152,3 +182,96 @@ def test_kernel_entries_refuse_keys_past_the_core():
                      torch.zeros(B, D), U=U, R=R, M=M, Lc=Lc, H=H,
                      use_mem=True, tanh_on_mem=False, neg_inf=-1e8,
                      activation="gelu", cdt=torch.bfloat16)
+
+
+def _plan(kind, B, H, D, U, R, M, Lc, itemsize):
+    use_mem = M > 0
+    if kind == "A":
+        return ea.stack_attention_plan(B, H, D, U, R, M, Lc, use_mem,
+                                       itemsize)
+    Q, K = R + U + int(use_mem), M + R + Lc + U
+    return ea.plain_attention_plan(B, Q, K, D, H, itemsize)
+
+
+@pytest.mark.parametrize("name", list(PLAN_SHAPES))
+def test_attention_plan_covers_every_query_row_once(name):
+    kind, B, H, D, U, R, M, Lc, itemsize = PLAN_SHAPES[name]
+    Q = R + U + int(M > 0)
+    plan = _plan(*PLAN_SHAPES[name])
+    seen = np.zeros((B, H, Q), np.int32)
+    warps = plan["warps"] // plan["groups"]
+    empty = 0
+    for _, _, b, h, rows in ea.plan_rows(plan, B, H, Q):
+        seen[b, h, list(rows)] += 1
+        empty += len(rows) == 0
+    assert (seen == 1).all(), np.argwhere(seen != 1)[:5]
+    assert plan["units"] * warps == sum(1 for _ in ea.plan_rows(plan, B, H,
+                                                               Q))
+    if name in SERVING:
+        assert empty == 0, f"{empty} warps without query rows"
+
+
+@pytest.mark.parametrize("name", list(PLAN_SHAPES))
+def test_attention_plan_fits_a_block(name):
+    kind, B, *_ = PLAN_SHAPES[name]
+    plan = _plan(*PLAN_SHAPES[name])
+    assert plan["smem"] <= ea.MAX_SMEM
+    assert plan["warps"] <= ea.MAX_WARPS
+    assert plan["stages"] == plan["groups"] + 1
+    assert plan["warps"] == plan["groups"] * plan["hpu"] * plan["wph"]
+    if plan["units"] <= ea.H100_SMS:
+        assert plan["groups"] == 1      # fewer units than SMs: spread them
+
+
+def test_attention_plan_spreads_the_offline_step():
+    """At one slot the FMA path gives each warp one query row and a head's
+    21 rows three blocks of seven warps: 24 blocks, where one block a head
+    left 124 of the card's 132 SMs idle."""
+    plan = _plan(*PLAN_SHAPES["vi_f32_b1"])
+    assert (plan["rpw"], plan["wph"], plan["splits"]) == (1, 7, 3)
+    assert plan["units"] == 24
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("geo", [VI, EN], ids=["vi_mem", "en_nomem"])
+def test_attention_core_matches_jax_kernel_at_few_slots(geo, B):
+    """Kernel D's function at one and three slots (the small-B plan's
+    shapes), fill counts from lengths 0, 1, past U and past Lc, against
+    the Pallas kernel in interpret mode at 1e-5."""
+    rng = np.random.default_rng(40 + B)
+    D, H = geo["d_model"], geo["num_heads"]
+    U, R = geo["segment_length"], geo["right_context_length"]
+    M, Lc = geo["max_memory_size"], geo["left_context_length"]
+    use_mem = M > 0
+    Q, K = R + U + (1 if use_mem else 0), M + R + Lc + U
+    q = rng.standard_normal((B, Q, D)).astype(np.float32)
+    k = rng.standard_normal((B, K, D)).astype(np.float32)
+    v = rng.standard_normal((B, K, D)).astype(np.float32)
+    length = np.array([1, U + 1, Lc + 3 * U][:B], np.int32)
+    m_kv = np.minimum(Lc, length).astype(np.int32)
+    m_m = (np.minimum(M, length // U) if use_mem
+           else np.zeros(B)).astype(np.int32)
+    kw = dict(num_heads=H, M=M, R=R, Lc=Lc, U=U, use_mem=use_mem,
+              neg_inf=-1e8)
+    want = fused_emformer_attention(*map(jnp.asarray, (q, k, v, m_m, m_kv)),
+                                    interpret=True, **kw)
+    got = emformer_attention(*map(torch.from_numpy, (q, k, v, m_m, m_kv)),
+                             **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("geo", [VI, EN], ids=["vi_mem", "en_nomem"])
+def test_stack_route_matches_jax_xla_path_at_few_slots(geo, B, dtype):
+    """The stack route (kernel A's plain chain here) at one and three
+    slots, with reset/advance churn over three steps, against JAX's XLA
+    route at the JAX package's tolerances."""
+    jcfg, tcfg, jparams, tparams, tol = _setup(geo, dtype, seed=41)
+    xs, rs, adv = _inputs(geo, 3, B, seed=42 + B)
+    want = _run_jax(jcfg, jparams, xs, rs, adv)
+    got = _run_torch(te.emformer_stream_step,
+                     dataclasses.replace(tcfg, route="stack"), tparams, xs,
+                     rs, adv)
+    _compare(got, want, tol)

@@ -1201,8 +1201,126 @@ def test_a_step_launches_two_row_kernels_a_layer(geo, dtype, quant):
     assert counts == {"rows_first": 1, "rows_residual": L,
                       "rows_boundary": L - 1, "rows_last": 1,
                       "quantize_rows": L * len({"w_out", "ff_w2"} & set(names)),
-                      "gemm_int8": L * int8, "gemm_bf16": L * bf16}
+                      "gemm_int8": L * int8, "gemm_bf16": L * bf16,
+                      "attention": L}
     names = {e.key for e in prof.key_averages()}
     assert not [n for n in names
                 if any(k in n for k in ("state_roll", "ln_in", "out_ln",
                                         "residual_ffn_ln"))]
+
+
+# The attention core's persistent plan (csrc/emformer_attention_core.cuh):
+# fewer slots than SMs, one and three (the offline API's small-B plan), and
+# partial last waves of the persistent grid; a 64-wide head (the serving
+# width, fixed at compile time) and 16-wide (the other kernels).
+ATTN_BATCHES = [1, 2, 7, 131, 133, 512]
+# geometry cases: (D, H, U, R, M, Lc): the VI shape at a narrow width, no
+# memory (EN), K = 128 keys, 16-wide heads; and the serving widths (VI
+# and EN at D = 512, H = 8: their own plans of heads a unit, groups and
+# stages), run at a partial last wave and below the SMs
+ATTN_GEOS = {"vi": (128, 2, 16, 4, 4, 32), "en": (128, 2, 4, 1, 0, 30),
+             "k128": (128, 2, 16, 4, 4, 104), "dh16": (64, 4, 8, 2, 4, 16),
+             "vi512": (512, 8, 16, 4, 4, 32), "en512": (512, 8, 4, 1, 0, 30)}
+ATTN_CASES = ([(B, geo) for B in ATTN_BATCHES
+               for geo in ("vi", "en", "k128", "dh16")]
+              + [(B, geo) for B in (7, 133) for geo in ("vi512", "en512")])
+
+
+def _churned_lengths(B, U, Lc, gen):
+    """Lengths 0, 1, U, past Lc and random, and reset slots among the
+    advancing ones: every fill-count case of the mask."""
+    fixed = torch.tensor([0, 1, U, Lc + 3, 3 * U + 2], dtype=torch.int32)
+    rand = torch.randint(0, 8 * U, (B,), generator=gen, dtype=torch.int32)
+    length = torch.where(torch.arange(B) < len(fixed),
+                         fixed[torch.arange(B) % len(fixed)], rand)
+    reset = torch.rand(B, generator=gen) < 0.25
+    advance = torch.rand(B, generator=gen) < 0.75
+    return length, reset, advance
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,geo", ATTN_CASES)
+def test_stack_attention_matches_plain_at_any_batch(B, geo, dtype, tol):
+    """Kernel A (its attention on the persistent core: tensor cores in
+    bf16, the FMA path in f32) against its plain version over two chained
+    steps, at each batch and geometry; its launches counted, two a step."""
+    dev = _cuda()
+    D, H, U, R, M, Lc = ATTN_GEOS[geo]
+    cfg = te.EmformerConfig(d_model=D, num_heads=H, ffn_dim=128,
+                            num_layers=2, segment_length=U,
+                            left_context_length=Lc, right_context_length=R,
+                            max_memory_size=M, compute_dtype=dtype)
+    gen = torch.Generator().manual_seed(B)
+    params = te.init_emformer_params(gen, cfg, dev)
+    kw = dict(U=U, R=R, M=M, Lc=Lc, H=H, use_mem=cfg.use_mem,
+              tanh_on_mem=cfg.tanh_on_mem, neg_inf=cfg.negative_inf,
+              activation=cfg.activation, cdt=dtype)
+    length, reset, advance = _churned_lengths(B, U, Lc, gen)
+    state = [torch.randn((2, B, n, D), generator=gen).to(dev, dtype)
+             for n in (M, Lc, Lc)]
+    length, reset, advance = length.to(dev), reset.to(dev), advance.to(dev)
+    for _ in range(2):
+        x = torch.randn((B, U + R, D), generator=gen).to(dev)
+        eff = torch.where(reset, torch.zeros_like(length), length)
+        before = es.kernel_launch_counts()["attention"]
+        got = es.emformer_stack(params, x, *state, eff, reset, advance, **kw)
+        assert es.kernel_launch_counts()["attention"] == before + 2
+        want = es.emformer_stack_plain(params, x, *state, eff, reset, advance,
+                                       **kw)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+        state = list(want[1:])
+        length = torch.where(advance, eff + U, eff).to(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,geo", ATTN_CASES)
+def test_emformer_attention_kernel_matches_plain_at_any_batch(B, geo, dtype):
+    """Kernel D at each batch and geometry (f32 or bf16 in, f32 out)
+    against its plain version at 1e-4."""
+    from asr_streaming_tpu_torch.ops import emformer_attention as ek
+    dev = _cuda()
+    D, H, U, R, M, Lc = ATTN_GEOS[geo]
+    Q, K = R + U + (1 if M else 0), M + R + Lc + U
+    gen = torch.Generator().manual_seed(B + 1)
+    q, k, v = (torch.randn(s, generator=gen).to(dev, dtype)
+               for s in ((B, Q, D), (B, K, D), (B, K, D)))
+    length = _churned_lengths(B, U, Lc, gen)[0].to(dev)
+    m_kv = torch.clamp(length, max=Lc)
+    m_m = torch.clamp(length // U, max=M)
+    kw = dict(num_heads=H, M=M, R=R, Lc=Lc, U=U, use_mem=M > 0)
+    n0 = ek.LAUNCHES
+    got = ek.emformer_attention(q, k, v, m_m, m_kv, **kw)
+    assert ek.LAUNCHES == n0 + 1
+    want = ek.emformer_attention_plain(q, k, v, m_m, m_kv, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,dtype,B,geo", [
+    ("A", torch.bfloat16, 512, (512, 8, 16, 4, 4, 32)),
+    ("A", torch.bfloat16, 512, (512, 8, 4, 1, 0, 30)),
+    ("A", torch.float32, 1, (512, 8, 16, 4, 4, 32)),
+    ("A", torch.float32, 133, (128, 2, 16, 4, 4, 104)),
+    ("D", torch.float32, 512, (512, 8, 16, 4, 4, 32)),
+    ("D", torch.bfloat16, 7, (64, 4, 8, 2, 4, 16))],
+    ids=["vi_bf16", "en_bf16", "b1_f32", "k128_f32", "d_f32", "d_bf16"])
+def test_attention_plan_is_the_librarys(kind, dtype, B, geo):
+    """ops/emformer_attention.py::attention_plan (which the CPU tests
+    check) is the plan the CUDA core computes on the host."""
+    from asr_streaming_tpu_torch.ops import emformer_attention as ek
+    _cuda()
+    D, H, U, R, M, Lc = geo
+    Q, K = R + U + (1 if M else 0), M + R + Lc + U
+    lib = ek.kernel_attention_plan(kind, B=B, Q=Q, K=K, D=D, H=H, M=M, R=R,
+                                   Lc=Lc, use_mem=M > 0, dtype=dtype)
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    want = (ek.stack_attention_plan(B, H, D, U, R, M, Lc, M > 0, itemsize)
+            if kind == "A" else ek.plain_attention_plan(B, Q, K, D, H, itemsize))
+    assert {k: lib[k] for k in want} == want
+    assert lib["resident"] >= 1 and lib["registers"] <= 128
